@@ -1,0 +1,262 @@
+// K3: one whole point-to-point ICP per launch, fresh or lazy.
+//
+// Replaces the Pallas kernel slam_sensor_fusion_tpu/ops/icp_fused.py
+// `_make_fused_kernel` (launched by `_fused_core`), which the per-frame fast
+// step (`icp_align_fused` with the cached target), the per-frame branch of
+// the superblock pipeline (`icp_align_fused_paged`, lazy in parity mode) and
+// the lite pipeline run. Per iteration: tile-major association over the
+// pair list under the current (R, t), the 17 gated Kabsch moments, and a
+// Newton-polar Kabsch step on thread 0.
+//   fresh (lazy = 0): re-associate every iteration, weights d2 < gate; stop
+//     on err < acceptable, |err_prev - err| < eps or a degenerate polar.
+//   lazy (lazy = 1): associate once at the prior; the alive set only
+//     shrinks; re-associate only on a plateau that is not a hit; n_corr is
+//     the initial alive count (icp_fused.py:338-410).
+// Outputs: T_out (4, 4) in the rebased frame and stats (128) = [err, iters,
+// n_corr, det_min, 0...], as the JAX kernel.
+//
+// What bounds it on an H100: association. Each pass walks every source
+// tile's admitted target tiles, TM x TN direct-difference distances a pair
+// (~13 float instructions each with the running minimum); at the session's
+// shapes (8 source tiles of 512, ~10-20 admitted tiles each) that is ~10^7
+// distances a pass, issued by ONE SM, since the ICP is a serial chain of
+// passes and one block per launch is the simple, correct first design (1 of
+// 132 SMs). Bytes are not the limit: the target pages (at most 128 x 6 KiB)
+// stay in L2 and each warp reads one target row at a time as a broadcast.
+//
+// Design: one block of TM x G threads, G = min(nSt, 1024 / TM) groups; group
+// g owns source tiles g, g + G, ... and thread r of a group owns point r of
+// each of them. The per-point scratch (matched x, y, z and the gate/alive
+// weight, a float4 a point: 512 KiB at 128 tiles of 256) does not fit in
+// shared memory, so it lives in a global buffer the wrapper allocates; each
+// thread reads and writes only its own points, so it needs no barrier, and
+// it stays in the 50 MB L2. Within a pair list a strict `<` in visit order
+// keeps the FIRST row of an exact tie within a tile and the earlier tile
+// across tiles, which is the JAX kernel's argmin + strict-`<` rule (K1
+// averages ties instead). The moment sums are the fixed-order block
+// reduction of icp_fused.cuh (no atomics: deterministic), and the library
+// builds with -fmad=false, so products and sums round op by op as in the
+// plain version `_fused_core_plain`.
+#include <cuda_runtime.h>
+
+#include "icp_fused.cuh"
+
+// Mirrors ctypes struct `_K3Params` in ops/icp_fused.py.
+struct K3Params {
+  float gate;  // max_correspondence_dist_sq
+  float eps;   // transformation_epsilon
+  float acc;   // acceptable_mean_error
+  int num_iterations;
+  int min_corr;
+  int lazy;
+};
+
+namespace {
+
+constexpr int kNMom = 17;  // W, Ss[3], St[3], Mst[9], Eabs
+
+struct Shared {
+  // broadcast from thread 0 to the block
+  float R[9];
+  float t[3];
+  int need;  // lazy: re-associate in this iteration
+  int live;  // the ICP loop continues
+  float mom[kNMom];
+};
+
+struct Tiles {
+  const float* src;    // (nSt, 3, TM) sensor-frame source pages
+  const float* tgt;    // (nTt, 3, TN) rebased target pages
+  const int* ps;       // (nSt,) pair_start
+  const int* pc;       // (nSt,) pair_cnt
+  const int* pt;       // (max_pairs,) pair_tgt
+  float4* scratch;     // (nSt, TM): matched x, y, z and weight
+  int nSt, TM, TN;
+};
+
+// Associate this thread's points under (S.R, S.t). shrink = 0: weight =
+// (d2 < gate); shrink = 1: weight *= (d2 < gate).
+__device__ void associate(const Shared& S, const Tiles& T, float gate, bool shrink) {
+  float R[9], t[3];
+#pragma unroll
+  for (int m = 0; m < 9; ++m) R[m] = S.R[m];
+  t[0] = S.t[0]; t[1] = S.t[1]; t[2] = S.t[2];
+  const int G = blockDim.x / T.TM;
+  const int r = threadIdx.x % T.TM;
+  for (int i = threadIdx.x / T.TM; i < T.nSt; i += G) {
+    const float* s = T.src + (size_t)i * 3 * T.TM;
+    const float px = s[r], py = s[T.TM + r], pz = s[2 * T.TM + r];
+    const float sx = R[0] * px + R[1] * py + R[2] * pz + t[0];
+    const float sy = R[3] * px + R[4] * py + R[5] * pz + t[1];
+    const float sz = R[6] * px + R[7] * py + R[8] * pz + t[2];
+    float best = sfk::kBig, bx = 0.0f, by = 0.0f, bz = 0.0f;
+    const int start = T.ps[i];
+    const int cnt = T.pc[i];
+    for (int q = 0; q < cnt; ++q) {
+      const float* tx = T.tgt + (size_t)T.pt[start + q] * 3 * T.TN;
+      const float* ty = tx + T.TN;
+      const float* tz = tx + 2 * T.TN;
+#pragma unroll 4
+      for (int c = 0; c < T.TN; ++c) {
+        const float x = __ldg(tx + c), y = __ldg(ty + c), z = __ldg(tz + c);
+        const float dx = x - sx;
+        const float dy = y - sy;
+        const float dz = z - sz;
+        const float d2 = dx * dx + dy * dy + dz * dz;
+        if (d2 < best) {
+          best = d2; bx = x; by = y; bz = z;
+        }
+      }
+    }
+    float4* o = T.scratch + (size_t)i * T.TM + r;
+    const float g = best < gate ? 1.0f : 0.0f;
+    *o = make_float4(bx, by, bz, shrink ? o->w * g : g);
+  }
+}
+
+// The 17 gated Kabsch moments under (S.R, S.t), weights from the scratch,
+// into S.mom (every thread must call it).
+__device__ void moments(Shared& S, const Tiles& T, float* red) {
+  float R[9], t[3];
+#pragma unroll
+  for (int m = 0; m < 9; ++m) R[m] = S.R[m];
+  t[0] = S.t[0]; t[1] = S.t[1]; t[2] = S.t[2];
+  float v[kNMom];
+#pragma unroll
+  for (int m = 0; m < kNMom; ++m) v[m] = 0.0f;
+  const int G = blockDim.x / T.TM;
+  const int r = threadIdx.x % T.TM;
+  for (int i = threadIdx.x / T.TM; i < T.nSt; i += G) {
+    const float* s = T.src + (size_t)i * 3 * T.TM;
+    const float px = s[r], py = s[T.TM + r], pz = s[2 * T.TM + r];
+    const float4 b = T.scratch[(size_t)i * T.TM + r];
+    const float w = b.w;
+    const float sp[3] = {R[0] * px + R[1] * py + R[2] * pz + t[0],
+                         R[3] * px + R[4] * py + R[5] * pz + t[1],
+                         R[6] * px + R[7] * py + R[8] * pz + t[2]};
+    const float tb[3] = {b.x, b.y, b.z};
+    v[0] += w;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      v[1 + a] += sp[a] * w;
+      v[4 + a] += tb[a] * w;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) v[7 + 3 * a + c] += sp[a] * w * tb[c];
+    }
+    const float dx = sp[0] - tb[0], dy = sp[1] - tb[1], dz = sp[2] - tb[2];
+    v[16] += w * sqrtf(dx * dx + dy * dy + dz * dz);
+  }
+  sfk::block_sum<kNMom>(v, red, S.mom);
+}
+
+__device__ sfk::IcpOut icp_lazy(Shared& S, const Tiles& T, float* red, const K3Params& prm) {
+  sfk::IcpOut o{sfk::kBig, 0, 0, sfk::kBig};
+  associate(S, T, prm.gate, false);
+  {
+    float v[1] = {0.0f};
+    const int G = blockDim.x / T.TM;
+    const int r = threadIdx.x % T.TM;
+    for (int i = threadIdx.x / T.TM; i < T.nSt; i += G) v[0] += T.scratch[(size_t)i * T.TM + r].w;
+    sfk::block_sum<1>(v, red, S.mom);
+  }
+  o.n_corr = (int)S.mom[0];
+  bool live = o.n_corr >= prm.min_corr;
+  for (int it = 0; it < prm.num_iterations && live; ++it) {
+    moments(S, T, red);
+    float err = 0.0f;
+    bool hit = false;
+    if (threadIdx.x == 0) {
+      err = S.mom[16] / sfk::jmax(S.mom[0], 1.0f);
+      hit = err < prm.acc;
+      S.need = (!hit) && (fabsf(o.err - err) < prm.eps);
+    }
+    __syncthreads();
+    if (S.need) {  // plateau: re-associate, the alive set only shrinks
+      associate(S, T, prm.gate, true);
+      moments(S, T, red);
+    }
+    if (threadIdx.x == 0) {
+      float R_step[9], t_step[3], detH;
+      const bool ok = sfk::solve_step(S.mom, R_step, t_step, &detH);
+      const bool stop = hit || !ok;
+      sfk::apply_step(S.R, S.t, R_step, t_step, stop);
+      o.err = err;
+      o.iters += stop ? 0 : 1;
+      o.det_min = sfk::jmin(o.det_min, detH);
+      S.live = !stop;
+    }
+    __syncthreads();
+    live = S.live;
+  }
+  return o;  // meaningful on thread 0
+}
+
+__device__ sfk::IcpOut icp_fresh(Shared& S, const Tiles& T, float* red, const K3Params& prm) {
+  sfk::IcpOut o{sfk::kBig, 0, 0, sfk::kBig};
+  bool live = true;
+  for (int it = 0; it < prm.num_iterations && live; ++it) {
+    associate(S, T, prm.gate, false);
+    moments(S, T, red);
+    if (threadIdx.x == 0) {
+      const float W = S.mom[0];
+      const float Wc = sfk::jmax(W, 1.0f);
+      const float err = W >= (float)prm.min_corr ? S.mom[16] / Wc : sfk::kBig;
+      float R_step[9], t_step[3], detH;
+      const bool ok = sfk::solve_step(S.mom, R_step, t_step, &detH);
+      const bool stop = err < prm.acc || fabsf(o.err - err) < prm.eps || !ok;
+      sfk::apply_step(S.R, S.t, R_step, t_step, stop);
+      o.err = err;
+      o.n_corr = (int)W;
+      o.iters += stop ? 0 : 1;
+      o.det_min = sfk::jmin(o.det_min, detH);
+      S.live = !stop;
+    }
+    __syncthreads();
+    live = S.live;
+  }
+  return o;
+}
+
+__global__ void __launch_bounds__(1024, 1) icp_fused_kernel(
+    const float* __restrict__ src_pages,  // (nSt, 3, TM)
+    const float* __restrict__ tgt_pages,  // (nTt, 3, TN)
+    const int* __restrict__ pair_start,   // (nSt,)
+    const int* __restrict__ pair_cnt,     // (nSt,)
+    const int* __restrict__ pair_tgt,     // (max_pairs,)
+    const float* __restrict__ T0,         // (4, 4) rebased initial transform
+    float* __restrict__ T_out,            // (4, 4)
+    float* __restrict__ stats,            // (128,)
+    float4* __restrict__ scratch,         // (nSt, TM)
+    int nSt, int TM, int TN, K3Params prm) {
+  __shared__ float red[kNMom * 32];
+  __shared__ Shared S;
+  const Tiles T{src_pages, tgt_pages, pair_start, pair_cnt, pair_tgt, scratch, nSt, TM, TN};
+  if (threadIdx.x == 0) sfk::read44(T0, S.R, S.t);
+  __syncthreads();
+  const sfk::IcpOut o = prm.lazy ? icp_lazy(S, T, red, prm) : icp_fresh(S, T, red, prm);
+  if (threadIdx.x == 0) {
+    sfk::pack44(S.R, S.t, 1.0f, T_out);
+    stats[0] = o.err;
+    stats[1] = (float)o.iters;
+    stats[2] = (float)o.n_corr;
+    stats[3] = o.det_min;
+    for (int m = 4; m < 128; ++m) stats[m] = 0.0f;
+  }
+}
+
+}  // namespace
+
+// Launch K3 on `stream`; returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for a tile width it does not take.
+extern "C" int sfk_icp_fused(const float* src_pages, const float* tgt_pages,
+                             const int* pair_start, const int* pair_cnt,
+                             const int* pair_tgt, const float* T0, float* T_out,
+                             float* stats, float* scratch, int nSt, int TM, int TN,
+                             const K3Params* prm, cudaStream_t stream) {
+  if (TM < 32 || TM > 1024 || TM % 32 || nSt < 1) return (int)cudaErrorInvalidValue;
+  const int G = nSt < 1024 / TM ? nSt : 1024 / TM;
+  icp_fused_kernel<<<1, TM * G, 0, stream>>>(
+      src_pages, tgt_pages, pair_start, pair_cnt, pair_tgt, T0, T_out, stats,
+      reinterpret_cast<float4*>(scratch), nSt, TM, TN, *prm);
+  return (int)cudaGetLastError();
+}

@@ -1,8 +1,8 @@
-// Shared device helpers for the ICP kernels: the 3x3 register math of
-// slam_sensor_fusion_tpu/ops/icp_fused.py:56-128 (_adjugate_transpose_over_det,
-// _mv3, _mm3, _newton_polar) plus the rigid-transform helpers of
-// ops/superblock_fused.py:62-102 and a deterministic block reduction that
-// stands in for _sum_all.
+// Shared device helpers for the ICP kernels K1 and K3: the 3x3 register math
+// of slam_sensor_fusion_tpu/ops/icp_fused.py:56-128 (_adjugate_transpose_over_det,
+// _mv3, _mm3, _newton_polar) and its Kabsch step (:285-295), the
+// rigid-transform helpers of ops/superblock_fused.py:62-102 and a
+// deterministic block reduction that stands in for _sum_all.
 //
 // Matrices are row-major float[9]; translations float[3]. Every expression
 // keeps the JAX package's operand order, and the library is compiled with
@@ -142,6 +142,50 @@ __device__ __forceinline__ void pack44(const float* R, const float* t,
   T[14] = 0.0f * scale;
   T[15] = scale;
 }
+
+// Kabsch step from the 17 moments [W, Ss(3), St(3), Mst(9), Eabs]
+// (icp_fused.py:285-295): R_step = polar(H^T) by Newton, t_step = c_t -
+// R_step c_s; detH = det(H). Returns the polar factor's ok flag.
+__device__ inline bool solve_step(const float* mom, float* R_step, float* t_step,
+                                  float* detH) {
+  const float W = mom[0];
+  const float Wc = jmax(W, 1.0f);
+  float c_s[3], c_t[3], Hm[9], HmT[9], adj[9];
+  for (int a = 0; a < 3; ++a) {
+    c_s[a] = mom[1 + a] / Wc;
+    c_t[a] = mom[4 + a] / Wc;
+  }
+  for (int a = 0; a < 3; ++a)
+    for (int b = 0; b < 3; ++b) Hm[3 * a + b] = mom[7 + 3 * a + b] - W * (c_s[a] * c_t[b]);
+  for (int a = 0; a < 3; ++a)
+    for (int b = 0; b < 3; ++b) HmT[3 * a + b] = Hm[3 * b + a];
+  const bool ok = newton_polar(HmT, R_step);
+  *detH = adjugate_transpose_over_det(Hm, adj);
+  float v[3];
+  mv3(R_step, c_s, v);
+  for (int a = 0; a < 3; ++a) t_step[a] = c_t[a] - v[a];
+  return ok;
+}
+
+// (R, t) <- (R_step R, R_step t + t_step) unless `stop`.
+__device__ inline void apply_step(float* R, float* t, const float* R_step,
+                                  const float* t_step, bool stop) {
+  if (stop) return;
+  float Rn[9], v[3];
+  mm3(R_step, R, Rn);
+  mv3(R_step, t, v);
+  for (int m = 0; m < 9; ++m) R[m] = Rn[m];
+  for (int a = 0; a < 3; ++a) t[a] = v[a] + t_step[a];
+}
+
+// What one ICP reports: the last mean error, the correspondence count,
+// the steps taken and the smallest det(H) seen.
+struct IcpOut {
+  float err;
+  int n_corr;
+  int iters;
+  float det_min;
+};
 
 // Deterministic block sum of NV per-thread values: a fixed shuffle tree per
 // warp, then warp partials summed in warp order. blockDim.x must be a

@@ -160,51 +160,11 @@ __device__ void moments(const Points<NST>& P, Frame& F, float* red) {
   sfk::block_sum<kNMom>(v, red, F.mom);
 }
 
-// Kabsch step from the moments (superblock_fused.py:282-294).
-__device__ bool solve_step(const float* mom, float* R_step, float* t_step,
-                           float* detH) {
-  const float W = mom[0];
-  const float Wc = sfk::jmax(W, 1.0f);
-  float c_s[3], c_t[3], Hm[9], HmT[9], adj[9];
-  for (int a = 0; a < 3; ++a) {
-    c_s[a] = mom[1 + a] / Wc;
-    c_t[a] = mom[4 + a] / Wc;
-  }
-  for (int a = 0; a < 3; ++a)
-    for (int b = 0; b < 3; ++b) Hm[3 * a + b] = mom[7 + 3 * a + b] - W * (c_s[a] * c_t[b]);
-  for (int a = 0; a < 3; ++a)
-    for (int b = 0; b < 3; ++b) HmT[3 * a + b] = Hm[3 * b + a];
-  const bool ok = sfk::newton_polar(HmT, R_step);
-  *detH = sfk::adjugate_transpose_over_det(Hm, adj);
-  float v[3];
-  sfk::mv3(R_step, c_s, v);
-  for (int a = 0; a < 3; ++a) t_step[a] = c_t[a] - v[a];
-  return ok;
-}
-
-// Thread 0: apply one ICP step to F.R, F.t unless `stop`.
-__device__ void apply_step(Frame& F, const float* R_step, const float* t_step,
-                           bool stop) {
-  if (stop) return;
-  float R[9], v[3];
-  sfk::mm3(R_step, F.R, R);
-  sfk::mv3(R_step, F.t, v);
-  for (int m = 0; m < 9; ++m) F.R[m] = R[m];
-  for (int a = 0; a < 3; ++a) F.t[a] = v[a] + t_step[a];
-}
-
-struct IcpOut {
-  float err;
-  int n_corr;
-  int iters;
-  float det_min;
-};
-
 template <int NST>
-__device__ IcpOut icp_lazy(Points<NST>& P, Frame& F, float4* page, float* red,
+__device__ sfk::IcpOut icp_lazy(Points<NST>& P, Frame& F, float4* page, float* red,
                            const int* ps, const int* pc, const int* pt,
                            const float* tgt, int TN, const SBParams& prm) {
-  IcpOut o{sfk::kBig, 0, 0, sfk::kBig};
+  sfk::IcpOut o{sfk::kBig, 0, 0, sfk::kBig};
   associate(P, F, page, ps, pc, pt, tgt, TN, prm.gate, 0);
   {
     float v[1];
@@ -231,9 +191,9 @@ __device__ IcpOut icp_lazy(Points<NST>& P, Frame& F, float4* page, float* red,
     }
     if (threadIdx.x == 0) {
       float R_step[9], t_step[3], detH;
-      const bool ok = solve_step(F.mom, R_step, t_step, &detH);
+      const bool ok = sfk::solve_step(F.mom, R_step, t_step, &detH);
       const bool stop = hit || !ok;
-      apply_step(F, R_step, t_step, stop);
+      sfk::apply_step(F.R, F.t, R_step, t_step, stop);
       o.err = err;
       o.iters += stop ? 0 : 1;
       o.det_min = sfk::jmin(o.det_min, detH);
@@ -246,10 +206,10 @@ __device__ IcpOut icp_lazy(Points<NST>& P, Frame& F, float4* page, float* red,
 }
 
 template <int NST>
-__device__ IcpOut icp_fresh(Points<NST>& P, Frame& F, float4* page, float* red,
+__device__ sfk::IcpOut icp_fresh(Points<NST>& P, Frame& F, float4* page, float* red,
                             const int* ps, const int* pc, const int* pt,
                             const float* tgt, int TN, const SBParams& prm) {
-  IcpOut o{sfk::kBig, 0, 0, sfk::kBig};
+  sfk::IcpOut o{sfk::kBig, 0, 0, sfk::kBig};
   bool live = true;
   for (int it = 0; it < prm.num_iterations && live; ++it) {
     associate(P, F, page, ps, pc, pt, tgt, TN, prm.gate, 0);
@@ -259,9 +219,9 @@ __device__ IcpOut icp_fresh(Points<NST>& P, Frame& F, float4* page, float* red,
       const float Wc = sfk::jmax(W, 1.0f);
       const float err = W >= (float)prm.min_corr ? F.mom[16] / Wc : sfk::kBig;
       float R_step[9], t_step[3], detH;
-      const bool ok = solve_step(F.mom, R_step, t_step, &detH);
+      const bool ok = sfk::solve_step(F.mom, R_step, t_step, &detH);
       const bool stop = err < prm.acc || fabsf(o.err - err) < prm.eps || !ok;
-      apply_step(F, R_step, t_step, stop);
+      sfk::apply_step(F.R, F.t, R_step, t_step, stop);
       o.err = err;
       o.n_corr = (int)W;
       o.iters += stop ? 0 : 1;
@@ -395,7 +355,7 @@ __global__ void __launch_bounds__(1024, 1) superblock_kernel(
     }
     __syncthreads();
 
-    IcpOut o{sfk::kBig, 0, 0, sfk::kBig};
+    sfk::IcpOut o{sfk::kBig, 0, 0, sfk::kBig};
     if (v) {  // an invalid frame's ICP result is discarded: skip it
       Points<NST> P;
       const float* s = src_pages + (size_t)k * NST * 3 * TM;

@@ -1,5 +1,5 @@
-"""Localization state, startup and host loaders (the parts of the JAX
-`models/localization.py` that the superblock main path needs).
+"""The localization pipeline: per-scan fusion step, startup and sequence
+replay (port of the JAX `models/localization.py`).
 
 Rebuild of LocalizationNode (localization/src/localization_node.cpp):
 
@@ -7,23 +7,28 @@ Rebuild of LocalizationNode (localization/src/localization_node.cpp):
 * `coarse_attempt` — one attempt of the startup ladder: brute force on
   floor-removed, extra-subsampled clouds, and on failure a loose "rescue"
   ICP from the best candidate (:200-261);
-* `build_frame_batch` / `Localizer` — host loaders and the map load path.
-
-The steady state runs in models/pipeline_fast.py (`run_chunk_fast`). The
-JAX package's per-frame `step`/`run_chunk` engine is not ported yet.
+* `step` — one steady-state callback (:263-374): scan crop, predicated map
+  re-crop, odometry prediction, covariance-weighted blend, stochastic gate,
+  ICP (K3 in fast mode, the K2 parity ICP otherwise), pose update;
+  `run_chunk` loops it over a chunk of frames;
+* `Localizer.run` — replay of a whole sequence: the startup ladder per
+  frame, then the steady state in chunks, per frame (`run_chunk`) or by
+  superblocks (models/pipeline_fast.run_chunk_fast).
 
 Parity notes (quirks preserved):
 * the prior is an ELEMENT-WISE blend of two 4x4 pose matrices (:329);
 * gains swap the covariance traces (odom_gain = gps_trace / sum, :172-178);
+* frames with GPS altitude < 0 are skipped entirely (:269-276);
 * the map is re-cropped only after moving ref_frame_distance from the last
   crop pose (:299-305).
 
 Branches on device values (`if need:`) read the value back to the host:
-one sync each, where the JAX package used `lax.cond`.
+one sync each, where the JAX package used `lax.cond` or a select.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -35,11 +40,12 @@ from slam_sensor_fusion_tpu_torch.ops import geometry as geo
 from slam_sensor_fusion_tpu_torch.ops import morton
 from slam_sensor_fusion_tpu_torch.ops import stochastic_filter as sf
 from slam_sensor_fusion_tpu_torch.ops.brute_force import brute_force_align
-from slam_sensor_fusion_tpu_torch.ops.icp import icp_align
+from slam_sensor_fusion_tpu_torch.ops.icp import ICPResult, icp_align
 from slam_sensor_fusion_tpu_torch.ops.icp_fused import (
     TARGET_SENTINEL,
     CachedTarget,
     build_cached_target,
+    icp_align_fused,
 )
 from slam_sensor_fusion_tpu_torch.utils.config import LocalizationConfig
 
@@ -57,8 +63,8 @@ class FrameBatch(NamedTuple):
 
 
 class PipelineState(NamedTuple):
-    """Everything the reference keeps as node members, carried across
-    superblocks."""
+    """Everything the reference keeps as node members, carried from frame
+    to frame (or superblock to superblock)."""
 
     map_T_sensor: torch.Tensor  # (4, 4)
     odom_T_sensor_previous: torch.Tensor  # (4, 4)
@@ -85,15 +91,26 @@ class StepOutput(NamedTuple):
     recropped: torch.Tensor  # bool
     #: the correspondence visit/pair list was truncated this frame
     pair_overflow: torch.Tensor
-    #: min |det| of the kernel's Kabsch moment matrix
+    #: min det of K1's / K3's Kabsch moment matrix (0 on the K2 path)
     icp_det_min: torch.Tensor
-    #: the realized prior drifted from the dead-reckoned prediction the
-    #: pair prologue used by more than that frame's dilation budget
-    slack_violation: torch.Tensor
-    #: realized |prior - prediction| translation drift
-    slack_dist: torch.Tensor
-    #: admissible (src, tgt) tile pairs before capacity clipping
-    pair_demand: torch.Tensor
+    #: superblock only (None on the per-frame engine): the realized prior
+    #: drifted from the dead-reckoned prediction the pair prologue used by
+    #: more than that frame's dilation budget
+    slack_violation: torch.Tensor | None = None
+    #: superblock only: realized |prior - prediction| translation drift
+    slack_dist: torch.Tensor | None = None
+    #: per-iteration ICP error (None: the port has no engine that exports
+    #: it, see ops/icp.ICPResult.error_trace)
+    icp_error_trace: torch.Tensor | None = None
+    #: superblock only: admissible (src, tgt) tile pairs before capacity
+    #: clipping
+    pair_demand: torch.Tensor | None = None
+
+
+def join_outputs(outs: list[StepOutput], join) -> StepOutput:
+    """StepOutputs joined field by field with `join` (torch.stack for
+    per-frame outputs, torch.cat for per-block ones); None stays None."""
+    return StepOutput(*[None if xs[0] is None else join(list(xs)) for xs in zip(*outs)])
 
 
 def init_state(
@@ -195,6 +212,144 @@ def _pose_gains(odom_cov_trace, gps_cov_trace, config: LocalizationConfig):
     return gps_cov_trace / total, odom_cov_trace / total
 
 
+def _prior(
+    pose: torch.Tensor,
+    odom_prev: torch.Tensor,
+    filter_state: sf.FilterState,
+    odom_T_sensor: torch.Tensor,
+    map_T_sensor_gps: torch.Tensor,
+    odom_cov_trace: torch.Tensor,
+    gps_cov_trace: torch.Tensor,
+    config: LocalizationConfig,
+) -> tuple[torch.Tensor, torch.Tensor, sf.FilterState]:
+    """The fine alignment's prior (localization_node.cpp:317-330): the
+    odometry prediction right-composed onto the posterior (:106-109), the
+    covariance-weighted element-wise blend with the GPS pose, then the
+    stochastic filter's push and gate. Returns (prior, odometry
+    prediction, filter state)."""
+    previous_T_current = geo.inv_T(odom_prev) @ odom_T_sensor
+    map_T_sensor_odom = pose @ previous_T_current
+    odom_gain, gps_gain = _pose_gains(odom_cov_trace, gps_cov_trace, config)
+    prior = odom_gain * map_T_sensor_odom + gps_gain * map_T_sensor_gps
+    filter_state = sf.add_pose(filter_state, prior, config.filter)
+    prior = sf.apply_gate(filter_state, pose, prior, config.filter)
+    return prior, map_T_sensor_odom, filter_state
+
+
+def skipped_output(map_T_sensor: torch.Tensor) -> StepOutput:
+    """An invalid frame's outputs: zeros, with the posterior carried."""
+    dev = map_T_sensor.device
+    zeros44 = torch.zeros((4, 4), dtype=torch.float32, device=dev)
+    f0 = torch.zeros((), dtype=torch.float32, device=dev)
+    i0 = torch.zeros((), dtype=torch.int32, device=dev)
+    b0 = torch.zeros((), dtype=torch.bool, device=dev)
+    return StepOutput(
+        map_T_sensor=map_T_sensor, map_T_sensor_prior=zeros44, map_T_sensor_odom=zeros44,
+        icp_error=f0, icp_iterations=i0, icp_converged=b0, n_correspondences=i0,
+        recropped=b0, pair_overflow=b0, icp_det_min=f0,
+    )
+
+
+def _fine(
+    state: PipelineState,
+    cropped_scan: cl.Cloud,
+    cropped_map: cl.Cloud,
+    cached_target: CachedTarget,
+    map_T_ref: torch.Tensor,
+    recropped: torch.Tensor,
+    odom_T_sensor: torch.Tensor,
+    map_T_sensor_gps: torch.Tensor,
+    odom_cov_trace: torch.Tensor,
+    gps_cov_trace: torch.Tensor,
+    config: LocalizationConfig,
+) -> tuple[PipelineState, StepOutput]:
+    """The FINE ALIGNMENT section (localization_node.cpp:317-341): the
+    prior (`_prior`), then ICP — K3 with the cached target in fast mode,
+    the K2 parity ICP otherwise."""
+    prior, map_T_sensor_odom, filter_state = _prior(
+        state.map_T_sensor, state.odom_T_sensor_previous, state.filter_state,
+        odom_T_sensor, map_T_sensor_gps, odom_cov_trace, gps_cov_trace, config,
+    )
+
+    if config.icp.mode == "fast":
+        icp: ICPResult = icp_align_fused(
+            cropped_scan.points, cropped_scan.mask, cropped_map.points,
+            cropped_map.mask, prior, config.icp, cached_target=cached_target,
+        )
+    else:
+        icp = icp_align(
+            cropped_scan.points, cropped_scan.mask, cropped_map.points,
+            cropped_map.mask, prior, config.icp,
+        )
+    dev = prior.device
+    new_state = PipelineState(
+        map_T_sensor=icp.transformation,
+        odom_T_sensor_previous=odom_T_sensor,
+        map_T_ref=map_T_ref,
+        cropped_map=cropped_map,
+        filter_state=filter_state,
+        cached_target=cached_target,
+        extra_slack=state.extra_slack,
+    )
+    out = StepOutput(
+        map_T_sensor=icp.transformation,
+        map_T_sensor_prior=prior,
+        map_T_sensor_odom=map_T_sensor_odom,
+        icp_error=icp.error,
+        icp_iterations=icp.iterations,
+        icp_converged=icp.has_converged,
+        n_correspondences=icp.n_correspondences,
+        recropped=torch.as_tensor(recropped, dtype=torch.bool, device=dev),
+        pair_overflow=torch.as_tensor(icp.pair_overflow, dtype=torch.bool, device=dev),
+        icp_det_min=torch.as_tensor(icp.det_min, dtype=torch.float32, device=dev),
+        icp_error_trace=icp.error_trace,
+    )
+    return new_state, out
+
+
+def step(
+    state: PipelineState,
+    scan_points: torch.Tensor,
+    scan_mask: torch.Tensor,
+    odom_T_sensor: torch.Tensor,
+    map_T_sensor_gps: torch.Tensor,
+    odom_cov_trace: torch.Tensor,
+    gps_cov_trace: torch.Tensor,
+    valid: torch.Tensor,
+    map_cloud: cl.Cloud,
+    config: LocalizationConfig,
+) -> tuple[PipelineState, StepOutput]:
+    """One full steady-state localization callback. An invalid frame (GPS
+    altitude < 0) is a full no-op (:269-276): the state is carried, the
+    outputs are zero and map_T_sensor carries the last posterior. The JAX
+    package computes the frame and selects; the port reads `valid` back
+    (one sync) and skips the ICP, with the same results."""
+    if not bool(valid):
+        return state, skipped_output(state.map_T_sensor)
+    cropped_scan, cropped_map, cached_target, map_T_ref, recropped = _preprocess(
+        state, scan_points, scan_mask, map_cloud, config
+    )
+    return _fine(
+        state, cropped_scan, cropped_map, cached_target, map_T_ref, recropped,
+        odom_T_sensor, map_T_sensor_gps, odom_cov_trace, gps_cov_trace, config,
+    )
+
+
+def run_chunk(
+    state: PipelineState,
+    frames: FrameBatch,
+    map_cloud: cl.Cloud,
+    config: LocalizationConfig,
+) -> tuple[PipelineState, StepOutput]:
+    """`step` over a chunk of frames (the JAX package's lax.scan), carrying
+    the state. Outputs are stacked per frame."""
+    outs = []
+    for k in range(frames.valid.shape[0]):
+        state, out = step(state, *[x[k] for x in frames], map_cloud, config)
+        outs.append(out)
+    return state, join_outputs(outs, torch.stack)
+
+
 class CoarseOutput(NamedTuple):
     success: torch.Tensor
     map_T_sensor: torch.Tensor  # accepted pose if success, else best guess
@@ -276,7 +431,7 @@ def build_frame_batch(
     odom_cov_trace: np.ndarray,
     gps_cov_trace: np.ndarray,
     valid: np.ndarray,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = torch.device("cuda"),
 ) -> FrameBatch:
     """Pad per-frame host scans into stacked tensors on `device`. With
     config.host_preprocess the loader applies the reference's uniform
@@ -309,15 +464,26 @@ def build_frame_batch(
     )
 
 
+@dataclasses.dataclass
+class LocalizationResult:
+    map_T_sensor: np.ndarray  # (T, 4, 4); frames before startup hold init pose
+    valid: np.ndarray  # (T,) which frames produced a posterior
+    icp_error: np.ndarray
+    icp_iterations: np.ndarray
+    icp_converged: np.ndarray
+    n_correspondences: np.ndarray
+    first_processed_frame: int
+
+
 class Localizer:
-    """A localization session over a map: the map load path and the GPS
-    pose stream. The steady state is `models.pipeline_fast.run_chunk_fast`."""
+    """End-to-end localization session over a map (the node equivalent):
+    the map load path, the GPS pose stream and the replay entry point `run`."""
 
     def __init__(
         self,
         map_data: MapData,
         config: LocalizationConfig = LocalizationConfig(),
-        device: torch.device | str = "cpu",
+        device: torch.device | str = torch.device("cuda"),
     ):
         self.config = config
         self.map_data = map_data
@@ -333,3 +499,138 @@ class Localizer:
 
     def gps_poses(self, lat, lon, compass_yaw) -> np.ndarray:
         return gps_to_map_poses(self.map_data, lat, lon, compass_yaw)
+
+    def _tensor(self, a) -> torch.Tensor:
+        """A host array as float32 on the session's device."""
+        return torch.from_numpy(np.asarray(a, np.float32)).to(self.device)
+
+    def run(
+        self,
+        scans: list[np.ndarray],
+        odom_T_sensor: np.ndarray,
+        gps_lat: np.ndarray,
+        gps_lon: np.ndarray,
+        gps_alt: np.ndarray,
+        compass_yaw: np.ndarray,
+        odom_cov_trace: np.ndarray,
+        gps_cov_trace: np.ndarray,
+        chunk: int = 64,
+    ) -> LocalizationResult:
+        """Replay a full sequence: startup gating and the coarse ladder per
+        frame (like the reference's per-callback retries), then the steady
+        state in chunks of `chunk` frames: by superblocks
+        (pipeline_fast.run_chunk_fast) in fast mode or with
+        superblock_parity, else per frame (`run_chunk`).
+
+        The JAX package's `enable_debug` branch (callback timing logs and
+        debug cloud export) is not ported yet: it raises."""
+        cfg = self.config
+        if cfg.enable_debug:
+            raise NotImplementedError("Localizer.run: enable_debug is not ported yet")
+        T = len(scans)
+        valid = np.asarray(gps_alt) >= 0
+        gps_T = self.gps_poses(gps_lat, gps_lon, compass_yaw)
+
+        out_T = np.tile(np.eye(4, dtype=np.float32), (T, 1, 1))
+        out_valid = np.zeros(T, bool)
+        out_err = np.zeros(T, np.float32)
+        out_iters = np.zeros(T, np.int32)
+        out_conv = np.zeros(T, bool)
+        out_ncorr = np.zeros(T, np.int32)
+
+        # ---- startup: first valid GPS fix initializes the pose ----
+        first = int(np.argmax(valid)) if valid.any() else T
+        if first >= T:
+            return LocalizationResult(out_T, out_valid, out_err, out_iters, out_conv, out_ncorr, T)
+        state = init_state(
+            cfg, self.map_cloud.capacity, self._tensor(gps_T[first]),
+            self._tensor(odom_T_sensor[first]),
+        )
+        out_T[: first + 1] = gps_T[first]
+
+        # ---- coarse ladder: retry per frame until success ----
+        i = first + 1
+        guess = self._tensor(gps_T[first])
+        coarse_done = False
+        while i < T and not coarse_done:
+            if not valid[i]:
+                i += 1
+                continue
+            frame = build_frame_batch(
+                cfg, [scans[i]], odom_T_sensor[i : i + 1], gps_T[i : i + 1],
+                odom_cov_trace[i : i + 1], gps_cov_trace[i : i + 1], valid[i : i + 1],
+                self.device,
+            )
+            cropped_map, cached_target, map_T_ref, cropped_scan, coarse = coarse_attempt(
+                state, frame.scan_points[0], frame.scan_mask[0], self.map_cloud, guess, cfg
+            )
+            state = state._replace(
+                cropped_map=cropped_map, cached_target=cached_target, map_T_ref=map_T_ref
+            )
+            if bool(coarse.success):
+                coarse_done = True
+                state = state._replace(map_T_sensor=coarse.map_T_sensor)
+                # fine alignment runs in the same frame (:311-341)
+                state, out = _fine(
+                    state, cropped_scan, state.cropped_map, state.cached_target,
+                    state.map_T_ref, False, frame.odom_T_sensor[0],
+                    frame.map_T_sensor_gps[0], frame.odom_cov_trace[0],
+                    frame.gps_cov_trace[0], cfg,
+                )
+                self._record(out, i, out_T, out_valid, out_err, out_iters, out_conv, out_ncorr)
+            else:
+                # next attempt searches around the best candidate
+                # (brute_force_alignment.cpp:125-126)
+                guess = coarse.map_T_sensor
+                out_T[i] = state.map_T_sensor.cpu().numpy()
+            i += 1
+
+        # ---- steady state, in chunks ----
+        use_fast = cfg.host_preprocess and (
+            cfg.icp.mode == "fast" or (cfg.icp.mode == "parity" and cfg.superblock_parity)
+        )
+        from slam_sensor_fusion_tpu_torch.models.pipeline_fast import (
+            build_paged_frames,
+            run_chunk_fast,
+        )
+
+        while i < T:
+            j = min(i + chunk, T)
+            n = j - i
+            if use_fast:
+                # pad the tail to whole superblocks with invalid no-op frames
+                pad = (-n) % cfg.superstep
+
+                def padded(a):
+                    a = np.asarray(a)
+                    return np.concatenate([a[i:j]] + [a[i : i + 1]] * pad)
+
+                frames = build_paged_frames(
+                    cfg, scans[i:j] + [scans[i]] * pad, padded(odom_T_sensor),
+                    padded(gps_T), padded(odom_cov_trace), padded(gps_cov_trace),
+                    np.concatenate([valid[i:j], np.zeros(pad, bool)]), self.device,
+                )
+                state, outs = run_chunk_fast(state, frames, self.map_cloud, cfg)
+            else:
+                frames = build_frame_batch(
+                    cfg, scans[i:j], odom_T_sensor[i:j], gps_T[i:j],
+                    odom_cov_trace[i:j], gps_cov_trace[i:j], valid[i:j], self.device,
+                )
+                state, outs = run_chunk(state, frames, self.map_cloud, cfg)
+            out_valid[i:j] = frames.valid.cpu().numpy()[:n]
+            out_T[i:j] = outs.map_T_sensor.cpu().numpy()[:n]
+            out_err[i:j] = outs.icp_error.cpu().numpy()[:n]
+            out_iters[i:j] = outs.icp_iterations.cpu().numpy()[:n]
+            out_conv[i:j] = outs.icp_converged.cpu().numpy()[:n]
+            out_ncorr[i:j] = outs.n_correspondences.cpu().numpy()[:n]
+            i = j
+        return LocalizationResult(out_T, out_valid, out_err, out_iters, out_conv, out_ncorr, first)
+
+    @staticmethod
+    def _record(out: StepOutput, i, out_T, out_valid, out_err, out_iters, out_conv, out_ncorr):
+        out_T[i] = out.map_T_sensor.cpu().numpy()
+        out_valid[i] = True
+        out_err[i] = float(out.icp_error)
+        out_iters[i] = int(out.icp_iterations)
+        out_conv[i] = bool(out.icp_converged)
+        out_ncorr[i] = int(out.n_correspondences)

@@ -1,5 +1,5 @@
 """Steady-state pipeline: host-paged frames + K-frame superblocks (port of
-the JAX `models/pipeline_fast.py`, its block-kernel branch).
+the JAX `models/pipeline_fast.py`).
 
 * All per-frame scan preprocessing — uniform subsample in original scan
   order (localization_node.cpp:292), 10 m radius crop, Morton sort,
@@ -12,11 +12,14 @@ the JAX `models/pipeline_fast.py`, its block-kernel branch).
   odometry-predicted poses, dilated per frame (`superstep_slack`) plus the
   exactly known GPS-blend pull; `_slack_check` flags any frame whose
   realized prior left that budget.
-* The fine loop of the whole superblock is ONE K1 launch
-  (ops/superblock_fused.superblock_fine).
+* The fine loop of the superblock is ONE K1 launch
+  (ops/superblock_fused.superblock_fine) with `block_kernel=True`, else a
+  per-frame loop with one K3 launch a valid frame
+  (ops/icp_fused.icp_align_fused_paged; lazy ICP in parity mode).
 
 The re-crop branch reads its condition back to the host (one sync per
-superblock, where the JAX package used `lax.cond`).
+superblock, where the JAX package used `lax.cond`); the per-frame loop
+reads the block's valid flags once.
 """
 
 from __future__ import annotations
@@ -31,13 +34,16 @@ from slam_sensor_fusion_tpu_torch.models.localization import (
     PipelineState,
     StepOutput,
     _pose_gains,
+    _prior,
+    join_outputs,
     recrop,
+    skipped_output,
 )
 from slam_sensor_fusion_tpu_torch.ops import cloud as cl
 from slam_sensor_fusion_tpu_torch.ops import geometry as geo
 from slam_sensor_fusion_tpu_torch.ops import morton
 from slam_sensor_fusion_tpu_torch.ops import stochastic_filter as sf
-from slam_sensor_fusion_tpu_torch.ops.icp_fused import CachedTarget
+from slam_sensor_fusion_tpu_torch.ops.icp_fused import CachedTarget, icp_align_fused_paged
 from slam_sensor_fusion_tpu_torch.ops.nn_gated import (
     bbox_pair_dist2,
     pair_demand_from_d2,
@@ -73,7 +79,7 @@ def build_paged_frames(
     odom_cov_trace: np.ndarray,
     gps_cov_trace: np.ndarray,
     valid: np.ndarray,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = torch.device("cuda"),
 ) -> PagedFrames:
     """Prestage frames: subsample -> 10 m crop -> Morton sort -> pages.
 
@@ -282,41 +288,91 @@ def superstep_prologue(
     )
 
 
+def _fine_per_frame(
+    state: PipelineState, blk: PagedFrames, pro: Prologue, config: LocalizationConfig
+) -> tuple[torch.Tensor, torch.Tensor, sf.FilterState, StepOutput]:
+    """The superblock's fine loop frame by frame, one K3 launch a valid
+    frame (pipeline_fast.py:437-502): prediction, blend, gate and ICP
+    against the block's cached target, carrying pose, odometry reference
+    and filter state. An invalid frame carries the state and outputs zeros
+    (the JAX package computes and selects; the port skips its ICP)."""
+    pose, odom_prev, filt = (
+        state.map_T_sensor, state.odom_T_sensor_previous, state.filter_state
+    )
+    outs = []
+    for k, v in enumerate(blk.valid.tolist()):
+        if not v:
+            outs.append(skipped_output(pose))
+            continue
+        prior, map_T_sensor_odom, filt_new = _prior(
+            pose, odom_prev, filt, blk.odom_T_sensor[k], blk.map_T_sensor_gps[k],
+            blk.odom_cov_trace[k], blk.gps_cov_trace[k], config,
+        )
+        icp = icp_align_fused_paged(
+            blk.src_pages[k], pro.pair_start[k], pro.pair_cnt[k], pro.pair_tgt[k],
+            prior, pro.cached_target, config.icp, pair_overflow=pro.pair_ovf[k],
+            lazy=config.icp.mode == "parity",
+        )
+        pose, odom_prev, filt = icp.transformation, blk.odom_T_sensor[k], filt_new
+        outs.append(StepOutput(
+            map_T_sensor=pose,
+            map_T_sensor_prior=prior,
+            map_T_sensor_odom=map_T_sensor_odom,
+            icp_error=icp.error,
+            icp_iterations=icp.iterations,
+            icp_converged=icp.has_converged,
+            n_correspondences=icp.n_correspondences,
+            recropped=torch.zeros((), dtype=torch.bool, device=pose.device),  # set per block
+            pair_overflow=icp.pair_overflow,
+            icp_det_min=icp.det_min,
+        ))
+    return pose, odom_prev, filt, join_outputs(outs, torch.stack)
+
+
 def _superstep(
     state: PipelineState,
     blk: PagedFrames,
     map_cloud: cl.Cloud,
     config: LocalizationConfig,
 ) -> tuple[PipelineState, StepOutput]:
-    """One K-frame superblock: re-crop once, one pair prologue, one K1
-    launch for the fine loop."""
+    """One K-frame superblock: re-crop once, one pair prologue, then the
+    fine loop as one K1 launch (block_kernel) or one K3 launch a frame."""
     K = blk.valid.shape[0]
     pro = superstep_prologue(state, blk, map_cloud, config)
-    fs = state.filter_state
-    (
-        poses, priors, odom_preds, stats,
-        pose_n, odom_prev_n, trans_n, count_n, fprev_n,
-    ) = superblock_fine(
-        blk.src_pages, pro.pair_start, pro.pair_cnt, pro.pair_tgt, blk.valid,
-        blk.odom_T_sensor, blk.map_T_sensor_gps,
-        blk.odom_cov_trace, blk.gps_cov_trace,
-        state.map_T_sensor, state.odom_T_sensor_previous,
-        fs.transitions, fs.count, fs.previous_pose,
-        pro.cached_target.center, pro.cached_target.pages, config,
+    if config.block_kernel:
+        fs = state.filter_state
+        (
+            poses, priors, odom_preds, stats,
+            pose_n, odom_prev_n, trans_n, count_n, fprev_n,
+        ) = superblock_fine(
+            blk.src_pages, pro.pair_start, pro.pair_cnt, pro.pair_tgt, blk.valid,
+            blk.odom_T_sensor, blk.map_T_sensor_gps,
+            blk.odom_cov_trace, blk.gps_cov_trace,
+            state.map_T_sensor, state.odom_T_sensor_previous,
+            fs.transitions, fs.count, fs.previous_pose,
+            pro.cached_target.center, pro.cached_target.pages, config,
+        )
+        filt_n = sf.FilterState(transitions=trans_n, count=count_n, previous_pose=fprev_n)
+        outs = StepOutput(
+            map_T_sensor=poses,
+            map_T_sensor_prior=priors,
+            map_T_sensor_odom=odom_preds,
+            icp_error=stats[:, 0],
+            icp_iterations=stats[:, 1].to(torch.int32),
+            icp_converged=stats[:, 3] > 0.5,
+            n_correspondences=stats[:, 2].to(torch.int32),
+            recropped=pro.need,
+            pair_overflow=blk.valid & pro.pair_ovf,
+            icp_det_min=stats[:, 4],
+        )
+    else:
+        pose_n, odom_prev_n, filt_n, outs = _fine_per_frame(state, blk, pro, config)
+    slack_dist, slack_viol = _slack_check(
+        outs.map_T_sensor_prior, pro.pred, blk.valid, config, pro.gps_pull
     )
-    slack_dist, slack_viol = _slack_check(priors, pro.pred, blk.valid, config, pro.gps_pull)
-    first = torch.arange(K, device=poses.device) == 0
-    outs = StepOutput(
-        map_T_sensor=poses,
-        map_T_sensor_prior=priors,
-        map_T_sensor_odom=odom_preds,
-        icp_error=stats[:, 0],
-        icp_iterations=stats[:, 1].to(torch.int32),
-        icp_converged=stats[:, 3] > 0.5,
-        n_correspondences=stats[:, 2].to(torch.int32),
+    first = torch.arange(K, device=blk.valid.device) == 0
+    outs = outs._replace(
         recropped=pro.need & first,
-        pair_overflow=blk.valid & pro.pair_ovf,
-        icp_det_min=stats[:, 4],
         slack_violation=slack_viol,
         slack_dist=slack_dist,
         pair_demand=torch.where(blk.valid, pro.demand, 0),
@@ -326,9 +382,7 @@ def _superstep(
         odom_T_sensor_previous=odom_prev_n,
         map_T_ref=pro.map_T_ref,
         cropped_map=pro.cropped_map,
-        filter_state=sf.FilterState(
-            transitions=trans_n, count=count_n, previous_pose=fprev_n
-        ),
+        filter_state=filt_n,
         cached_target=pro.cached_target,
         extra_slack=torch.where(pro.any_valid, 0.0, state.extra_slack),
     )
@@ -345,8 +399,6 @@ def run_chunk_fast(
 
     T must be a multiple of config.superstep (callers pad the tail with
     valid=False no-op frames). Outputs are stacked per frame."""
-    if not config.block_kernel:
-        raise ValueError("the port runs the superblock kernel only (block_kernel=True)")
     K = config.superstep
     T = frames.valid.shape[0]
     if T % K:
@@ -356,4 +408,4 @@ def run_chunk_fast(
         blk = PagedFrames(*[x[b * K : (b + 1) * K] for x in frames])
         state, out = _superstep(state, blk, map_cloud, config)
         outs.append(out)
-    return state, StepOutput(*[torch.cat(xs) for xs in zip(*outs)])
+    return state, join_outputs(outs, torch.cat)

@@ -8,6 +8,8 @@ Reference ports:
 * uniform_subsample   <- applyUniformSubsample (point_cloud_processing.hpp:55-74)
 * crop_radius         <- cropPointCloudThroughRadius (:31-53), as a masked
                          distance test
+* crop_box, crop_obb  <- the Python twin's box filter and oriented map crop
+                         (localization_node.py:105-115, :222-225)
 * remove_floor        <- removeFloor (:76-92) (keeps z > 0)
 * voxel_downsample_numpy <- pcl::VoxelGrid centroid mode
                          (global_map_frames_manager.cpp:143-146)
@@ -43,7 +45,7 @@ def dist2(points: torch.Tensor, center: torch.Tensor) -> torch.Tensor:
 
 
 def from_numpy(
-    points: np.ndarray, capacity: int, device: torch.device | str = "cpu"
+    points: np.ndarray, capacity: int, device: torch.device | str = torch.device("cuda")
 ) -> Cloud:
     """Pack a host (n, 3) array into a padded Cloud of given capacity."""
     points = np.asarray(points, dtype=np.float32).reshape(-1, 3)
@@ -71,6 +73,23 @@ def uniform_subsample(cloud: Cloud, step: int) -> Cloud:
 def crop_radius(cloud: Cloud, center: torch.Tensor, radius: float) -> Cloud:
     """Keep points within ``radius`` of ``center`` (masked, exact)."""
     keep = (dist2(cloud.points, center) <= radius * radius) & cloud.mask
+    return Cloud(cloud.points, keep)
+
+
+def crop_box(cloud: Cloud, min_bound: torch.Tensor, max_bound: torch.Tensor) -> Cloud:
+    """Axis-aligned box crop (the Python twin's scan filter,
+    localization_node.py:105-115)."""
+    p = cloud.points
+    keep = (p >= min_bound).all(dim=-1) & (p <= max_bound).all(dim=-1) & cloud.mask
+    return Cloud(cloud.points, keep)
+
+
+def crop_obb(cloud: Cloud, T: torch.Tensor, extent: torch.Tensor) -> Cloud:
+    """Oriented-bounding-box crop: keep points within +-extent/2 of T's
+    origin along T's axes (open3d OrientedBoundingBox crop,
+    localization_node.py:222-225)."""
+    local = (cloud.points - T[:3, 3]) @ T[:3, :3]  # R^T applied rowwise
+    keep = (local.abs() <= extent / 2.0).all(dim=-1) & cloud.mask
     return Cloud(cloud.points, keep)
 
 

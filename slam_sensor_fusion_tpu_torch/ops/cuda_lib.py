@@ -1,10 +1,11 @@
 """Build and load the package's CUDA kernels (csrc/*.cu) at first use.
 
-`nvcc` compiles every source into one shared library with a plain C
-interface, loaded through ctypes: a few seconds, against minutes for a
-build that includes PyTorch's headers. The library lands in `_build/`
-inside the package (listed in .gitignore) and is rebuilt whenever a source
-is newer than it. Nothing here runs at import time: a host without a card
+One `nvcc` per source, all started together, compiles each kernel to an
+object; one more links them into a shared library with a plain C
+interface, loaded through ctypes: seconds, against minutes for a build
+that includes PyTorch's headers. The library lands in `_build/` inside the
+package (listed in .gitignore) and is rebuilt whenever a source is newer
+than it. Nothing here runs at import time: a host without a card
 or a CUDA toolkit imports the package and runs the plain versions.
 """
 
@@ -29,7 +30,7 @@ LIB = os.path.join(BUILD, "libsfk.so")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false", "-lineinfo",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lib: ctypes.CDLL | None = None
@@ -63,14 +64,35 @@ def build(force: bool = False) -> str:
     if not force and os.path.exists(LIB) and os.path.getmtime(LIB) >= newest:
         return LIB
     os.makedirs(BUILD, exist_ok=True)
+    nvcc = _nvcc()
+    cus = [s for s in srcs if s.endswith(".cu")]
+    objs = [os.path.join(BUILD, f"{os.path.basename(s)[:-3]}.{os.getpid()}.o") for s in cus]
     tmp = f"{LIB}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[s for s in srcs if s.endswith(".cu")]]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for s, o in zip(cus, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    build_log = "".join(logs)
+    failed = [s for s, p in zip(cus, procs) if p.returncode != 0]
+    if not failed:
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", tmp, *objs],
+            capture_output=True, text=True,
+        )
+        build_log += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed = ["link"]
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{build_log}")
     os.replace(tmp, LIB)  # atomic: a concurrent loader sees old or new, whole
     return LIB
 
@@ -90,6 +112,8 @@ def _declare(so: ctypes.CDLL) -> None:
     so.sfk_pair_nn.restype = I
     so.sfk_superblock_fine.argtypes = [P] * 22 + [I] * 5 + [P, P]
     so.sfk_superblock_fine.restype = I
+    so.sfk_icp_fused.argtypes = [P] * 9 + [I] * 3 + [P, P]
+    so.sfk_icp_fused.restype = I
 
 
 def check(err: int, what: str) -> None:

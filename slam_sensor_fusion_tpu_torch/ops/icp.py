@@ -53,6 +53,13 @@ class ICPResult(NamedTuple):
     n_correspondences: torch.Tensor  # () int32
     #: () bool — the pair list was truncated (max_visits / max_pairs)
     pair_overflow: torch.Tensor
+    #: () f32 — smallest det of K3's Kabsch moment matrix (0 here, as on
+    #: the JAX package's non-fused paths); near 0 = degenerate geometry
+    det_min: torch.Tensor | float = 0.0
+    #: (num_iterations,) per-iteration mean error (the reference's
+    #: printStepDebug trace); the JAX package exports it only from its XLA
+    #: engine under ICPConfig.debug_trace, which the port does not have
+    error_trace: torch.Tensor | None = None
 
 
 def _pages_transform(T: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
@@ -222,4 +229,5 @@ def icp_align(
         ),
         n_correspondences=n_corr0,
         pair_overflow=pair_overflow,
+        det_min=torch.zeros((), dtype=torch.float32, device=dev),
     )

@@ -35,7 +35,7 @@ class FilterState(NamedTuple):
 
 
 def init_state(
-    config: StochasticFilterConfig, device: torch.device | str = "cpu"
+    config: StochasticFilterConfig, device: torch.device | str = torch.device("cuda")
 ) -> FilterState:
     eye = torch.eye(4, dtype=torch.float32, device=device)
     return FilterState(

@@ -35,15 +35,9 @@ import torch
 from slam_sensor_fusion_tpu_torch.ops import cuda_lib
 from slam_sensor_fusion_tpu_torch.ops import geometry as geo
 from slam_sensor_fusion_tpu_torch.ops import stochastic_filter as sf
-from slam_sensor_fusion_tpu_torch.ops.icp_fused import (
-    _adjugate_transpose_over_det,
-    _mm3,
-    _mv3,
-    _newton_polar,
-    _sum_all,
-)
+from slam_sensor_fusion_tpu_torch.ops.icp_fused import _icp_plain
 from slam_sensor_fusion_tpu_torch.ops.nn_pallas import _tile_chunk
-from slam_sensor_fusion_tpu_torch.utils.config import ICPConfig, LocalizationConfig
+from slam_sensor_fusion_tpu_torch.utils.config import LocalizationConfig
 
 _BIG = 3.0e38
 _Q_MAX = 8  # queue slots the kernel's parameter block holds
@@ -141,85 +135,6 @@ def _associate(src, R, t, start, cnt, pair_tgt, tgt_pages):
     return torch.stack(best_all), torch.stack(xyz_all)
 
 
-def _moments(src, R, t, txyz, w):
-    """Gated Kabsch moments (W, Ss, St, Mst, Eabs) of the transformed
-    source against the matched targets, weights w (nSt, TM)."""
-    px, py, pz = src[:, 0], src[:, 1], src[:, 2]
-    sp = [
-        R[a, 0] * px + R[a, 1] * py + R[a, 2] * pz + t[a] for a in range(3)
-    ]
-    tb = [txyz[:, 0], txyz[:, 1], txyz[:, 2]]
-    W = _sum_all(w)
-    Ss = torch.stack([_sum_all(sp[a] * w) for a in range(3)])
-    St = torch.stack([_sum_all(tb[a] * w) for a in range(3)])
-    Mst = torch.stack(
-        [torch.stack([_sum_all(sp[a] * w * tb[b]) for b in range(3)]) for a in range(3)]
-    )
-    dx, dy, dz = sp[0] - tb[0], sp[1] - tb[1], sp[2] - tb[2]
-    Eabs = _sum_all(w * torch.sqrt(dx * dx + dy * dy + dz * dz))
-    return W, Ss, St, Mst, Eabs
-
-
-def _solve_step(W, Ss, St, Mst):
-    """Kabsch step from the moments by Newton polar
-    (superblock_fused.py:282-294)."""
-    Wc = torch.clamp(W, min=1.0)
-    c_s = Ss / Wc
-    c_t = St / Wc
-    Hm = Mst - W * torch.outer(c_s, c_t)
-    R_step, polar_ok = _newton_polar(Hm.T)
-    _, detH = _adjugate_transpose_over_det(Hm)
-    t_step = c_t - _mv3(R_step, c_s)
-    return R_step, t_step, bool(polar_ok), detH
-
-
-def _icp_plain(src, R, t, pairs, tgt_pages, icp: ICPConfig, lazy: bool):
-    """One frame's ICP in the rebased frame. Returns (R, t, err, n_corr,
-    iters, det_min) with the JAX kernel's semantics for both modes."""
-    gate = icp.max_correspondence_dist_sq
-    acc, eps = icp.acceptable_mean_error, icp.transformation_epsilon
-    big = torch.tensor(_BIG, dtype=torch.float32, device=src.device)
-    err_prev, det_min, iters = big, big, 0
-    if lazy:
-        d2, txyz = _associate(src, R, t, *pairs, tgt_pages)
-        alive = (d2 < gate).float()
-        n_corr = int(_sum_all(alive))
-        live = n_corr >= icp.min_correspondences
-    else:
-        n_corr, live = 0, True
-    for _ in range(icp.num_iterations):
-        if not live:
-            break
-        if lazy:
-            W, Ss, St, Mst, Eabs = _moments(src, R, t, txyz, alive)
-            err = Eabs / torch.clamp(W, min=1.0)
-            hit = bool(err < acc)
-            if not hit and bool((err_prev - err).abs() < eps):
-                # plateau: re-associate; the alive set only shrinks
-                d2, txyz = _associate(src, R, t, *pairs, tgt_pages)
-                alive = alive * (d2 < gate).float()
-                W, Ss, St, Mst, _ = _moments(src, R, t, txyz, alive)
-            R_step, t_step, ok, detH = _solve_step(W, Ss, St, Mst)
-            stop = hit or not ok
-        else:
-            d2, txyz = _associate(src, R, t, *pairs, tgt_pages)
-            w = (d2 < gate).float()
-            W, Ss, St, Mst, Eabs = _moments(src, R, t, txyz, w)
-            err = torch.where(
-                W >= icp.min_correspondences, Eabs / torch.clamp(W, min=1.0), big
-            )
-            R_step, t_step, ok, detH = _solve_step(W, Ss, St, Mst)
-            stop = bool(err < acc) or bool((err_prev - err).abs() < eps) or not ok
-            n_corr = int(W)
-        if not stop:
-            R, t = _mm3(R_step, R), _mv3(R_step, t) + t_step
-            iters += 1
-        err_prev = err
-        det_min = torch.minimum(det_min, detH)
-        live = not stop
-    return R, t, err_prev, n_corr, iters, det_min
-
-
 def _rigid(T: torch.Tensor) -> torch.Tensor:
     """(R, t) of T repacked with the exact [0, 0, 0, 1] bottom row, as K1
     packs every pose it outputs."""
@@ -255,7 +170,7 @@ def superblock_fine_plain(
         if v:
             R, t, err, n_corr, iters, det_min = _icp_plain(
                 src_pages[k], Rg, tg - center,
-                (starts[k], cnts[k], pair_tgt[k]), tgt_pages, icp, lazy,
+                (starts[k], cnts[k], pair_tgt[k]), tgt_pages, icp, lazy, _associate,
             )
             enough = n_corr >= icp.min_correspondences
             if enough:

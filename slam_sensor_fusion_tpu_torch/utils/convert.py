@@ -67,7 +67,9 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def state_from_numpy(state, device: torch.device | str = "cpu") -> PipelineState:
+def state_from_numpy(
+    state, device: torch.device | str = torch.device("cuda")
+) -> PipelineState:
     """A PipelineState from a JAX PipelineState (with its Cloud,
     FilterState and CachedTarget) whose leaves are NumPy arrays."""
     ct = state.cached_target
@@ -101,7 +103,9 @@ def state_from_numpy(state, device: torch.device | str = "cpu") -> PipelineState
     )
 
 
-def paged_frames_from_numpy(frames, device: torch.device | str = "cpu") -> PagedFrames:
+def paged_frames_from_numpy(
+    frames, device: torch.device | str = torch.device("cuda")
+) -> PagedFrames:
     """PagedFrames from a JAX PagedFrames whose leaves are NumPy arrays."""
     return PagedFrames(
         src_pages=_tensor(frames.src_pages, device),

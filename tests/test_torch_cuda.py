@@ -5,15 +5,18 @@ one; nothing here imports JAX, so on a GPU host without JAX run them as
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 K2 must agree with its plain version exactly (same fused dot products,
-same first-min rule); K1 to 3e-4 on poses and state with EQUAL iteration
-and correspondence counts (reduction order differs)."""
+same first-min rule); K1 and K3 to 3e-4 on poses and state, 1e-3 on the
+ICP error, with EQUAL iteration and correspondence counts (the moment sums
+are reduced in another order)."""
 
+import dataclasses
 import math
 
 import numpy as np
 import pytest
 import torch
 
+from slam_sensor_fusion_tpu_torch.ops.icp_fused import _fused_core, _fused_core_plain
 from slam_sensor_fusion_tpu_torch.ops.morton import sort_points_numpy, tile_bboxes
 from slam_sensor_fusion_tpu_torch.ops.nn_gated import pair_tiles
 from slam_sensor_fusion_tpu_torch.ops.nn_pallas import (
@@ -27,9 +30,12 @@ from slam_sensor_fusion_tpu_torch.ops.superblock_fused import (
     superblock_fine_plain,
 )
 from torch_world import (  # noqa: F401
+    K3_CONFIG,
     build_world,
     compare_superblock,
     cuda_device,
+    k3_inputs,
+    k3_scene,
     port_slice,
     superblock_args,
 )
@@ -95,3 +101,22 @@ def test_slice_on_card_matches_cpu(cuda_device):
     torch.testing.assert_close(out_g.map_T_sensor.cpu(), out_c.map_T_sensor, rtol=0, atol=3e-4)
     for name in ("icp_iterations", "n_correspondences", "pair_overflow", "slack_violation"):
         assert torch.equal(getattr(out_g, name).cpu(), getattr(out_c, name)), name
+
+
+@pytest.mark.parametrize("lazy", [False, True], ids=["fresh", "lazy"])
+@pytest.mark.parametrize("n_tiles, tile_src", [(8, 512), (128, 256)])
+def test_icp_fused_kernel_matches_plain(cuda_device, n_tiles, tile_src, lazy):
+    """K3 at the online session's source shape (8 tiles of 512) and at the
+    default scan capacity's (128 tiles of 256), against 32 target tiles."""
+    cfg = dataclasses.replace(K3_CONFIG, tile_src=tile_src)
+    M = n_tiles * tile_src
+    args = k3_inputs(cfg, k3_scene(1, n_src=M - 100, M=M, N=16384), cuda_device)
+    before = _fused_core.launches
+    T_k, st_k = _fused_core(*args, cfg, lazy)
+    T_p, st_p = _fused_core_plain(*args, cfg, lazy)
+    torch.cuda.synchronize()
+    assert _fused_core.launches == before + 1
+    torch.testing.assert_close(T_k, T_p, rtol=0, atol=3e-4)
+    assert torch.equal(st_k[0, 1:3], st_p[0, 1:3])  # iterations, n_corr
+    torch.testing.assert_close(st_k[0, 0], st_p[0, 0], rtol=0, atol=1e-3)
+    assert st_p[0, 1] >= 2 and st_p[0, 2] > M // 2

@@ -60,7 +60,7 @@ def test_localizer_map_and_gps_poses(world):
     seq, map_data = world
     cfg = JCFG
     jloc = jl.Localizer(map_data, cfg)
-    tloc = tl.Localizer(map_data, SLICE_CONFIG)
+    tloc = tl.Localizer(map_data, SLICE_CONFIG, device="cpu")
     np.testing.assert_array_equal(np.asarray(jloc.map_cloud.points), tloc.map_cloud.points.numpy())
     np.testing.assert_array_equal(np.asarray(jloc.map_cloud.mask), tloc.map_cloud.mask.numpy())
     a = jloc.gps_poses(seq.gps_lat, seq.gps_lon, seq.compass_yaw)
@@ -77,13 +77,13 @@ def test_build_paged_frames_equal(world):
     args = (seq.scans[1:], seq.odom_T_sensor[1:], gps_T[1:], seq.odom_cov_trace[1:],
             seq.gps_cov_trace[1:], valid)
     a = np_tree(jpf.build_paged_frames(cfg, *args))
-    b = tpf.build_paged_frames(SLICE_CONFIG, *args)
+    b = tpf.build_paged_frames(SLICE_CONFIG, *args, device="cpu")
     for name in a._fields:
         x, y = getattr(a, name), getattr(b, name).numpy()
         assert x.dtype == y.dtype, name
         np.testing.assert_array_equal(x, y, err_msg=name)
     # the JAX-side frames convert to the same tensors
-    c = convert.paged_frames_from_numpy(a)
+    c = convert.paged_frames_from_numpy(a, device="cpu")
     for name in a._fields:
         assert torch.equal(getattr(c, name), getattr(b, name)), name
 
@@ -95,7 +95,7 @@ def test_build_frame_batch_equal(world):
     args = (seq.scans[1:3], seq.odom_T_sensor[1:3], gps_T[1:3], seq.odom_cov_trace[1:3],
             seq.gps_cov_trace[1:3], np.ones(2, bool))
     a = np_tree(jl.build_frame_batch(cfg, *args))
-    b = tl.build_frame_batch(SLICE_CONFIG, *args)
+    b = tl.build_frame_batch(SLICE_CONFIG, *args, device="cpu")
     for name in a._fields:
         x, y = getattr(a, name), getattr(b, name).numpy()
         assert x.dtype == y.dtype, name
@@ -123,7 +123,7 @@ def test_state_from_numpy_equal(world):
                        jnp.asarray(seq.odom_T_sensor[0], jnp.float32))
     ts = tl.init_state(SLICE_CONFIG, 0, torch.from_numpy(gps_T[0]),
                        torch.from_numpy(seq.odom_T_sensor[0]))
-    conv = convert.state_from_numpy(np_tree(js))
+    conv = convert.state_from_numpy(np_tree(js), device="cpu")
     leaves = torch.utils._pytree.tree_leaves
     for x, y in zip(leaves(conv), leaves(ts), strict=True):
         if x is None:

@@ -169,7 +169,7 @@ def test_batched_prologue_equals_vmap(rng):
 def test_stochastic_filter_matches_jax_and_oracle(rng):
     cfg = StochasticFilterConfig()
     tcfg = TStochasticFilterConfig()
-    js, ts = jsf.init_state(cfg), tsf.init_state(tcfg)
+    js, ts = jsf.init_state(cfg), tsf.init_state(tcfg, device="cpu")
     oracle = StochasticFilterOracle()
     poses = _poses(rng, 12)
     # small steps along a track, with one jump the gate must catch

@@ -93,25 +93,30 @@ def test_port_imports_no_jax():
 
 
 def test_run_chunk_fast_rejects_what_the_port_does_not_run(world):
-    """The port runs the superblock kernel path on a presorted map only,
-    over whole superblocks."""
+    """The port runs whole superblocks on a presorted map only; with
+    block_kernel=False the superblock runs frame by frame (one K3 call a
+    frame) and reports the same per-frame fields."""
     import dataclasses
 
     from slam_sensor_fusion_tpu_torch.models import localization as tl
     from slam_sensor_fusion_tpu_torch.models import pipeline_fast as tpf
 
     seq, map_data = world
-    loc = tl.Localizer(map_data, SLICE_CONFIG)
+    loc = tl.Localizer(map_data, SLICE_CONFIG, device="cpu")
     gps_T = loc.gps_poses(seq.gps_lat, seq.gps_lon, seq.compass_yaw)
     state = tl.init_state(SLICE_CONFIG, 0, torch.from_numpy(gps_T[0]),
                           torch.from_numpy(seq.odom_T_sensor[0]))
     frames = tpf.build_paged_frames(SLICE_CONFIG, seq.scans[1:6], seq.odom_T_sensor[1:6], gps_T[1:6],
-                                    seq.odom_cov_trace[1:6], seq.gps_cov_trace[1:6], np.ones(5, bool))
+                                    seq.odom_cov_trace[1:6], seq.gps_cov_trace[1:6], np.ones(5, bool),
+                                    device="cpu")
     with pytest.raises(ValueError, match="multiple of superstep"):
         tpf.run_chunk_fast(state, frames, loc.map_cloud, SLICE_CONFIG)
-    with pytest.raises(ValueError, match="block_kernel"):
-        tpf.run_chunk_fast(state, frames, loc.map_cloud,
-                           dataclasses.replace(SLICE_CONFIG, block_kernel=False))
+    per_frame = dataclasses.replace(SLICE_CONFIG, block_kernel=False, superstep=5)
+    final, out = tpf.run_chunk_fast(state, frames, loc.map_cloud, per_frame)
+    assert out.map_T_sensor.shape == (5, 4, 4) and torch.isfinite(out.map_T_sensor).all()
+    assert (out.n_correspondences > 100).all() and not out.pair_overflow.any()
+    assert out.slack_violation is not None and out.pair_demand is not None
+    torch.testing.assert_close(final.map_T_sensor, out.map_T_sensor[-1])
     with pytest.raises(ValueError, match="presorted"):
         tl.recrop(loc.map_cloud, state.map_T_sensor[:3, 3],
                   dataclasses.replace(SLICE_CONFIG, presorted_map=False))

@@ -13,10 +13,13 @@ import torch
 from slam_sensor_fusion_tpu_torch.models import localization as tl
 from slam_sensor_fusion_tpu_torch.models import pipeline_fast as tpf
 from slam_sensor_fusion_tpu_torch.models.mapping import build_map_data
+from slam_sensor_fusion_tpu_torch.ops import icp_fused as tif
+from slam_sensor_fusion_tpu_torch.ops.morton import sort_points_numpy
 from slam_sensor_fusion_tpu_torch.utils import synthetic as syn
 from slam_sensor_fusion_tpu_torch.utils.config import (
     BruteForceConfig,
     CloudCapacity,
+    ICPConfig,
     LocalizationConfig,
 )
 
@@ -133,3 +136,47 @@ def port_slice(seq, map_data, device="cpu"):
                                     seq.odom_cov_trace[1:], seq.gps_cov_trace[1:], np.ones(T, bool), device)
     final, out = tpf.run_chunk_fast(state, frames, loc.map_cloud, cfg)
     return coarse, final, out
+
+
+#: K3's test configuration: the default ICP with a tighter acceptable error,
+#: so ICP takes several steps and the lazy variant hits its plateau
+#: re-association
+K3_CONFIG = ICPConfig(acceptable_mean_error=0.012, tile_src=256, tile_tgt=512)
+
+
+def k3_scene(seed, n_src=1000, M=1024, N=4096):
+    """A Morton-sorted target (two walls, a floor and a pole in 12 m) and a
+    noisy source seen from a perturbed pose, both padded; returns (src,
+    src_mask, tgt, tgt_mask, T0) as NumPy arrays."""
+    rng = np.random.default_rng(seed)
+    n = N - 96
+    q = n // 4
+    walls = [
+        np.stack([rng.uniform(-6, 6, q), np.full(q, 4.0), rng.uniform(0, 3, q)], 1),
+        np.stack([np.full(q, -5.0), rng.uniform(-6, 4, q), rng.uniform(0, 3, q)], 1),
+        np.stack([rng.uniform(-6, 6, q), rng.uniform(-6, 4, q), np.zeros(q)], 1),
+        np.stack([np.cos(np.linspace(0, 20, q)) * 0.2 + 2.0,
+                  np.sin(np.linspace(0, 20, q)) * 0.2 - 1.0, rng.uniform(0, 3, q)], 1),
+    ]
+    tgt = sort_points_numpy(np.concatenate(walls).astype(np.float32))
+    ang = rng.normal(0, 0.03, 3)
+    c, s = np.cos(ang[2]), np.sin(ang[2])
+    T = np.eye(4, dtype=np.float32)
+    T[:2, :2] = [[c, -s], [s, c]]
+    T[:3, 3] = [0.25, -0.2, 0.05]
+    pick = tgt[rng.choice(len(tgt), n_src, replace=n_src > len(tgt))]
+    src = (pick - T[:3, 3]) @ T[:3, :3] + rng.normal(0, 0.01, pick.shape)
+    src = sort_points_numpy(src.astype(np.float32))
+    sbuf = np.zeros((M, 3), np.float32)
+    sbuf[:n_src] = src
+    tbuf = np.zeros((N, 3), np.float32)
+    tbuf[: len(tgt)] = tgt
+    return sbuf, np.arange(M) < n_src, tbuf, np.arange(N) < len(tgt), np.eye(4, dtype=np.float32)
+
+
+def k3_inputs(cfg, scene, device="cpu"):
+    """K3's arguments for `scene` (k3_scene), as `icp_align_fused` builds
+    them: (src_pages, tgt_pages, pair_start, pair_cnt, pair_tgt,
+    T0_rebased)."""
+    src, smask, tgt, tmask, T0 = (torch.from_numpy(a).to(device) for a in scene)
+    return tif.fused_inputs(src, smask, tgt, tmask, T0, cfg)[0]
