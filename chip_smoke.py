@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's localization main path once on one GPU.
+"""Drive the PyTorch/CUDA port's main paths once on one GPU.
 
     python3 chip_smoke.py
 
@@ -33,11 +33,28 @@ check exits non-zero:
      -> step, K2) and fast mode without the superblock kernel
      (run_chunk_fast's per-frame branch, K3). Requires ATE-RMSE < 0.1 m and
      K2 / K3 launches.
+  6. the LIO path at bench.py bench_lio's width under its `blocks` loop
+     and `fused` backend (140 m world, skewed scans of 8192 points deskewed
+     in the loop, ring 16 x 4096, 32 target tiles of 1024, 2 GN iterations
+     on fixed correspondences, cell normals, the GN covariance, GPS every
+     frame), cut to 129 frames: run_lio_blocks twice from the same state,
+     LIOSession.push over the same frames, run_lio_chunk over the first 33,
+     and 8 frames through the split registration (associate_p2p_fused ->
+     p2p_gn_from_correspondences, K5 then K6). Requires ATE-RMSE < 0.3 m,
+     finite outputs, exactly one K4 launch a frame, the session's first 33
+     poses equal to the chunk's within 1e-5, and the split registration
+     equal to the whole one. Prints scans/s, push p50/p99, the frame's split
+     into host-issued work and K4 (and one block under torch.profiler:
+     device busy and idle share, K4's share, device operations a frame), the
+     anchor refresh, pair demand against the list's capacity and the GPS
+     accepted count.
 
 Phase 2 also holds K3 against its plain version (fresh and lazy, at the
-session's shapes) and the per-frame superblock branch (K3 lazy) against K1
-on the first superblock. Every kernel's launch count is set to 0 before
-each path of phases 3-5 and read after it.
+session's shapes), the per-frame superblock branch (K3 lazy) against K1 on
+the first superblock, and K4 (fixed and fresh correspondences), K5, K6 and
+K6(K5(x)) against K4 on a steady-state frame of the LIO world (frame 33,
+the ring full) against the anchor its block starts with. Every kernel's
+launch count is set to 0 before each path of phases 3-6 and read after it.
 
 The line before the last is the kernels' JSON record (time, plain time,
 error against plain, launches on the main paths, and the least time the
@@ -61,11 +78,22 @@ N_FRAMES = 257  # 1 startup frame + 32 superblocks of 8
 SESSION_FRAMES = 144  # bench.py bench_latency's sequence
 SESSION_WARMUP = 16  # pushes before the timed ones (bench.py:759)
 REPLAY_FRAMES = 33  # phase 5: 1 init frame + 1 coarse frame + 31 steady frames
+LIO_FRAMES = 129  # phase 6: 1 seeding frame + 8 blocks of 16 (the bench runs 512)
+LIO_CHUNK_FRAMES = 33  # run_lio_chunk, and the session poses held against it
+LIO_SPLIT_FRAMES = 8  # frames through the K5 -> K6 split registration
+LIO_WARM_FRAMES = 32  # frames before the kernel checks and the profile (the ring is full)
 ATE_LIMIT = 0.1  # m
+LIO_ATE_LIMIT = 0.3  # m: tests/test_lio.py's bound on the fused LIO backend
 K1_TOL = 3e-4  # poses/priors/state: tests/test_superblock_kernel.py's bound
 K3_TOL = 3e-4  # poses, the same bound; the ICP error to K3_ERR_TOL
 K3_ERR_TOL = 1e-3
 K2_RTOL = 1e-5  # d2, relative
+K4_TOL = 3e-4  # T of K4 and K6
+K4_RTOL = 1e-4  # rmse, wr2 and the 21 JtJ lanes, relative
+K5_RTOL = 1e-6  # d2, relative; the matched pages are equal
+#: float operations a point a pass of K6: the transform (18), the residual,
+#: Huber weight and Jacobian (~30) and the 29 moments (~60)
+FLOP_PER_GN_POINT = 110
 #: NVIDIA H100 SXM data sheet: float32 on the CUDA cores (the kernels use
 #: no tensor cores) and HBM3 bandwidth, both at the 700 W power limit
 PEAK_F32_FLOPS = 67e12
@@ -344,6 +372,82 @@ def check_per_frame_vs_k1(state0, blk, map_cloud, config, tag):
           f"[{tag}]", flush=True)
 
 
+def lio_config():
+    """bench.py bench_lio's configuration (:85-156) in its `blocks` mode (one
+    launch of the fused GN kernel a frame, :252-258) on the `fused` backend."""
+    from slam_sensor_fusion_tpu_torch.models.ekf import EKFConfig
+    from slam_sensor_fusion_tpu_torch.models.lio import LIOConfig
+    from slam_sensor_fusion_tpu_torch.ops.point_to_plane import PointToPlaneConfig
+
+    return LIOConfig(
+        scan_capacity=8192, window=16, slot_points=4096, refresh_every=16,
+        p2p=PointToPlaneConfig(
+            nn_backend="fused", num_iterations=2, fixed_correspondences=True,
+            reassoc_margin=0.15, tile_src=512, tile_tgt=1024, max_visits=64, assoc_unroll=1,
+        ),
+        reg_subsample=4, anchor_subsample=2, normal_est="cells", normal_voxel=1.8,
+        normal_planarity=None, icp_cov_mode="gn", gn_cov_scale=1.0, icp_pos_std=0.3,
+        superstep_slack=0.05, slack_base=0.1,
+        ekf=EKFConfig(init_pos_std=0.1, init_vel_std=0.1),
+    )
+
+
+def build_lio_world(n_frames: int, scan_cap: int):
+    """bench.py bench_lio's data (:160-222): the 140 m world, IMU packets,
+    skewed scans Morton pre-sorted with their taus riding along, GPS at
+    0.5 m noise. Returns (poses, v0, scans (T, S, 3), masks, taus, gyro,
+    accel, dts, gps_pos (T-1, 3))."""
+    from slam_sensor_fusion_tpu_torch.ops.morton import sort_order_numpy
+    from slam_sensor_fusion_tpu_torch.utils import synthetic as syn
+
+    rng = np.random.default_rng(0)
+    world = syn.make_world(rng, extent=140.0, n_buildings=70, n_poles=200, points_per_m2=24.0)
+    poses = syn.make_trajectory(n_frames, speed_per_frame=0.15, radius=30.0)
+    gyro, accel, dts = syn.make_imu(poses, gyro_noise=0.0005, accel_noise=0.005)
+    sp = np.zeros((n_frames, scan_cap, 3), np.float32)
+    sm = np.zeros((n_frames, scan_cap), bool)
+    tp = np.ones((n_frames, scan_cap), np.float32)
+    for i in range(n_frames):
+        pts, tau = syn.render_scan_skewed(
+            world, poses[max(i - 1, 0)], poses[i], rng, max_points=scan_cap, max_range=25.0
+        )
+        order = sort_order_numpy(pts, isotropic=True)
+        n = min(len(pts), scan_cap)
+        sp[i, :n], sm[i, :n], tp[i, :n] = pts[order][:n], True, tau[order][:n]
+    gps_pos = (
+        poses[1:, :3, 3] + np.random.default_rng(3).normal(0, 0.5, (n_frames - 1, 3))
+    ).astype(np.float32)
+    v0 = ((poses[1][:3, 3] - poses[0][:3, 3]) / 0.1).astype(np.float32)
+    return poses, v0, sp, sm, tp, gyro, accel, dts, gps_pos
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| relative to max |b|."""
+    return ((a - b).abs().max() / torch.clamp(b.abs().max(), min=1e-30)).item()
+
+
+def check_gn(what, got, want, dev_name):
+    """K4's or K6's (T_out, stats) against the plain version's."""
+    (T_k, st_k), (T_p, st_p) = got, want
+    torch.cuda.synchronize()
+    d = (T_k - T_p).abs().max().item()
+    if not d <= K4_TOL:
+        fail(f"{what}: T differs by {d} > {K4_TOL}")
+    if not torch.equal(st_k[0, 1:3], st_p[0, 1:3]):
+        fail(f"{what}: n_corr/iterations {st_k[0, 1:3].tolist()} vs {st_p[0, 1:3].tolist()}")
+    e_rmse = rel_err(st_k[0, 0], st_p[0, 0])
+    e_jtj = rel_err(st_k[0, 3:25], st_p[0, 3:25])
+    if not (e_rmse <= K4_RTOL and e_jtj <= K4_RTOL):
+        fail(f"{what}: rmse differs by {e_rmse}, JtJ/wr2 lanes by {e_jtj} (relative) > {K4_RTOL}")
+    if bool(st_k[0, 25:].abs().max() != 0):
+        fail(f"{what}: the unused stats lanes are not zero")
+    if not int(st_k[0, 1]) >= 1000:
+        fail(f"{what}: {int(st_k[0, 1])} correspondences, the comparison is vacuous")
+    print(f"{what} vs plain: max|T| diff {d:.3e}, rmse rel {e_rmse:.3e}, JtJ lanes rel {e_jtj:.3e}, "
+          f"n_corr {int(st_k[0, 1])} equal [{dev_name}]", flush=True)
+    return d
+
+
 def push_args(seq, i):
     return (seq.scans[i], seq.odom_T_sensor[i], float(seq.gps_lat[i]), float(seq.gps_lon[i]),
             float(seq.gps_alt[i]), float(seq.compass_yaw[i]), float(seq.odom_cov_trace[i]),
@@ -380,13 +484,17 @@ def main() -> None:
         _icp_plain,
         fused_inputs,
     )
+    from slam_sensor_fusion_tpu_torch.models import lio
+    from slam_sensor_fusion_tpu_torch.models.session import LIOSession
+    from slam_sensor_fusion_tpu_torch.ops import p2p_fused as p2p
     from slam_sensor_fusion_tpu_torch.ops.nn_pallas import pair_nn, pair_nn_plain
     from slam_sensor_fusion_tpu_torch.ops.superblock_fused import (
         superblock_fine,
         superblock_fine_plain,
     )
 
-    kernels = (superblock_fine, pair_nn, _fused_core)
+    kernels = (superblock_fine, pair_nn, _fused_core,
+               p2p._p2p_core, p2p._p2p_associate, p2p._p2p_gn_corr)
 
     # ---- 1. build ----
     t0 = time.perf_counter()
@@ -403,8 +511,12 @@ def main() -> None:
     seq, map_data = build_world(N_FRAMES)
     scfg = session_config()
     sseq, smap = build_session_world(SESSION_FRAMES)
+    lcfg = lio_config()
+    lposes, lv0, lsp, lsm, ltp, lgyro, laccel, ldts, lgps = build_lio_world(
+        LIO_FRAMES, lcfg.scan_capacity)
     print(f"set-up worlds: {time.perf_counter() - t0:.1f} s, map points {map_data.map_points.shape[0]} "
-          f"(bench), {smap.map_points.shape[0]} (session)", flush=True)
+          f"(bench), {smap.map_points.shape[0]} (session), LIO scan points mean "
+          f"{lsm.sum(1).mean():.0f} of {lcfg.scan_capacity}", flush=True)
 
     # ---- 2. kernel against plain at main-path shapes ----
     t0 = time.perf_counter()
@@ -452,6 +564,84 @@ def main() -> None:
         fail("K3 check inputs: pair list overflow")
     k3_err, k3_pairs, _ = check_k3(k3_in, scfg.icp, False, name)
     k3l_err, k3l_pairs, _ = check_k3(k3_in, scfg.icp, True, name)
+
+    # K4-K6 at the LIO bench's shapes on a steady-state frame of the LIO
+    # world: the first two blocks fill the ring (16 slots), then frame 33 (16
+    # source tiles of 512, deskewed at its IMU prior) against the anchor its
+    # block starts with (32 target tiles of 1024)
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    lstate0 = lio.init_state(lcfg, up(lsp[0]), up(lsm[0]), up(lposes[0]))
+    lstate0 = lstate0._replace(ekf_state=lstate0.ekf_state._replace(v=up(lv0)))
+    Tl = LIO_FRAMES - 1
+    gps_var = np.full(Tl, 0.5**2, np.float32)
+    larrays = [up(a) for a in (lsp[1:], lsm[1:], lgyro, laccel, ldts, lgps, gps_var,
+                               np.ones(Tl, bool))]
+    ltau = up(ltp[1:])
+    w = LIO_WARM_FRAMES
+    lstate_w, _ = lio.run_lio_blocks(lstate0, *[a[:w] for a in larrays], lcfg, scan_tau=ltau[:w])
+    lstate_w = lio._with_anchor(
+        lstate_w,
+        lio._refresh_anchor(lstate_w.ring, lstate_w.ring_mask, lstate_w.ekf_state.p, lcfg),
+        lio._pose_cov6(lstate_w.ekf_state.P),
+    )
+    _, lprior, lscan = lio._prior_and_scan(
+        lstate_w, larrays[0][w], larrays[2][w], larrays[3][w], larrays[4][w], lcfg, ltau[w])
+    k4_in, _, k4_demand = p2p.p2p_inputs(
+        lscan, larrays[1][w], lstate_w.anchor_cache, lprior, lcfg.p2p)
+    cfg_fresh = lcfg.p2p._replace(fixed_correspondences=False)
+    k4_pairs = int(k4_in[3].sum())
+    print(f"K4 check inputs: src {tuple(k4_in[0].shape)} tgt {tuple(k4_in[1].shape)}, pair demand "
+          f"{int(k4_demand)}, in the list {k4_pairs} of {k4_in[4].shape[0]}", flush=True)
+    k4_err = check_gn("K4 fixed", p2p._p2p_core(*k4_in, lcfg.p2p),
+                      p2p._p2p_core_plain(*k4_in, lcfg.p2p), name)
+    k4f_err = check_gn("K4 fresh", p2p._p2p_core(*k4_in, cfg_fresh),
+                       p2p._p2p_core_plain(*k4_in, cfg_fresh), name)
+    d2_k, qn_k = p2p._p2p_associate(*k4_in)
+    d2_p, qn_p = p2p._p2p_associate_plain(*k4_in)
+    torch.cuda.synchronize()
+    k5_rel = ((d2_k - d2_p).abs() / torch.clamp(d2_p.abs(), min=1e-30)).max().item()
+    if not k5_rel <= K5_RTOL:
+        fail(f"K5: d2 relative error {k5_rel} > {K5_RTOL}")
+    if not torch.equal(qn_k, qn_p):
+        fail("K5: matched point + normal pages differ")
+    k5_err = (d2_k - d2_p).abs()[d2_p < 1e6].max().item()
+    print(f"K5 vs plain: d2 rel {k5_rel:.3e}, matched pages equal [{name}]", flush=True)
+    k6_in = (k4_in[5], k4_in[0], d2_p, qn_p)
+    k6_err = check_gn("K6", p2p._p2p_gn_corr(*k6_in, lcfg.p2p),
+                      p2p._p2p_gn_corr_plain(*k6_in, lcfg.p2p), name)
+    whole = p2p._p2p_core(*k4_in, lcfg.p2p)
+    halves = p2p._p2p_gn_corr(k4_in[5], k4_in[0], d2_k, qn_k, lcfg.p2p)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(whole, halves)):
+        fail(f"K6(K5(x)) differs from K4 with fixed correspondences by "
+             f"{(whole[0] - halves[0]).abs().max().item()}")
+    print(f"K6(K5(x)) equals K4 fixed bit for bit [{name}]", flush=True)
+
+    k4_ms = time_ms(lambda: p2p._p2p_core(*k4_in, lcfg.p2p), 10)
+    k4_plain_ms = time_ms(lambda: p2p._p2p_core_plain(*k4_in, lcfg.p2p), 2)
+    k4f_ms = time_ms(lambda: p2p._p2p_core(*k4_in, cfg_fresh), 5)
+    k4f_plain_ms = time_ms(lambda: p2p._p2p_core_plain(*k4_in, cfg_fresh), 2)
+    k5_ms = time_ms(lambda: p2p._p2p_associate(*k4_in), 10)
+    k5_plain_ms = time_ms(lambda: p2p._p2p_associate_plain(*k4_in), 2)
+    k6_ms = time_ms(lambda: p2p._p2p_gn_corr(*k6_in, lcfg.p2p), 20)
+    k6_plain_ms = time_ms(lambda: p2p._p2p_gn_corr_plain(*k6_in, lcfg.p2p), 2)
+    print(f"K4 fixed {k4_ms:.3f} ms/registration (plain {k4_plain_ms:.3f}), fresh {k4f_ms:.3f} "
+          f"(plain {k4f_plain_ms:.3f}); K5 {k5_ms:.3f} ms (plain {k5_plain_ms:.3f}); K6 {k6_ms:.3f} ms "
+          f"(plain {k6_plain_ms:.3f}) [{tag}]", flush=True)
+    TM4, TN4 = k4_in[0].shape[-1], k4_in[1].shape[-1]
+    n_pass = lcfg.p2p.num_iterations + 1
+    gn_flops = n_pass * k4_in[0].shape[0] * TM4 * FLOP_PER_GN_POINT
+    assoc_flops = k4_pairs * TM4 * TN4 * FLOP_PER_DISTANCE
+    k4_bytes = nbytes(*k4_in) + nbytes(*whole)
+    k4_bound = bound(assoc_flops + gn_flops, k4_bytes)
+    k4f_bound = bound(n_pass * assoc_flops + gn_flops, k4_bytes)
+    k5_bound = bound(assoc_flops, nbytes(*k4_in) + nbytes(d2_k, qn_k))
+    k6_bound = bound(gn_flops, nbytes(*k6_in) + nbytes(*halves))
+    print(f"bounds: K4 fixed {k4_bound[0]:.4f} ms ({k4_bound[1]}), fresh {k4f_bound[0]:.4f} ms "
+          f"({k4f_bound[1]}), K5 {k5_bound[0]:.4f} ms ({k5_bound[1]}), K6 {k6_bound[0]:.5f} ms "
+          f"({k6_bound[1]}) [{tag}]", flush=True)
 
     k2_ms = time_ms(lambda: pair_nn(*k2_in), 20)
     k2_plain_ms = time_ms(lambda: pair_nn_plain(*k2_in), 5)
@@ -662,6 +852,145 @@ def main() -> None:
         if not r_ate < ATE_LIMIT:
             fail(f"Localizer.run {path}: ATE-RMSE {r_ate} >= {ATE_LIMIT}")
     print(f"phase 5 replay: {time.perf_counter() - t0:.1f} s [{tag}]", flush=True)
+
+    # ---- 6. the LIO path: run_lio_blocks twice, LIOSession, run_lio_chunk
+    # (one K4 launch a frame), then the split registration (K5 -> K6) ----
+    t0 = time.perf_counter()
+    k4 = p2p._p2p_core
+    lgt = lposes[1:]
+    torch.cuda.synchronize()
+
+    def check_lio(what, est, n_corr, launched, frames):
+        if launched != frames:
+            fail(f"{what}: K4 launched {launched} times for {frames} frames")
+        if not (np.isfinite(est).all() and (n_corr > 0).all()):
+            fail(f"{what}: non-finite pose or a frame without correspondences")
+        ate = ate_rmse(est, lgt[:frames])
+        if not ate < LIO_ATE_LIMIT:
+            fail(f"{what}: ATE-RMSE {ate} >= {LIO_ATE_LIMIT}")
+        return ate
+
+    zero_counts(*kernels)
+    lrate = 0.0
+    for p in range(2):
+        before = k4.launches
+        t1 = time.perf_counter()
+        lfin, lout = lio.run_lio_blocks(lstate0, *larrays, lcfg, scan_tau=ltau)
+        t_issue = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        est = lout.world_T_body.cpu().numpy()
+        n_corr = lout.n_correspondences.cpu().numpy()
+        ate = check_lio(f"run_lio_blocks pass {p}", est, n_corr, k4.launches - before, Tl)
+        lrate = Tl / dt
+        print(f"LIO pass {p}: {Tl} frames {dt:.3f} s = {lrate:.1f} scans/s, ATE-RMSE {ate:.4f} m, "
+              f"{dt / Tl * 1e3:.3f} ms a frame of which host-issued {t_issue / Tl * 1e3:.3f} ms "
+              f"(the call returns) and K4 {k4_ms:.3f} ms (phase 2), n_corr mean {n_corr.mean():.0f}, "
+              f"rmse mean {lout.rmse.mean().item():.4f} m, GPS accepted "
+              f"{int(lout.gps_accepted.sum())} of {Tl}, K4 launches {k4.launches - before} [{tag}]",
+              flush=True)
+    record("lio_blocks")
+    refresh_ms = time_ms(
+        lambda: lio._refresh_anchor(lfin.ring, lfin.ring_mask, lfin.ekf_state.p, lcfg), 5)
+    print(f"LIO anchor refresh (Morton sort + cell normals + pages of {lfin.ring.shape[0]} ring "
+          f"points): {refresh_ms:.3f} ms, once every {lcfg.refresh_every} frames [{tag}]", flush=True)
+
+    # where a frame's time goes: one block from the warmed-up state under
+    # the profiler (kernel time by name, launches, the device's idle share)
+    from torch.profiler import ProfilerActivity, profile
+
+    nb = lcfg.refresh_every
+    blk = [a[w:w + nb] for a in larrays]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        lio.run_lio_blocks(lstate_w, *blk, lcfg, scan_tau=ltau[w:w + nb])
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t1) * 1e3
+    on_dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in on_dev) / 1e3
+    k4_prof_ms = sum(e.self_device_time_total for e in on_dev if "p2p_fused_kernel" in e.key) / 1e3
+    n_dev = sum(e.count for e in on_dev)
+    if busy_ms > 0:
+        frame_ms = 1e3 / lrate  # of the second pass, without the profiler
+        print(f"LIO profile, one block of {nb} frames: device busy {busy_ms / nb:.3f} ms a frame, "
+              f"{100 * busy_ms / nb / frame_ms:.1f}% of the second pass's {frame_ms:.3f} ms a frame "
+              f"(idle {100 - 100 * busy_ms / nb / frame_ms:.1f}%), of which K4 {k4_prof_ms / nb:.3f} ms; "
+              f"{n_dev / nb:.0f} device operations a frame; {wall_ms / nb:.1f} ms a frame under the "
+              f"profiler [{tag}]", flush=True)
+    else:
+        print(f"LIO profile: the profiler recorded no device time (not measured) [{tag}]", flush=True)
+
+    zero_counts(*kernels)
+    lsess = LIOSession(lcfg, lsp[0], lsm[0], lposes[0], device=dev)
+    lsess.state = lsess.state._replace(ekf_state=lsess.state.ekf_state._replace(v=up(lv0)))
+    llat, lest, lncorr, demand, n_gps = [], [], [], [], 0
+    for k in range(Tl):
+        # the push's own prologue, replayed beside it: the pair demand of
+        # this frame against the list's capacity
+        _, prior_k, scan_k = lio._prior_and_scan(
+            lsess.state, larrays[0][k], larrays[2][k], larrays[3][k], larrays[4][k], lcfg, ltau[k])
+        core_k, _, dem_k = p2p.p2p_inputs(
+            scan_k, larrays[1][k], lsess.state.anchor_cache, prior_k, lcfg.p2p)
+        demand.append(int(dem_k))
+        t1 = time.perf_counter()
+        r = lsess.push(lsp[k + 1], lsm[k + 1], lgyro[k], laccel[k], ldts[k], lgps[k],
+                       float(gps_var[k]), True, tau=ltp[k + 1])
+        llat.append(time.perf_counter() - t1)
+        lest.append(r.world_T_body)
+        lncorr.append(r.n_correspondences)
+        n_gps += r.gps_accepted
+    record("lio_session")
+    lest = np.stack(lest)
+    s_ate = check_lio("LIOSession", lest, np.asarray(lncorr), k4.launches, Tl)
+    capacity = core_k[4].shape[0]
+    print(f"LIOSession: {Tl} pushes, ATE-RMSE {s_ate:.4f} m, push p50 "
+          f"{percentile_ms(llat[16:], 50):.3f} ms p99 {percentile_ms(llat[16:], 99):.3f} ms over "
+          f"{len(llat) - 16} pushes, GPS accepted {n_gps}, K4 launches {k4.launches}; pair demand "
+          f"mean {np.mean(demand):.1f} max {max(demand)} against a list of {capacity} "
+          f"({sum(d > capacity for d in demand)} frames truncated) [{tag}]", flush=True)
+
+    zero_counts(*kernels)
+    n = LIO_CHUNK_FRAMES
+    _, cout = lio.run_lio_chunk(lstate0, *[a[:n] for a in larrays], lcfg, scan_tau=ltau[:n])
+    cest = cout.world_T_body.cpu().numpy()
+    record("lio_chunk")
+    c_ate = check_lio("run_lio_chunk", cest, cout.n_correspondences.cpu().numpy(), k4.launches, n)
+    gap = float(np.abs(cest - lest[:n]).max())
+    print(f"run_lio_chunk: {n} frames, ATE-RMSE {c_ate:.4f} m, refreshed at "
+          f"{torch.nonzero(cout.refreshed).flatten().tolist()}, max |pose| diff to the session "
+          f"{gap:.3e}, K4 launches {k4.launches} [{tag}]", flush=True)
+    if not gap <= 1e-5:
+        fail(f"LIOSession and run_lio_chunk differ by {gap} > 1e-5")
+
+    # the split registration, the single-shard form of a map-sharded one:
+    # association (K5), then GN on its winners (K6), against the whole K4
+    zero_counts(*kernels)
+    worst = 0.0
+    for k in range(LIO_SPLIT_FRAMES):
+        prior_k = nudge(up(lposes[k + 1]), 0.05, -0.03, 0.3)
+        args = (larrays[0][k], larrays[1][k], lstate0.anchor_cache, prior_k, lcfg.p2p)
+        d2_k, qn_k = p2p.associate_p2p_fused(*args)
+        split = p2p.p2p_gn_from_correspondences(
+            args[0], args[1], d2_k, qn_k, prior_k, lstate0.anchor_cache.center, lcfg.p2p)
+        whole = p2p.point_to_plane_align_fused(*args)
+        worst = max(worst, (split.transformation - whole.transformation).abs().max().item())
+        if int(split.n_correspondences) != int(whole.n_correspondences):
+            fail(f"split registration frame {k}: n_corr {int(split.n_correspondences)} vs "
+                 f"{int(whole.n_correspondences)}")
+    record("lio_split")
+    print(f"split registration over {LIO_SPLIT_FRAMES} frames: max |T| diff to K4 {worst:.3e}; "
+          f"launches K5 {p2p._p2p_associate.launches}, K6 {p2p._p2p_gn_corr.launches}, K4 "
+          f"{k4.launches} [{tag}]", flush=True)
+    if worst != 0.0:
+        fail(f"split registration differs from K4 by {worst}")
+    if p2p._p2p_associate.launches != LIO_SPLIT_FRAMES or p2p._p2p_gn_corr.launches != LIO_SPLIT_FRAMES:
+        fail("split registration: K5 / K6 did not launch once a frame")
+    print(f"phase 6 LIO path: {time.perf_counter() - t0:.1f} s; scans/s (pass 1) {lrate:.1f} "
+          f"[{tag}]", flush=True)
+    for kernel in kernels:
+        if not sum(launches[kernel].values()):
+            fail(f"{kernel.__name__} never launched on a main path")
     print(f"total {time.perf_counter() - t_start:.1f} s [{tag}]", flush=True)
 
     def row(kernel, label, source, replaces, err, ms, plain_ms, bnd):
@@ -681,6 +1010,14 @@ def main() -> None:
         row(_fused_core, "K3 icp_fused", "slam_sensor_fusion_tpu_torch/csrc/icp_fused.cu",
             "slam_sensor_fusion_tpu/ops/icp_fused.py:131", max(k3_err, k3l_err), k3_ms,
             k3_plain_ms, k3_bound),
+        row(p2p._p2p_core, "K4 p2p_fused", "slam_sensor_fusion_tpu_torch/csrc/p2p_fused.cu",
+            "slam_sensor_fusion_tpu/ops/p2p_fused.py:210", max(k4_err, k4f_err), k4_ms,
+            k4_plain_ms, k4_bound),
+        row(p2p._p2p_associate, "K5 p2p_associate",
+            "slam_sensor_fusion_tpu_torch/csrc/p2p_fused.cu",
+            "slam_sensor_fusion_tpu/ops/p2p_fused.py:510", k5_err, k5_ms, k5_plain_ms, k5_bound),
+        row(p2p._p2p_gn_corr, "K6 p2p_gn_corr", "slam_sensor_fusion_tpu_torch/csrc/p2p_fused.cu",
+            "slam_sensor_fusion_tpu/ops/p2p_fused.py:536", k6_err, k6_ms, k6_plain_ms, k6_bound),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -30,10 +30,11 @@
 // weight, a float4 a point: 512 KiB at 128 tiles of 256) does not fit in
 // shared memory, so it lives in a global buffer the wrapper allocates; each
 // thread reads and writes only its own points, so it needs no barrier, and
-// it stays in the 50 MB L2. Within a pair list a strict `<` in visit order
-// keeps the FIRST row of an exact tie within a tile and the earlier tile
-// across tiles, which is the JAX kernel's argmin + strict-`<` rule (K1
-// averages ties instead). The moment sums are the fixed-order block
+// it stays in the 50 MB L2. The association is icp_fused.cuh's
+// `nearest_first`, shared with K4: a strict `<` in visit order keeps the
+// FIRST row of an exact tie within a tile and the earlier tile across tiles,
+// the JAX kernel's argmin + strict-`<` rule (K1 averages ties instead). The
+// moment sums are the fixed-order block
 // reduction of icp_fused.cuh (no atomics: deterministic), and the library
 // builds with -fmad=false, so products and sums round op by op as in the
 // plain version `_fused_core_plain`.
@@ -89,25 +90,12 @@ __device__ void associate(const Shared& S, const Tiles& T, float gate, bool shri
     const float sx = R[0] * px + R[1] * py + R[2] * pz + t[0];
     const float sy = R[3] * px + R[4] * py + R[5] * pz + t[1];
     const float sz = R[6] * px + R[7] * py + R[8] * pz + t[2];
-    float best = sfk::kBig, bx = 0.0f, by = 0.0f, bz = 0.0f;
-    const int start = T.ps[i];
-    const int cnt = T.pc[i];
-    for (int q = 0; q < cnt; ++q) {
-      const float* tx = T.tgt + (size_t)T.pt[start + q] * 3 * T.TN;
-      const float* ty = tx + T.TN;
-      const float* tz = tx + 2 * T.TN;
-#pragma unroll 4
-      for (int c = 0; c < T.TN; ++c) {
-        const float x = __ldg(tx + c), y = __ldg(ty + c), z = __ldg(tz + c);
-        const float dx = x - sx;
-        const float dy = y - sy;
-        const float dz = z - sz;
-        const float d2 = dx * dx + dy * dy + dz * dz;
-        if (d2 < best) {
-          best = d2; bx = x; by = y; bz = z;
-        }
-      }
-    }
+    const float* win;
+    const float best =
+        sfk::nearest_first<3>(T.tgt, T.pt, T.ps[i], T.pc[i], T.TN, sx, sy, sz, &win);
+    const float bx = win ? win[0] : 0.0f;
+    const float by = win ? win[T.TN] : 0.0f;
+    const float bz = win ? win[2 * T.TN] : 0.0f;
     float4* o = T.scratch + (size_t)i * T.TM + r;
     const float g = best < gate ? 1.0f : 0.0f;
     *o = make_float4(bx, by, bz, shrink ? o->w * g : g);

@@ -1,8 +1,9 @@
-// Shared device helpers for the ICP kernels K1 and K3: the 3x3 register math
-// of slam_sensor_fusion_tpu/ops/icp_fused.py:56-128 (_adjugate_transpose_over_det,
-// _mv3, _mm3, _newton_polar) and its Kabsch step (:285-295), the
-// rigid-transform helpers of ops/superblock_fused.py:62-102 and a
-// deterministic block reduction that stands in for _sum_all.
+// Shared device helpers for the registration kernels K1, K3 and K4-K6: the
+// 3x3 register math of slam_sensor_fusion_tpu/ops/icp_fused.py:56-128
+// (_adjugate_transpose_over_det, _mv3, _mm3, _newton_polar) and its Kabsch
+// step (:285-295), the rigid-transform helpers of
+// ops/superblock_fused.py:62-102, the tile-major first-row association of
+// K3 and K4 and a deterministic block reduction that stands in for _sum_all.
 //
 // Matrices are row-major float[9]; translations float[3]. Every expression
 // keeps the JAX package's operand order, and the library is compiled with
@@ -186,6 +187,72 @@ struct IcpOut {
   int iters;
   float det_min;
 };
+
+// Tile-major nearest neighbour of the transformed source point (sx, sy, sz)
+// over its admitted target tiles pt[start .. start + cnt), pages of ROWS
+// rows by TN columns (rows 0-2 are x, y, z; K4's rows 3-5 the normal):
+// direct-difference distances and a running strict `<` in visit order, which
+// keeps the FIRST row of an exact d2 tie within a tile and the earlier tile
+// across tiles (icp_fused.py:205-214, p2p_fused.py:180-194: argmin, then a
+// strict `<`). Returns the best d2 (kBig when nothing was admitted) and
+// leaves in *win the address of the winner's x, or nullptr; its row k is
+// (*win)[k * TN]. The TPU kernels fetch the winner by a one-hot product,
+// which is this gather exactly (1.0 * x plus zeros; the sentinels are finite).
+// A warp reads the same four target rows at a time as one 16-byte broadcast
+// load a coordinate (the pages are 16-byte aligned when TN is a multiple of
+// 4; other widths take the scalar loop). bench/assoc_variants.cu times this
+// loop against its scalar-load forms: on an H100 the 16-byte form is the
+// fastest, and scalar loads that carry the winner's row run at half the rate
+// of scalar loads that carry its coordinates.
+template <int ROWS>
+__device__ __forceinline__ float nearest_first(const float* __restrict__ tgt,
+                                               const int* __restrict__ pt, int start,
+                                               int cnt, int TN, float sx, float sy,
+                                               float sz, const float** win) {
+  float best = kBig;
+  const float* w = nullptr;
+  const int n4 = (TN % 4 == 0) ? TN / 4 : 0;
+  for (int q = 0; q < cnt; ++q) {
+    const float* tx = tgt + (size_t)pt[start + q] * ROWS * TN;
+    const float* ty = tx + TN;
+    const float* tz = tx + 2 * TN;
+    const float4* x4 = reinterpret_cast<const float4*>(tx);
+    const float4* y4 = reinterpret_cast<const float4*>(ty);
+    const float4* z4 = reinterpret_cast<const float4*>(tz);
+    int hit = -1;  // the winning row of this tile, if it beats the best so far
+#pragma unroll 2
+    for (int c = 0; c < n4; ++c) {
+      const float4 X = __ldg(x4 + c), Y = __ldg(y4 + c), Z = __ldg(z4 + c);
+      const float xs[4] = {X.x, X.y, X.z, X.w};
+      const float ys[4] = {Y.x, Y.y, Y.z, Y.w};
+      const float zs[4] = {Z.x, Z.y, Z.z, Z.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float dx = xs[u] - sx;
+        const float dy = ys[u] - sy;
+        const float dz = zs[u] - sz;
+        const float d2 = dx * dx + dy * dy + dz * dz;
+        if (d2 < best) {
+          best = d2;
+          hit = 4 * c + u;
+        }
+      }
+    }
+    for (int c = 4 * n4; c < TN; ++c) {
+      const float dx = __ldg(tx + c) - sx;
+      const float dy = __ldg(ty + c) - sy;
+      const float dz = __ldg(tz + c) - sz;
+      const float d2 = dx * dx + dy * dy + dz * dz;
+      if (d2 < best) {
+        best = d2;
+        hit = c;
+      }
+    }
+    if (hit >= 0) w = tx + hit;
+  }
+  *win = w;
+  return best;
+}
 
 // Deterministic block sum of NV per-thread values: a fixed shuffle tree per
 // warp, then warp partials summed in warp order. blockDim.x must be a

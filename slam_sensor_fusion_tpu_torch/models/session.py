@@ -19,8 +19,11 @@ With `profile=True` each steady-state push leaves {host_ms, dispatch_ms,
 device_ms} in `last_timing`: host = geodesy and frame staging on the CPU,
 dispatch = the engine call returning (it issues the kernels, and blocks
 where the engine reads a device value back: the re-crop test, the valid
-flag), device = until the outputs are on the host (`.cpu()`). The LIO
-session waits for the port of the LIO stack.
+flag), device = until the outputs are on the host (`.cpu()`).
+
+`LIOSession` is the native-mode form: one `push` per (scan, IMU packet,
+GPS) triplet through `models/lio.lio_step` (one K4 launch a push on the
+fused backend).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import time
 import numpy as np
 import torch
 
+from slam_sensor_fusion_tpu_torch.models import lio as lio_mod
 from slam_sensor_fusion_tpu_torch.models.localization import (
     Localizer,
     _fine,
@@ -266,3 +270,71 @@ class BlockLocalizerSession(LocalizerSession):
             )
             for k in range(self.K)
         ]
+
+
+@dataclasses.dataclass
+class LIOPushResult:
+    world_T_body: np.ndarray  # (4, 4)
+    rmse: float
+    n_correspondences: int
+    gps_accepted: bool
+
+
+class LIOSession:
+    """Incremental native-mode LIO: one `push` per (scan, IMU packet, GPS)
+    triplet, wrapping the same `lio_step` the chunk loop loops over.
+    Scans should arrive Morton-pre-sorted (the loader contract); `tau`
+    rides the same permutation for deskew."""
+
+    def __init__(
+        self,
+        config: lio_mod.LIOConfig,
+        first_scan: np.ndarray,
+        first_scan_mask: np.ndarray,
+        world_T_body0: np.ndarray,
+        device: torch.device | str = torch.device("cuda"),
+    ):
+        self.config = config
+        self.device = torch.device(device)
+        self.state = lio_mod.init_state(
+            config,
+            self._tensor(first_scan, np.float32),
+            self._tensor(first_scan_mask, bool),
+            self._tensor(world_T_body0, np.float32),
+        )
+
+    def _tensor(self, a, dtype) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, dtype=dtype)).to(self.device)
+
+    def push(
+        self,
+        scan_points: np.ndarray,  # (S, 3) padded to config.scan_capacity
+        scan_mask: np.ndarray,  # (S,)
+        imu_gyro: np.ndarray,  # (K, 3)
+        imu_accel: np.ndarray,  # (K, 3)
+        imu_dt: np.ndarray,  # (K,)
+        gps_pos: np.ndarray,  # (3,)
+        gps_var: float,
+        gps_valid: bool,
+        tau: np.ndarray | None = None,  # (S,) sweep fractions
+    ) -> LIOPushResult:
+        f32 = np.float32
+        args = [
+            self._tensor(scan_points, f32),
+            self._tensor(scan_mask, bool),
+            self._tensor(imu_gyro, f32),
+            self._tensor(imu_accel, f32),
+            self._tensor(imu_dt, f32),
+            self._tensor(gps_pos, f32),
+            self._tensor(gps_var, f32),
+            self._tensor(gps_valid, bool),
+        ]
+        self.state, out = lio_mod.lio_step(
+            self.state, *args, self.config, None if tau is None else self._tensor(tau, f32)
+        )
+        return LIOPushResult(
+            world_T_body=out.world_T_body.cpu().numpy(),
+            rmse=float(out.rmse),
+            n_correspondences=int(out.n_correspondences),
+            gps_accepted=bool(out.gps_accepted),
+        )

@@ -130,12 +130,18 @@ def sample_to_capacity(cloud: Cloud, out_capacity: int) -> Cloud:
     """Evenly sample the valid points into a (possibly smaller) capacity:
     exactly `compact` when they fit, an even stride over the packed order
     when they do not."""
-    packed = compact(cloud, cloud.capacity)
-    n = packed.count().to(torch.int64)
-    i = torch.arange(out_capacity, device=cloud.mask.device)
+    dev = cloud.mask.device
+    n = cloud.count().to(torch.int64)
+    # `compact` at full capacity without its data-dependent shape (no host
+    # sync): a stable sort moves the valid rows to the front in order, rows
+    # past the count take row 0
+    order = torch.sort((~cloud.mask).to(torch.uint8), stable=True).indices
+    rows = torch.arange(cloud.capacity, device=dev)
+    packed = cloud.points[torch.where(rows < n, order, 0)]
+    i = torch.arange(out_capacity, device=dev)
     idx = (i * n) // out_capacity  # hits every index once when n <= cap
     dup = torch.cat([idx.new_zeros(1, dtype=torch.bool), idx[1:] == idx[:-1]])
-    return Cloud(packed.points[idx], (idx < n) & ~dup)
+    return Cloud(packed[idx], (idx < n) & ~dup)
 
 
 def voxel_downsample_numpy(

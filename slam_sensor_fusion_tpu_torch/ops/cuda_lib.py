@@ -114,6 +114,12 @@ def _declare(so: ctypes.CDLL) -> None:
     so.sfk_superblock_fine.restype = I
     so.sfk_icp_fused.argtypes = [P] * 9 + [I] * 3 + [P, P]
     so.sfk_icp_fused.restype = I
+    so.sfk_p2p_fused.argtypes = [P] * 10 + [I] * 3 + [P, P]
+    so.sfk_p2p_fused.restype = I
+    so.sfk_p2p_associate.argtypes = [P] * 8 + [I] * 3 + [P]
+    so.sfk_p2p_associate.restype = I
+    so.sfk_p2p_gn_corr.argtypes = [P] * 6 + [I] * 2 + [P, P]
+    so.sfk_p2p_gn_corr.restype = I
 
 
 def check(err: int, what: str) -> None:

@@ -47,3 +47,72 @@ def transform_points(T: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     R = T[..., :3, :3]
     t = T[..., :3, 3]
     return torch.einsum("...ij,...nj->...ni", R, points) + t[..., None, :]
+
+
+def skew(v: torch.Tensor) -> torch.Tensor:
+    """Skew-symmetric matrix [v]x of (..., 3) vectors."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    zero = torch.zeros_like(x)
+    return torch.stack(
+        [
+            torch.stack([zero, -z, y], dim=-1),
+            torch.stack([z, zero, -x], dim=-1),
+            torch.stack([-y, x, zero], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def _eye3_like(K: torch.Tensor) -> torch.Tensor:
+    return torch.eye(3, dtype=K.dtype, device=K.device).expand(K.shape)
+
+
+def so3_exp(w: torch.Tensor) -> torch.Tensor:
+    """Rodrigues: exp of (..., 3) rotation vectors, stable near 0."""
+    theta2 = (w * w).sum(dim=-1)
+    theta = torch.sqrt(torch.clamp(theta2, min=1e-24))
+    a = torch.where(theta2 > 1e-12, torch.sin(theta) / theta, 1.0 - theta2 / 6.0)
+    b = torch.where(
+        theta2 > 1e-12, (1.0 - torch.cos(theta)) / theta2, 0.5 - theta2 / 24.0
+    )
+    K = skew(w)
+    return _eye3_like(K) + a[..., None, None] * K + b[..., None, None] * (K @ K)
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Rotation vector of (..., 3, 3) rotations (principal branch)."""
+    tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_t = torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0)
+    theta = torch.arccos(cos_t)
+    v = torch.stack(
+        [
+            R[..., 2, 1] - R[..., 1, 2],
+            R[..., 0, 2] - R[..., 2, 0],
+            R[..., 1, 0] - R[..., 0, 1],
+        ],
+        dim=-1,
+    )
+    scale = torch.where(
+        theta > 1e-6, theta / (2.0 * torch.sin(torch.clamp(theta, min=1e-12))), 0.5
+    )
+    return v * scale[..., None]
+
+
+def se3_exp(xi: torch.Tensor) -> torch.Tensor:
+    """exp of (..., 6) twists [rho, phi] -> (..., 4, 4) rigid transforms."""
+    rho, phi = xi[..., :3], xi[..., 3:]
+    R = so3_exp(phi)
+    theta2 = (phi * phi).sum(dim=-1)
+    theta = torch.sqrt(torch.clamp(theta2, min=1e-24))
+    K = skew(phi)
+    b = torch.where(
+        theta2 > 1e-12, (1.0 - torch.cos(theta)) / theta2, 0.5 - theta2 / 24.0
+    )
+    c = torch.where(
+        theta2 > 1e-12,
+        (theta - torch.sin(theta)) / (theta2 * theta),
+        1.0 / 6.0 - theta2 / 120.0,
+    )
+    V = _eye3_like(K) + b[..., None, None] * K + c[..., None, None] * (K @ K)
+    t = torch.einsum("...ij,...j->...i", V, rho)
+    return make_T(R, t)

@@ -164,10 +164,11 @@ def _associate_first(src, R, t, start, cnt, pair_tgt, tgt_pages):
     """K3's tile-major association: per source tile, direct (t - s)^2
     distances to each admitted target tile; within a tile the FIRST row of
     an exact d2 tie wins (icp_fused.py:205-214), across tiles a strict `<`
-    keeps the earlier tile. Returns best d2 (nSt, TM) and the winner
-    coordinates (nSt, 3, TM)."""
+    keeps the earlier tile. Returns best d2 (nSt, TM) and the winner's
+    page rows (nSt, rows, TM): its coordinates, and for K4's 6-row pages
+    (ops/p2p_fused.py) its normal; a tile with no admitted pair gets zeros."""
     nSt, _, TM = src.shape
-    TN = tgt_pages.shape[2]
+    rows, TN = tgt_pages.shape[1], tgt_pages.shape[2]
     dev = src.device
     chunk = _tile_chunk(TN, TM)
     cols = torch.arange(TM, device=dev)
@@ -178,10 +179,10 @@ def _associate_first(src, R, t, start, cnt, pair_tgt, tgt_pages):
         sy = R[1, 0] * px + R[1, 1] * py + R[1, 2] * pz + t[1]
         sz = R[2, 0] * px + R[2, 1] * py + R[2, 2] * pz + t[2]
         best = torch.full((TM,), _BIG, dtype=torch.float32, device=dev)
-        bxyz = torch.zeros((3, TM), dtype=torch.float32, device=dev)
+        bxyz = torch.zeros((rows, TM), dtype=torch.float32, device=dev)
         for c0 in range(0, cnt[i], chunk):
             js = pair_tgt[start[i] + c0 : start[i] + min(cnt[i], c0 + chunk)].long()
-            tt = tgt_pages[js]  # (C, 3, TN)
+            tt = tgt_pages[js]  # (C, rows, TN)
             dx = tt[:, 0, :, None] - sx
             dy = tt[:, 1, :, None] - sy
             dz = tt[:, 2, :, None] - sz
@@ -190,7 +191,7 @@ def _associate_first(src, R, t, start, cnt, pair_tgt, tgt_pages):
             cmin, carg = tile_min.min(dim=0)  # first tile on ties
             better = cmin < best
             best = torch.where(better, cmin, best)
-            win = tt[carg, :, arg[carg, cols]].T  # (3, TM)
+            win = tt[carg, :, arg[carg, cols]].T  # (rows, TM)
             bxyz = torch.where(better[None], win, bxyz)
         best_all.append(best)
         xyz_all.append(bxyz)

@@ -1,0 +1,416 @@
+"""Point-to-plane Gauss-Newton scan-to-map registration, native mode (port
+of the JAX `ops/point_to_plane.py`).
+
+* map normals are estimated ONCE per anchor refresh: by voxel-cell PCA
+  (`estimate_normals`: sort + segment sums + a batched `eigh`), by PCA over
+  fixed Morton-contiguous chunks (`estimate_normals_tiled`), or by cell PCA
+  over truncated-Morton runs with cumulative-sum moments and an analytic
+  3x3 eigenvector (`estimate_normals_cells`, the bench's estimator). No
+  kd-tree, no per-point neighbour search. Normal ORIENTATION is arbitrary
+  in all three (the plane residual and its Jacobian flip together).
+* each GN iteration of `point_to_plane_align`: 1-NN correspondences from
+  the dense sweep (ops/nn.py, `nn_backend="xla"`) or from K2 on a pair list
+  (ops/nn_pallas.py, `nn_backend="pallas"`), residuals r = n . (p - q),
+  Jacobian rows J = [n, (p x n)], the 6x6 JtJ / 6 Jtr as masked einsums,
+  solve and left-compose exp(dx). Fixed iteration count, Huber weights.
+
+The whole-GN kernel K4 and its halves are in ops/p2p_fused.py.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from slam_sensor_fusion_tpu_torch.ops import geometry
+from slam_sensor_fusion_tpu_torch.ops.cloud import Cloud
+from slam_sensor_fusion_tpu_torch.ops.morton import (
+    _BITS,
+    cloud_box,
+    morton_codes,
+    tile_bboxes,
+)
+from slam_sensor_fusion_tpu_torch.ops.nn import nearest_neighbor
+from slam_sensor_fusion_tpu_torch.ops.nn_gated import pair_tiles
+from slam_sensor_fusion_tpu_torch.ops.nn_pallas import (
+    _build_tile_pair_list,
+    make_pages,
+    pair_nn,
+)
+
+
+class PointToPlaneConfig(NamedTuple):
+    """Static config (the JAX package's fields and defaults)."""
+
+    num_iterations: int = 6
+    max_correspondence_dist_sq: float = 1.0
+    #: voxel size for normal estimation neighbourhoods [m]
+    normal_voxel: float = 0.75
+    #: cells with fewer points than this get no (invalid) normal
+    min_cell_points: int = 5
+    #: Huber kernel width on the plane residual [m]
+    huber_delta: float = 0.3
+    #: Levenberg damping added to JtJ's diagonal
+    damping: float = 1e-4
+    tile_src: int = 256
+    tile_tgt: int = 512
+    max_visits: int = 24
+    #: pair-list capacity = max_pairs_factor * n_source_tiles (fused
+    #: kernels); compact scenes where most tile pairs are admissible need
+    #: headroom past the default or the list truncates (nearest-first)
+    max_pairs_factor: int = 16
+    reassoc_margin: float = 0.5
+    #: "xla" = the dense sweep (ops/nn.py); "pallas" = K2 on a pair list;
+    #: "fused" = the whole-GN kernel K4 (models/lio.py dispatches on it)
+    nn_backend: str = "pallas"
+    #: kept for the JAX package's configs; the port has no interpret mode
+    #: (CPU tensors run the kernels' plain versions)
+    pallas_interpret: bool = False
+    #: (fused kernel) associate ONCE at the prior and keep the matched
+    #: point/normal set fixed across all GN iterations + the stats pass
+    fixed_correspondences: bool = False
+    #: the TPU kernels' pair-loop unrolling; results are identical for any
+    #: value and the CUDA kernels ignore it
+    assoc_unroll: int = 1
+
+
+class PointToPlaneResult(NamedTuple):
+    transformation: torch.Tensor  # (4, 4)
+    rmse: torch.Tensor  # () plane-residual RMS over inliers
+    n_correspondences: torch.Tensor  # () int32 from the final iteration
+    #: unscaled (6, 6) covariance of the (dp, dtheta_body) pose error from
+    #: the final GN moments (pose_covariance_from_jtj)
+    cov_pose: torch.Tensor | None = None
+    #: sum of w_in * r^2 over inliers at the final transform
+    wr2: torch.Tensor | None = None
+
+
+def pose_covariance_from_jtj(JtJ: torch.Tensor, T: torch.Tensor, reg: float = 1e-6) -> torch.Tensor:
+    """Map the GN information matrix to a pose-error covariance.
+
+    `JtJ` is the (Huber-weighted) 6x6 system of the left-perturbation
+    parameterization T <- exp([rho, phi]) T, expressed in whatever frame
+    the GN ran in; `T` is the final transform IN THAT FRAME. The EKF's
+    measurement error is (dp, dtheta_body) with dp = rho + phi x t and
+    dtheta_body = R^T phi, so the returned covariance is
+    C (JtJ + reg I)^-1 C^T with C = [[I, -skew(t)], [0, R^T]]. Scale by the
+    residual variance sigma^2 before use as a measurement covariance."""
+    R = T[:3, :3]
+    t = T[:3, 3]
+    eye3 = torch.eye(3, dtype=torch.float32, device=T.device)
+    inv = torch.linalg.inv(JtJ + reg * torch.eye(6, dtype=torch.float32, device=T.device))
+    top = torch.cat([eye3, -geometry.skew(t)], dim=1)
+    bot = torch.cat([torch.zeros_like(eye3), R.T], dim=1)
+    C = torch.cat([top, bot], dim=0)
+    return C @ inv @ C.T
+
+
+def estimate_normals(
+    points: torch.Tensor,
+    mask: torch.Tensor,
+    voxel: float,
+    min_cell_points: int = 5,
+    grid_dim: int = 1024,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-point normals by voxel-cell PCA.
+
+    Returns (normals (N, 3), valid (N,)). Cells are `voxel`-sized; each
+    valid point takes the smallest-eigenvalue eigenvector of its cell's
+    covariance. Orientation is arbitrary.
+    """
+    N = points.shape[0]
+    dev = points.device
+    origin = torch.where(mask[:, None], points, torch.inf).amin(dim=0)
+    origin = torch.where(torch.isfinite(origin), origin, 0.0)
+    cell = torch.floor((points - origin[None]) / voxel)
+    ijk = torch.clamp(cell, 0, grid_dim - 1).to(torch.int32)
+    lin = (ijk[:, 0] * grid_dim + ijk[:, 1]) * grid_dim + ijk[:, 2]
+    lin = torch.where(mask, lin, torch.iinfo(torch.int32).max)
+
+    lin_s, order = torch.sort(lin, stable=True)
+    pts_s = points[order]
+    valid_s = mask[order]
+
+    first = torch.cat([lin_s.new_ones(1, dtype=torch.bool), lin_s[1:] != lin_s[:-1]]) & valid_s
+    seg = torch.cumsum(first.to(torch.int64), dim=0) - 1
+    seg = torch.where(valid_s, seg, N)  # overflow bucket
+
+    # per-cell first and second moments
+    w = valid_s.float()
+    sums = torch.zeros((N + 1, 3), dtype=torch.float32, device=dev).index_add_(
+        0, seg, pts_s * w[:, None]
+    )
+    cnts = torch.zeros((N + 1,), dtype=torch.float32, device=dev).index_add_(0, seg, w)
+    outer = pts_s[:, :, None] * pts_s[:, None, :] * w[:, None, None]
+    sq = torch.zeros((N + 1, 3, 3), dtype=torch.float32, device=dev).index_add_(0, seg, outer)
+    c = torch.clamp(cnts, min=1.0)
+    mean = sums / c[:, None]
+    cov = sq / c[:, None, None] - mean[:, :, None] * mean[:, None, :]
+    # regularize for eigh stability
+    cov = cov + 1e-9 * torch.eye(3, dtype=torch.float32, device=dev)[None]
+    _, vecs = torch.linalg.eigh(cov)  # ascending eigenvalues
+    cell_normal = vecs[..., 0]  # smallest-eigenvalue direction
+    cell_valid = cnts >= min_cell_points
+
+    # scatter back to original point order
+    normals = torch.empty((N, 3), dtype=torch.float32, device=dev)
+    normals[order] = cell_normal[seg]
+    nvalid = torch.empty((N,), dtype=torch.bool, device=dev)
+    nvalid[order] = cell_valid[seg] & valid_s
+    return normals, nvalid & mask
+
+
+def estimate_normals_tiled(
+    points: torch.Tensor,
+    mask: torch.Tensor,
+    chunk: int = 32,
+    min_chunk_points: int = 5,
+    max_planarity: float = 0.25,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-point normals by PCA over fixed Morton-contiguous chunks, for
+    clouds that are ALREADY Morton-sorted (the LIO anchor is): consecutive
+    runs of `chunk` points are spatially compact, so each run's covariance
+    is a usable local plane estimate. Crease/volume chunks (lam_min
+    comparable to lam_mid) are dropped by the planarity gate."""
+    N = points.shape[0]
+    C = N // chunk
+    dev = points.device
+    P = points[: C * chunk].reshape(C, chunk, 3)
+    w = mask[: C * chunk].reshape(C, chunk).float()
+    cnt = w.sum(dim=1)
+    denom = torch.clamp(cnt, min=1.0)[:, None]
+    mean = (P * w[..., None]).sum(dim=1) / denom
+    X = (P - mean[:, None, :]) * w[..., None]
+    cov = torch.einsum("cki,ckj->cij", X, X) / denom[..., None]
+    cov = cov + 1e-9 * torch.eye(3, dtype=torch.float32, device=dev)[None]
+    vals, vecs = torch.linalg.eigh(cov)  # ascending
+    chunk_normal = vecs[..., 0]  # (C, 3)
+    planar = vals[..., 0] < max_planarity * torch.clamp(vals[..., 1], min=1e-12)
+    chunk_valid = (cnt >= min_chunk_points) & planar
+
+    normals = chunk_normal[:, None, :].expand(C, chunk, 3).reshape(C * chunk, 3)
+    valid = chunk_valid[:, None].expand(C, chunk).reshape(C * chunk)
+    if C * chunk < N:  # ragged tail: no normals
+        pad = N - C * chunk
+        normals = torch.cat([normals, normals.new_zeros((pad, 3))], dim=0)
+        valid = torch.cat([valid, valid.new_zeros(pad)])
+    return normals, valid & mask
+
+
+def _smallest_eigvec3(cov: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Analytic smallest eigenpair of symmetric (..., 3, 3) matrices: the
+    trigonometric eigenvalue formula and the largest of the three row cross
+    products of (A - lam_min I). Returns (eigvec (..., 3), lam_min,
+    lam_mid)."""
+    a00 = cov[..., 0, 0]
+    a11 = cov[..., 1, 1]
+    a22 = cov[..., 2, 2]
+    a01 = cov[..., 0, 1]
+    a02 = cov[..., 0, 2]
+    a12 = cov[..., 1, 2]
+    q = (a00 + a11 + a22) / 3.0
+    b00, b11, b22 = a00 - q, a11 - q, a22 - q
+    p2 = (b00 * b00 + b11 * b11 + b22 * b22) / 6.0 + (
+        a01 * a01 + a02 * a02 + a12 * a12
+    ) / 3.0
+    p = torch.sqrt(torch.clamp(p2, min=1e-30))
+    # det(B)/2 with B = (A - qI)/p
+    detB = (
+        b00 * (b11 * b22 - a12 * a12)
+        - a01 * (a01 * b22 - a12 * a02)
+        + a02 * (a01 * a12 - b11 * a02)
+    ) / (p * p * p)
+    r = torch.clamp(detB / 2.0, -1.0, 1.0)
+    phi = torch.arccos(r) / 3.0
+    lam_max = q + 2.0 * p * torch.cos(phi)
+    lam_min = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)
+    lam_mid = 3.0 * q - lam_max - lam_min
+    c0 = torch.stack([a00 - lam_min, a01, a02], dim=-1)
+    c1 = torch.stack([a01, a11 - lam_min, a12], dim=-1)
+    c2 = torch.stack([a02, a12, a22 - lam_min], dim=-1)
+    x01 = torch.linalg.cross(c0, c1)
+    x02 = torch.linalg.cross(c0, c2)
+    x12 = torch.linalg.cross(c1, c2)
+    n01 = (x01 * x01).sum(dim=-1)
+    n02 = (x02 * x02).sum(dim=-1)
+    n12 = (x12 * x12).sum(dim=-1)
+    best = torch.where(
+        (n01 >= n02)[..., None] & (n01 >= n12)[..., None],
+        x01,
+        torch.where((n02 >= n12)[..., None], x02, x12),
+    )
+    nrm = torch.sqrt(torch.maximum(n01, torch.maximum(n02, n12)))
+    vec = best / torch.clamp(torch.sqrt((best * best).sum(dim=-1)), min=1e-20)[..., None]
+    # fully degenerate (isotropic) matrices: arbitrary unit vector
+    up = torch.zeros_like(vec)
+    up[..., 2] = 1.0
+    vec = torch.where((nrm > 1e-20)[..., None], vec, up)
+    return vec, lam_min, lam_mid
+
+
+def estimate_normals_cells(
+    points: torch.Tensor,
+    mask: torch.Tensor,
+    cell_size: float = 0.75,
+    min_cell_points: int = 5,
+    max_planarity: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Voxel-cell PCA normals for a MORTON-SORTED cloud, scatter-free.
+
+    A truncated Morton code IS a spatial octant cell, and in Morton-sorted
+    order each cell's points form a CONTIGUOUS RUN, so per-cell moments are
+    cumulative-sum differences at run boundaries (two gathers), and the
+    smallest eigenvector comes from the analytic 3x3 solver. The cell edge
+    is the power-of-2 fraction of the cloud's cube extent nearest above
+    `cell_size`. Callers pass the cloud ALREADY sorted by
+    `sort_by_morton(..., isotropic=True)`.
+
+    The moments are differences of float32 prefix sums over the whole
+    cloud at world coordinates, exactly as the JAX package takes them; the
+    scan's summation order differs between backends, so normals agree
+    between them to about 1e-3, while the counts (sums of 0/1) and so the
+    valid mask are exact."""
+    N = points.shape[0]
+    dev = points.device
+    lo, hi = cloud_box(Cloud(points, mask), isotropic=True)
+    codes = morton_codes(points, mask, lo, hi)
+
+    # level with cell edge <= cell_size: l = ceil(log2(extent / cell_size))
+    extent = torch.clamp(hi - lo, min=1e-6).max()
+    lvl = torch.clamp(torch.ceil(torch.log2(extent / cell_size)).to(torch.int32), 1, _BITS)
+    drop = 3 * (_BITS - lvl)
+    cell = codes >> drop  # codes are non-negative
+
+    w = mask.float()
+    x, y, z = points[:, 0] * w, points[:, 1] * w, points[:, 2] * w
+    mom = torch.stack(
+        [
+            w, x, y, z,
+            x * points[:, 0], y * points[:, 1], z * points[:, 2],
+            x * points[:, 1], x * points[:, 2], y * points[:, 2],
+        ],
+        dim=1,
+    )  # (N, 10): cnt, sums, xx yy zz xy xz yz
+    csum = torch.cumsum(mom, dim=0)
+
+    idx = torch.arange(N, device=dev)
+    boundary = cell[1:] != cell[:-1]
+    one = torch.ones(1, dtype=torch.bool, device=dev)
+    firstmask = torch.cat([one, boundary])
+    # run start per point: last boundary index <= i; run end: next boundary - 1
+    start = torch.cummax(torch.where(firstmask, idx, 0), dim=0).values
+    nxt = torch.cat([boundary, one])
+    end = torch.cummin(torch.where(nxt, idx, N - 1).flip(0), dim=0).values.flip(0)
+
+    seg_hi = csum[end]
+    seg_lo = torch.where((start > 0)[:, None], csum[torch.clamp(start - 1, min=0)], 0.0)
+    seg = seg_hi - seg_lo  # (N, 10) per-point cell moments
+    cnt = seg[:, 0]
+    c = torch.clamp(cnt, min=1.0)
+    mx, my, mz = seg[:, 1] / c, seg[:, 2] / c, seg[:, 3] / c
+    cxx = seg[:, 4] / c - mx * mx
+    cyy = seg[:, 5] / c - my * my
+    czz = seg[:, 6] / c - mz * mz
+    cxy = seg[:, 7] / c - mx * my
+    cxz = seg[:, 8] / c - mx * mz
+    cyz = seg[:, 9] / c - my * mz
+    cov = torch.stack(
+        [
+            torch.stack([cxx, cxy, cxz], dim=-1),
+            torch.stack([cxy, cyy, cyz], dim=-1),
+            torch.stack([cxz, cyz, czz], dim=-1),
+        ],
+        dim=-2,
+    ) + 1e-9 * torch.eye(3, dtype=torch.float32, device=dev)[None]
+
+    normals, lam_min, lam_mid = _smallest_eigvec3(cov)
+    valid = mask & (cnt >= min_cell_points)
+    if max_planarity is not None:
+        valid = valid & (lam_min < max_planarity * torch.clamp(lam_mid, min=1e-12))
+    return normals, valid
+
+
+def point_to_plane_align(
+    source: torch.Tensor,
+    source_mask: torch.Tensor,
+    target: torch.Tensor,
+    target_mask: torch.Tensor,
+    target_normals: torch.Tensor,
+    target_normals_valid: torch.Tensor,
+    initial_T: torch.Tensor,
+    config: PointToPlaneConfig = PointToPlaneConfig(),
+) -> PointToPlaneResult:
+    """Gauss-Newton point-to-plane alignment of source onto target, one
+    association and a handful of tensor ops an iteration. `nn_backend`
+    "pallas" associates with K2 on a tile-major pair list built once at the
+    prior (capacities must be multiples of the tiles, else the dense sweep
+    runs, as in the JAX package); anything else runs the dense sweep."""
+    center = initial_T[:3, 3]
+    M, N = source.shape[0], target.shape[0]
+    TM, TN = config.tile_src, config.tile_tgt
+    gate = config.max_correspondence_dist_sq
+
+    if config.nn_backend == "pallas" and M % TM == 0 and N % TN == 0:
+        nSt = M // TM
+        search_r2 = (math.sqrt(gate) + config.reassoc_margin) ** 2
+        pts0 = geometry.transform_points(initial_T, source)
+        lo_s, hi_s, cnt_s = tile_bboxes(pts0, source_mask, TM)
+        lo_t, hi_t, _ = tile_bboxes(target, target_mask, TN)
+        visits, counts, _ = pair_tiles(
+            lo_s, hi_s, cnt_s, lo_t, hi_t, search_r2, config.max_visits
+        )
+        pairs = _build_tile_pair_list(visits, counts, nSt * 8)
+        tgt_pages = make_pages(target, target_mask, center, TN)
+
+        def associate(pts):
+            pages = make_pages(pts, source_mask, center, TM)
+            d2, idx, _ = pair_nn(pages, tgt_pages, *pairs)
+            return d2.reshape(M), idx.reshape(M)
+
+    else:
+
+        def associate(pts):
+            return nearest_neighbor(pts, source_mask, target, target_mask, center)
+
+    def linearize(T):
+        """Association and residuals at T: (w_in, r, J (M, 6))."""
+        pts = geometry.transform_points(T, source)
+        d2, idx = associate(pts)
+        idx = idx.long()
+        q = target[idx]
+        n = target_normals[idx]
+        nv = target_normals_valid[idx]
+        w_in = (source_mask & (d2 < gate) & nv).float()
+        r = (n * (pts - q)).sum(dim=-1)  # signed plane distance
+        # J row: d r / d xi with xi = [rho, phi], T <- exp(xi) T
+        J = torch.cat([n, torch.linalg.cross(pts, n)], dim=-1)
+        return w_in, r, J
+
+    def huber(r):
+        return torch.clamp(config.huber_delta / torch.clamp(r.abs(), min=1e-12), max=1.0)
+
+    eye6 = torch.eye(6, dtype=torch.float32, device=source.device)
+    T = initial_T
+    for _ in range(config.num_iterations):
+        w_in, r, J = linearize(T)
+        w = w_in * huber(r)
+        JtJ = torch.einsum("mi,mj,m->ij", J, J, w) + config.damping * eye6
+        Jtr = torch.einsum("mi,m->i", J, r * w)
+        dx = -torch.linalg.solve(JtJ, Jtr)
+        T = geometry.se3_exp(dx) @ T
+
+    # final stats (+ the GN covariance export: Huber-weighted JtJ at the
+    # final transform)
+    w, r, J = linearize(T)
+    wr2 = (w * r * r).sum()
+    rmse = torch.sqrt(wr2 / torch.clamp(w.sum(), min=1.0))
+    JtJ = torch.einsum("mi,mj,m->ij", J, J, w * huber(r))
+    return PointToPlaneResult(
+        transformation=T,
+        rmse=rmse,
+        n_correspondences=w.sum().to(torch.int32),
+        cov_pose=pose_covariance_from_jtj(JtJ, T),
+        wr2=wr2,
+    )

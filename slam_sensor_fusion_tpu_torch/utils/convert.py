@@ -15,11 +15,15 @@ import dataclasses
 import numpy as np
 import torch
 
+from slam_sensor_fusion_tpu_torch.models.ekf import EKFConfig, EKFState
+from slam_sensor_fusion_tpu_torch.models.lio import LIOConfig, LIOState
 from slam_sensor_fusion_tpu_torch.models.localization import PipelineState
 from slam_sensor_fusion_tpu_torch.models.mapping import MapData
 from slam_sensor_fusion_tpu_torch.models.pipeline_fast import PagedFrames
 from slam_sensor_fusion_tpu_torch.ops.cloud import Cloud
 from slam_sensor_fusion_tpu_torch.ops.icp_fused import CachedTarget
+from slam_sensor_fusion_tpu_torch.ops.p2p_fused import CachedP2PTarget
+from slam_sensor_fusion_tpu_torch.ops.point_to_plane import PointToPlaneConfig
 from slam_sensor_fusion_tpu_torch.ops.stochastic_filter import FilterState
 from slam_sensor_fusion_tpu_torch.utils.config import (
     BruteForceConfig,
@@ -117,4 +121,64 @@ def paged_frames_from_numpy(
         odom_cov_trace=_tensor(frames.odom_cov_trace, device),
         gps_cov_trace=_tensor(frames.gps_cov_trace, device),
         valid=_tensor(np.asarray(frames.valid, bool), device),
+    )
+
+
+def lio_config_from_fields(d: dict) -> LIOConfig:
+    """The port's LIOConfig from `_asdict()` of a JAX package LIOConfig
+    (same field names and defaults; the nested `p2p` and `ekf` configs as
+    NamedTuples or their `_asdict()`)."""
+    unknown = set(d) - set(LIOConfig._fields)
+    if unknown:
+        raise ValueError(f"unknown LIOConfig fields: {sorted(unknown)}")
+
+    def nested(cls, v):
+        return cls(**(v if isinstance(v, dict) else v._asdict()))
+
+    kw = dict(d)
+    if "p2p" in kw:
+        kw["p2p"] = nested(PointToPlaneConfig, kw["p2p"])
+    if "ekf" in kw:
+        kw["ekf"] = nested(EKFConfig, kw["ekf"])
+    return LIOConfig(**kw)
+
+
+def ekf_state_from_numpy(
+    state, device: torch.device | str = torch.device("cuda")
+) -> EKFState:
+    """An EKFState from a JAX EKFState whose leaves are NumPy arrays."""
+    return EKFState(*[_tensor(getattr(state, f), device) for f in EKFState._fields])
+
+
+def cached_p2p_target_from_numpy(
+    cached, device: torch.device | str = torch.device("cuda")
+) -> CachedP2PTarget:
+    """A CachedP2PTarget (6-row pages, tile boxes, optional sub-boxes) from
+    the JAX one whose leaves are NumPy arrays."""
+    return CachedP2PTarget(
+        *[
+            None if getattr(cached, f) is None else _tensor(getattr(cached, f), device)
+            for f in CachedP2PTarget._fields
+        ]
+    )
+
+
+def lio_state_from_numpy(
+    state, device: torch.device | str = torch.device("cuda")
+) -> LIOState:
+    """A LIOState from a JAX LIOState taken mid-run, leaves as NumPy
+    arrays: the ring, the anchor arrays, the cached pages and boxes and
+    `anchor_P6`. The slot and frame counters become Python ints."""
+    return LIOState(
+        ekf_state=ekf_state_from_numpy(state.ekf_state, device),
+        ring=_tensor(state.ring, device),
+        ring_mask=_tensor(np.asarray(state.ring_mask, bool), device),
+        slot=int(state.slot),
+        frame=int(state.frame),
+        anchor_points=_tensor(state.anchor_points, device),
+        anchor_mask=_tensor(np.asarray(state.anchor_mask, bool), device),
+        anchor_normals=_tensor(state.anchor_normals, device),
+        anchor_normals_valid=_tensor(np.asarray(state.anchor_normals_valid, bool), device),
+        anchor_cache=cached_p2p_target_from_numpy(state.anchor_cache, device),
+        anchor_P6=_tensor(state.anchor_P6, device),
     )

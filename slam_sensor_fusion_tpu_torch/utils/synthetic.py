@@ -9,8 +9,8 @@ run's artifacts (tiles + odometry/GPS logs in the exact text formats of
 map_data_save_node.cpp:84-98) so the map-manager path is tested end-to-end.
 
 Everything is deterministic given a seed. A copy of the JAX package's
-generator (same seeds, same arrays), trimmed to what the localization
-slice needs, so the port builds its worlds without importing jax.
+generator (same seeds, same arrays), trimmed to what the localization and
+LIO slices need, so the port builds its worlds without importing jax.
 """
 
 from __future__ import annotations
@@ -151,6 +151,78 @@ def render_scan(
     return body.astype(np.float32)
 
 
+def _so3_V(phi: np.ndarray) -> np.ndarray:
+    """Left Jacobian V of SO(3) for batched rotation vectors (N, 3)."""
+    th = np.linalg.norm(phi, axis=-1, keepdims=True)
+    th = np.maximum(th, 1e-12)
+    a = phi / th
+    K = np.zeros(phi.shape[:-1] + (3, 3))
+    K[..., 0, 1], K[..., 0, 2] = -a[..., 2], a[..., 1]
+    K[..., 1, 0], K[..., 1, 2] = a[..., 2], -a[..., 0]
+    K[..., 2, 0], K[..., 2, 1] = -a[..., 1], a[..., 0]
+    th = th[..., None]
+    return (
+        np.eye(3)
+        + (1.0 - np.cos(th)) / th * K
+        + (1.0 - np.sin(th) / th) * (K @ K)
+    )
+
+
+def render_scan_skewed(
+    world: np.ndarray,
+    prev_T: np.ndarray,
+    curr_T: np.ndarray,
+    rng: np.random.Generator,
+    max_range: float = 35.0,
+    max_points: int = 20000,
+    noise: float = 0.01,
+    tau_mode: str = "random",
+) -> tuple[np.ndarray, np.ndarray]:
+    """Scan with intra-sweep motion: each point is measured from the pose
+    at its own sweep fraction tau (constant-twist interpolation
+    prev_T -> curr_T), then naively stacked as if one rigid frame — the
+    raw output of a spinning LiDAR on a moving platform. Returns
+    (points (N, 3) in the per-point measurement frames, tau (N,)).
+    `ops/deskew.deskew` with xi = se3_log(prev_T^-1 curr_T) maps them to
+    the end-of-sweep (curr) frame.
+
+    ``tau_mode="azimuth"`` assigns each point the sweep fraction a
+    clockwise-spinning LiDAR would give it (the KITTI velodyne model:
+    sweep starts/ends at the rear) instead of a
+    random fraction — so loaders that must SYNTHESIZE per-point times
+    from geometry (KITTI ships none) recover nearly the true fractions.
+    """
+    from scipy.spatial.transform import Rotation as ScipyR
+
+    rel = np.linalg.inv(prev_T.astype(np.float64)) @ curr_T.astype(np.float64)
+    phi = ScipyR.from_matrix(rel[:3, :3]).as_rotvec()
+    rho = np.linalg.solve(_so3_V(phi[None])[0], rel[:3, 3])
+
+    d = np.linalg.norm(world - curr_T[:3, 3], axis=1)
+    sel = np.flatnonzero(d < max_range)
+    if len(sel) > max_points:
+        w = 1.0 / np.maximum(d[sel], 2.0) ** 2
+        w /= w.sum()
+        sel = rng.choice(sel, size=max_points, replace=False, p=w)
+        sel.sort()
+    if tau_mode == "azimuth":
+        # end-of-sweep body azimuth ~ measured azimuth (intra-sweep motion
+        # shifts it by < 0.01 rad at survey speeds): tau = (pi - theta)/2pi
+        rel_end = (world[sel] - curr_T[:3, 3]) @ curr_T[:3, :3]
+        theta = np.arctan2(rel_end[:, 1], rel_end[:, 0])
+        tau = 0.5 * (1.0 - theta / np.pi)
+    else:
+        tau = rng.uniform(0.0, 1.0, len(sel))
+
+    R_tau = ScipyR.from_rotvec(tau[:, None] * phi).as_matrix()  # (N, 3, 3)
+    t_tau = np.einsum("nij,nj->ni", _so3_V(tau[:, None] * phi), tau[:, None] * rho)
+    R_w = prev_T[:3, :3].astype(np.float64) @ R_tau
+    t_w = np.einsum("ij,nj->ni", prev_T[:3, :3].astype(np.float64), t_tau) + prev_T[:3, 3]
+    body = np.einsum("nji,nj->ni", R_w, world[sel] - t_w)
+    body = body + rng.normal(0, noise, body.shape)
+    return body.astype(np.float32), tau.astype(np.float32)
+
+
 @dataclasses.dataclass
 class SensorSequence:
     """Host-side arrays for one localization run (the log-replay equivalent
@@ -252,6 +324,61 @@ def make_sequence(
         compass_yaw=compass,
         true_map_T_sensor=poses,
         global_T_map=global_T_map,
+    )
+
+
+def make_imu(
+    poses: np.ndarray,
+    scan_dt: float = 0.1,
+    imu_rate: int = 10,
+    gyro_bias: np.ndarray | None = None,
+    accel_bias: np.ndarray | None = None,
+    gyro_noise: float = 0.002,
+    accel_noise: float = 0.02,
+    seed: int = 0,
+    gravity: float = 9.80665,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Synthesize body-frame IMU packets between scan poses.
+
+    Returns (gyro (T-1, K, 3), accel (T-1, K, 3), dt (T-1, K)) with K =
+    imu_rate samples per inter-scan interval. Angular velocity comes from
+    the relative rotation log; the accelerometer reports specific force
+    f = R^T (a_world - g_world) with g_world = (0, 0, -gravity), plus bias
+    and white noise. Packet k covers poses[k] -> poses[k+1].
+    """
+    from scipy.spatial.transform import Rotation as ScipyR
+
+    rng = np.random.default_rng(seed)
+    T = len(poses)
+    K = imu_rate
+    dt = scan_dt / K
+    gyro_bias = np.zeros(3) if gyro_bias is None else np.asarray(gyro_bias)
+    accel_bias = np.zeros(3) if accel_bias is None else np.asarray(accel_bias)
+    g_w = np.array([0.0, 0.0, -gravity])
+
+    # world-frame accelerations by central differences of position
+    pos = poses[:, :3, 3].astype(np.float64)
+    vel = np.gradient(pos, scan_dt, axis=0)
+    acc = np.gradient(vel, scan_dt, axis=0)
+
+    gyro = np.zeros((T - 1, K, 3))
+    accel = np.zeros((T - 1, K, 3))
+    dts = np.full((T - 1, K), dt)
+    for k in range(T - 1):
+        R0 = poses[k, :3, :3].astype(np.float64)
+        R1 = poses[k + 1, :3, :3].astype(np.float64)
+        w_body = ScipyR.from_matrix(R0.T @ R1).as_rotvec() / scan_dt
+        for j in range(K):
+            alpha = (j + 0.5) / K
+            Rj = R0 @ ScipyR.from_rotvec(w_body * alpha * scan_dt).as_matrix()
+            a_w = (1 - alpha) * acc[k] + alpha * acc[min(k + 1, T - 1)]
+            f_body = Rj.T @ (a_w - g_w)
+            gyro[k, j] = w_body + gyro_bias + rng.normal(0, gyro_noise, 3)
+            accel[k, j] = f_body + accel_bias + rng.normal(0, accel_noise, 3)
+    return (
+        gyro.astype(np.float32),
+        accel.astype(np.float32),
+        dts.astype(np.float32),
     )
 
 

@@ -7,7 +7,9 @@ one; nothing here imports JAX, so on a GPU host without JAX run them as
 K2 must agree with its plain version exactly (same fused dot products,
 same first-min rule); K1 and K3 to 3e-4 on poses and state, 1e-3 on the
 ICP error, with EQUAL iteration and correspondence counts (the moment sums
-are reduced in another order)."""
+are reduced in another order). K4 and K6 agree to 3e-4 on T and 1e-4
+relative on rmse, wr2 and the JtJ lanes with EQUAL n_correspondences; K5's
+d2 to 1e-6 relative with EQUAL matched pages."""
 
 import dataclasses
 import math
@@ -16,9 +18,11 @@ import numpy as np
 import pytest
 import torch
 
+from slam_sensor_fusion_tpu_torch.ops import p2p_fused as tpf
 from slam_sensor_fusion_tpu_torch.ops.icp_fused import _fused_core, _fused_core_plain
 from slam_sensor_fusion_tpu_torch.ops.morton import sort_points_numpy, tile_bboxes
 from slam_sensor_fusion_tpu_torch.ops.nn_gated import pair_tiles
+from slam_sensor_fusion_tpu_torch.ops.point_to_plane import PointToPlaneConfig
 from slam_sensor_fusion_tpu_torch.ops.nn_pallas import (
     _build_tile_pair_list,
     make_pages,
@@ -29,6 +33,7 @@ from slam_sensor_fusion_tpu_torch.ops.superblock_fused import (
     superblock_fine,
     superblock_fine_plain,
 )
+from torch_lio_world import p2p_core_inputs, p2p_scene
 from torch_world import (  # noqa: F401
     K3_CONFIG,
     build_world,
@@ -120,3 +125,85 @@ def test_icp_fused_kernel_matches_plain(cuda_device, n_tiles, tile_src, lazy):
     assert torch.equal(st_k[0, 1:3], st_p[0, 1:3])  # iterations, n_corr
     torch.testing.assert_close(st_k[0, 0], st_p[0, 0], rtol=0, atol=1e-3)
     assert st_p[0, 1] >= 2 and st_p[0, 2] > M // 2
+
+
+#: K4-K6 at the LIO bench's tiles (16 source tiles of 512, 32 target tiles
+#: of 1024) and at one small odd shape (1 source tile of 96, 3 target tiles
+#: of 150: not a multiple of 4, so the association takes its scalar loads)
+P2P_SHAPES = {
+    "bench": dict(M=8192, N=32768, n_tgt=30000, tile_src=512, tile_tgt=1024, min_corr=3000),
+    "odd": dict(M=96, N=450, n_tgt=400, tile_src=96, tile_tgt=150, min_corr=20),
+}
+
+
+def _p2p_case(shape, device, **cfg):
+    s = P2P_SHAPES[shape]
+    config = PointToPlaneConfig(
+        num_iterations=2, tile_src=s["tile_src"], tile_tgt=s["tile_tgt"], max_visits=64,
+        reassoc_margin=0.15, nn_backend="fused", **cfg,
+    )
+    scene = p2p_scene(7, n_tgt=s["n_tgt"], M=s["M"], N=s["N"], ties=True)
+    core = p2p_core_inputs(scene, config, device)
+    return config, core
+
+
+def _assert_gn_outputs(got, want, min_corr):
+    (T_k, st_k), (T_p, st_p) = got, want
+    torch.testing.assert_close(T_k, T_p, rtol=0, atol=3e-4)
+    assert torch.equal(st_k[0, 1:3], st_p[0, 1:3])  # n_correspondences, iterations
+    torch.testing.assert_close(st_k[0, 0], st_p[0, 0], rtol=1e-4, atol=1e-7)
+    scale = st_p[0, 3:24].abs().max().item()
+    torch.testing.assert_close(st_k[0, 3:25], st_p[0, 3:25], rtol=1e-4, atol=1e-4 * scale)
+    assert torch.equal(st_k[0, 25:], torch.zeros_like(st_k[0, 25:]))
+    assert st_p[0, 1] >= min_corr
+
+
+@pytest.mark.parametrize("fixed", [True, False], ids=["fixed", "fresh"])
+@pytest.mark.parametrize("shape", ["bench", "odd"])
+def test_p2p_fused_kernel_matches_plain(cuda_device, shape, fixed):
+    config, core = _p2p_case(shape, cuda_device, fixed_correspondences=fixed)
+    before = tpf._p2p_core.launches
+    got = tpf._p2p_core(*core, config)
+    want = tpf._p2p_core_plain(*core, config)
+    torch.cuda.synchronize()
+    assert tpf._p2p_core.launches == before + 1
+    _assert_gn_outputs(got, want, P2P_SHAPES[shape]["min_corr"])
+
+
+@pytest.mark.parametrize("shape", ["bench", "odd"])
+def test_p2p_halves_match_plain_and_compose(cuda_device, shape):
+    """K5 and K6 against their plain versions, and K6(K5(x)) against K4
+    with fixed correspondences."""
+    config, core = _p2p_case(shape, cuda_device, fixed_correspondences=True)
+    counts = (tpf._p2p_associate.launches, tpf._p2p_gn_corr.launches)
+    d2_k, qn_k = tpf._p2p_associate(*core)
+    d2_p, qn_p = tpf._p2p_associate_plain(*core)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(d2_k, d2_p, rtol=1e-6, atol=0)
+    assert torch.equal(qn_k, qn_p)
+    src_pages, T0 = core[0], core[5]
+    got = tpf._p2p_gn_corr(T0, src_pages, d2_p, qn_p, config)
+    want = tpf._p2p_gn_corr_plain(T0, src_pages, d2_p, qn_p, config)
+    torch.cuda.synchronize()
+    assert (tpf._p2p_associate.launches, tpf._p2p_gn_corr.launches) == (counts[0] + 1, counts[1] + 1)
+    _assert_gn_outputs(got, want, 1)
+    whole = tpf._p2p_core(*core, config)
+    halves = tpf._p2p_gn_corr(T0, src_pages, d2_k, qn_k, config)
+    for a, b in zip(whole, halves):
+        assert torch.equal(a, b)
+
+
+def test_p2p_empty_pair_list_returns_prior(cuda_device):
+    """One source tile and no admitted target tile: the prior comes back
+    and no correspondence is counted."""
+    config, core = _p2p_case("odd", cuda_device, fixed_correspondences=True)
+    core = list(core)
+    core[3] = torch.zeros_like(core[3])  # pair_cnt
+    T_out, stats = tpf._p2p_core(*core, config)
+    T_p, stats_p = tpf._p2p_core_plain(*core, config)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(T_out, core[5], rtol=0, atol=1e-6)
+    torch.testing.assert_close(T_out, T_p, rtol=0, atol=1e-6)
+    assert stats[0, 1] == 0 and stats_p[0, 1] == 0
+    d2, qn = tpf._p2p_associate(*core)
+    assert (d2 > 1e37).all() and (qn == 0).all()

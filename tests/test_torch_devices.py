@@ -16,6 +16,11 @@ from slam_sensor_fusion_tpu_torch.utils.config import StochasticFilterConfig
 
 #: the entry points users and the port's own loops call with a device
 EXPECTED = {
+    "models.ekf.init_state",
+    "models.session.LIOSession",
+    "utils.convert.cached_p2p_target_from_numpy",
+    "utils.convert.ekf_state_from_numpy",
+    "utils.convert.lio_state_from_numpy",
     "models.localization.Localizer",
     "models.localization.build_frame_batch",
     "models.localization_lite.run_lite",

@@ -1,0 +1,141 @@
+"""The three normal estimators, the analytic 3x3 eigenvector and the GN
+covariance mapping of the PyTorch port (ops/point_to_plane) against the JAX
+package on the same NumPy clouds.
+
+Valid masks are EQUAL (cell counts are sums of 0/1, exact in float32).
+Normals are compared up to sign, the estimators' own freedom (`eigh`, and
+the largest of three row cross products): |n . n'| > 1 - tol.
+ * voxel and tiled (per-cell sums + `eigh`): tol 1e-4 on planar cells;
+ * cells (moments as differences of a float32 cumulative sum over the whole
+   cloud at world coordinates): the prefix sums reach ~1e6 while a cell's
+   variance is ~1e-2, so the rounding of the scan, which differs between
+   the backends, tilts the normals of thin cells. Found, against the same
+   formula in float64: within 12 m of the origin 95% of the JAX package's
+   normals and 96% of the port's are within 1e-3 of it (96% of each
+   other); shifted by (40, 30) m only 63% and 70% are (57% of each other).
+   The test holds the port to the JAX package where both are accurate and,
+   where neither is, to being no further from float64 than the JAX
+   package is."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from slam_sensor_fusion_tpu.ops import point_to_plane as jp
+from slam_sensor_fusion_tpu.ops.cloud import Cloud as JCloud
+from slam_sensor_fusion_tpu.ops.morton import sort_by_morton as jsort
+from slam_sensor_fusion_tpu_torch.ops import point_to_plane as tp
+from slam_sensor_fusion_tpu_torch.utils import synthetic as syn
+from torch_parity import t
+
+
+def _ring(seed, radius=25.0, shift=(0.0, 0.0, 0.0), cap=8192, n=7000):
+    """A Morton-sorted (isotropic) masked cloud of ground, walls and poles
+    within `radius` of a synthetic world's origin, moved by `shift`, as the
+    LIO anchor is."""
+    rng = np.random.default_rng(seed)
+    world = syn.make_world(rng, extent=50.0, n_buildings=15, n_poles=40, points_per_m2=24.0)
+    near = world[np.linalg.norm(world, axis=1) < radius]
+    pts = near[rng.choice(len(near), n, replace=False)] + np.asarray(shift, np.float32)
+    buf = np.zeros((cap, 3), np.float32)
+    mask = np.zeros(cap, bool)
+    slots = rng.choice(cap, n, replace=False)
+    buf[slots], mask[slots] = pts, True
+    s = jsort(JCloud(jnp.asarray(buf), jnp.asarray(mask)), isotropic=True)
+    return np.asarray(s.points), np.asarray(s.mask)
+
+
+def _unsigned_gap(n_t, n_j, valid):
+    return 1.0 - np.abs((n_t * n_j).sum(-1))[valid]
+
+
+@pytest.mark.parametrize("voxel", [0.75, 1.5])
+def test_estimate_normals_voxel_matches_jax(voxel):
+    pts, mask = _ring(0, radius=12.0, shift=(3.0, -2.0, 0.0))
+    n_j, v_j = jp.estimate_normals(jnp.asarray(pts), jnp.asarray(mask), voxel)
+    n_t, v_t = tp.estimate_normals(t(pts), t(mask), voxel)
+    np.testing.assert_array_equal(v_t.numpy(), np.asarray(v_j))
+    gap = _unsigned_gap(n_t.numpy(), np.asarray(n_j), np.asarray(v_j))
+    assert np.asarray(v_j).sum() > 1500
+    # eigh on near-isotropic cells (poles, corners) is free to differ: 99%
+    assert np.mean(gap < 1e-4) > 0.99, np.mean(gap < 1e-4)
+
+
+@pytest.mark.parametrize("chunk", [32, 64])
+def test_estimate_normals_tiled_matches_jax(chunk):
+    pts, mask = _ring(1, radius=12.0, shift=(3.0, -2.0, 0.0), cap=8192 + 16)  # a ragged tail
+    n_j, v_j = jp.estimate_normals_tiled(jnp.asarray(pts), jnp.asarray(mask), chunk)
+    n_t, v_t = tp.estimate_normals_tiled(t(pts), t(mask), chunk)
+    # the planarity gate compares two float32 eigenvalues: a flip is a
+    # whole chunk; none found
+    np.testing.assert_array_equal(v_t.numpy(), np.asarray(v_j))
+    gap = _unsigned_gap(n_t.numpy(), np.asarray(n_j), np.asarray(v_j))
+    assert np.asarray(v_j).sum() > 1000
+    assert gap.max() < 1e-4, gap.max()
+
+
+@pytest.mark.parametrize("shift", [(0.0, 0.0, 0.0), (40.0, 30.0, 0.0)], ids=["origin", "shifted"])
+def test_estimate_normals_cells_matches_jax(shift):
+    pts, mask = _ring(2, radius=12.0, shift=shift)
+    n_j, v_j = jp.estimate_normals_cells(jnp.asarray(pts), jnp.asarray(mask), 1.8)
+    n_t, v_t = tp.estimate_normals_cells(t(pts), t(mask), 1.8)
+    n_64, _ = tp.estimate_normals_cells(t(pts).double(), t(mask), 1.8)
+    np.testing.assert_array_equal(v_t.numpy(), np.asarray(v_j))
+    valid = np.asarray(v_j)
+    assert valid.sum() > 5000
+    gap = _unsigned_gap(n_t.numpy(), np.asarray(n_j), valid)
+    gap_j = _unsigned_gap(n_64.numpy(), np.asarray(n_j), valid)
+    gap_t = _unsigned_gap(n_64.numpy(), n_t.numpy(), valid)
+    print(f"cells {shift}: port vs jax within 1e-3 {np.mean(gap < 1e-3):.3f} mean {gap.mean():.4f}; "
+          f"vs float64: jax {np.mean(gap_j < 1e-3):.3f} / {gap_j.mean():.4f}, "
+          f"port {np.mean(gap_t < 1e-3):.3f} / {gap_t.mean():.4f}")
+    if shift[0] == 0.0:
+        assert np.mean(gap < 1e-3) > 0.9
+        assert gap.mean() < 0.03
+    assert np.mean(gap_t < 1e-3) > np.mean(gap_j < 1e-3) - 0.05
+    assert gap_t.mean() < 2.0 * gap_j.mean() + 0.01
+
+
+def test_estimate_normals_cells_planarity_gate():
+    pts, mask = _ring(3, radius=12.0)
+    _, v_all = tp.estimate_normals_cells(t(pts), t(mask), 1.8)
+    _, v_j = jp.estimate_normals_cells(jnp.asarray(pts), jnp.asarray(mask), 1.8, max_planarity=0.25)
+    _, v_t = tp.estimate_normals_cells(t(pts), t(mask), 1.8, max_planarity=0.25)
+    # the gate compares noisy eigenvalues: cells at the threshold may flip
+    assert np.mean(v_t.numpy() != np.asarray(v_j)) < 0.05
+    assert v_t.sum() < v_all.sum()
+
+
+def test_smallest_eigvec3_matches_jax_and_eigh():
+    rng = np.random.default_rng(4)
+    A = rng.normal(0, 1, (500, 3, 3)).astype(np.float32)
+    cov = A @ A.transpose(0, 2, 1) * rng.uniform(0.01, 1, (500, 1, 1)).astype(np.float32)
+    cov[0] = np.eye(3)  # isotropic: the arbitrary unit vector (eigenvalues 0/0 in XLA)
+    v_j, lo_j, mid_j = (np.asarray(x) for x in jp._smallest_eigvec3(jnp.asarray(cov)))
+    v_t, lo_t, mid_t = (x.numpy() for x in tp._smallest_eigvec3(t(cov)))
+    np.testing.assert_allclose(lo_t[1:], lo_j[1:], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(mid_t[1:], mid_j[1:], rtol=0, atol=1e-5)
+    assert (1.0 - np.abs((v_t * v_j).sum(-1))).max() < 1e-4
+    np.testing.assert_array_equal(v_t[0], [0.0, 0.0, 1.0])
+    w, vecs = np.linalg.eigh(cov.astype(np.float64))
+    sep = (w[:, 1] - w[:, 0]) / w[:, 2] > 0.05  # a separated smallest eigenvalue
+    assert (1.0 - np.abs((v_t * vecs[:, :, 0]).sum(-1)))[sep].max() < 1e-3
+
+
+def test_pose_covariance_from_jtj_matches_jax():
+    """An ill-conditioned JtJ (a corridor: one direction barely observed)
+    with reg = 1e-6: LU implementations may differ by up to 1e-7 x the
+    condition number. Found 6e-7 relative on the diagonal at condition
+    1.3e5; held to 1e-4."""
+    rng = np.random.default_rng(5)
+    J = rng.normal(0, 1, (400, 6)).astype(np.float32)
+    J[:, 1] *= 3e-3
+    JtJ = (J.T @ J).astype(np.float32)
+    T = np.eye(4, dtype=np.float32)
+    T[:3, 3] = [3.0, -2.0, 0.5]
+    got = tp.pose_covariance_from_jtj(t(JtJ), t(T)).numpy()
+    want = np.asarray(jp.pose_covariance_from_jtj(jnp.asarray(JtJ), jnp.asarray(T)))
+    print("cond", np.linalg.cond(JtJ.astype(np.float64)),
+          "rel diag diff", np.abs(np.diag(got) / np.diag(want) - 1).max())
+    np.testing.assert_allclose(np.diag(got), np.diag(want), rtol=1e-4)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())

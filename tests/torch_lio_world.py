@@ -1,0 +1,126 @@
+"""Small LIO worlds and registration scenes for the PyTorch port's LIO tests,
+importing nothing of JAX, so the tests of the CUDA kernels
+(tests/test_torch_cuda.py) also run where JAX is not installed. Everything
+is NumPy made from a seed; each test hands the same arrays to both
+packages."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from slam_sensor_fusion_tpu_torch.models.ekf import EKFConfig
+from slam_sensor_fusion_tpu_torch.models.lio import LIOConfig
+from slam_sensor_fusion_tpu_torch.ops import p2p_fused as tpf
+from slam_sensor_fusion_tpu_torch.ops import point_to_plane as tpp
+from slam_sensor_fusion_tpu_torch.ops.morton import sort_order_numpy, sort_points_numpy
+from slam_sensor_fusion_tpu_torch.utils import synthetic as syn
+
+#: the bench's LIO configuration (bench.py bench_lio in its `blocks` mode
+#: on the `fused` backend) at test size: tests/test_lio.py's
+#: SMALL_LIO capacities, 16 source tiles of 256 and 16 target tiles of 512
+SMALL_LIO = LIOConfig(
+    scan_capacity=4096,
+    window=8,
+    slot_points=2048,
+    refresh_every=4,
+    p2p=tpp.PointToPlaneConfig(
+        nn_backend="fused", num_iterations=2, fixed_correspondences=True,
+        reassoc_margin=0.15, tile_src=256, tile_tgt=512, max_visits=64,
+    ),
+    anchor_subsample=2,
+    normal_est="cells",
+    normal_voxel=1.8,
+    icp_cov_mode="gn",
+    icp_pos_std=0.3,
+    ekf=EKFConfig(init_pos_std=0.1, init_vel_std=0.1),
+)
+
+
+def lio_sequence(n_frames: int, cap: int, seed: int = 0, extent: float = 50.0):
+    """bench.py bench_lio's data at test size: skewed scans (Morton
+    pre-sorted with taus riding along), IMU packets, noisy GPS. Returns
+    poses (T, 4, 4), v0 (3,), the first frame (scan, mask) and the arrays of
+    frames 1..: (scans, masks, gyro, accel, dt, gps_pos, gps_var, gps_valid,
+    taus)."""
+    rng = np.random.default_rng(seed)
+    world = syn.make_world(rng, extent=extent, n_buildings=15, n_poles=40, points_per_m2=24.0)
+    poses = syn.make_trajectory(n_frames, speed_per_frame=0.15)
+    gyro, accel, dts = syn.make_imu(poses, gyro_noise=0.0005, accel_noise=0.005)
+    sp = np.zeros((n_frames, cap, 3), np.float32)
+    sm = np.zeros((n_frames, cap), bool)
+    tp = np.ones((n_frames, cap), np.float32)
+    for i in range(n_frames):
+        pts, tau = syn.render_scan_skewed(
+            world, poses[max(i - 1, 0)], poses[i], rng, max_points=cap - 64, max_range=25.0
+        )
+        order = sort_order_numpy(pts, isotropic=True)
+        n = len(pts)
+        sp[i, :n], sm[i, :n], tp[i, :n] = pts[order], True, tau[order]
+    gps = (
+        poses[1:, :3, 3] + np.random.default_rng(seed + 3).normal(0, 0.5, (n_frames - 1, 3))
+    ).astype(np.float32)
+    v0 = ((poses[1][:3, 3] - poses[0][:3, 3]) / 0.1).astype(np.float32)
+    frames = (
+        sp[1:], sm[1:], gyro, accel, dts, gps,
+        np.full(n_frames - 1, 0.25, np.float32), np.ones(n_frames - 1, bool), tp[1:],
+    )
+    return poses, v0, (sp[0], sm[0]), frames
+
+
+def p2p_scene(seed: int, n_tgt: int = 1900, M: int = 1024, N: int = 2048, ties: bool = False):
+    """A registration problem: a Morton-sorted target of two walls, a floor
+    and a pole with per-point normals (analytic, some invalid), and the
+    same points seen from a pose 0.1 m / 1 degree off, with noise, as the
+    source. `ties` duplicates target points exactly (the copy lands in a
+    later row or tile), so first-row association is exercised. Returns
+    (src, src_mask, tgt, tgt_mask, normals, normals_valid, T0) as NumPy."""
+    rng = np.random.default_rng(seed)
+    q = n_tgt // 4
+    parts = [
+        (np.stack([rng.uniform(-6, 6, q), np.full(q, 4.0), rng.uniform(0, 3, q)], 1), [0, 1, 0]),
+        (np.stack([np.full(q, -5.0), rng.uniform(-6, 4, q), rng.uniform(0, 3, q)], 1), [1, 0, 0]),
+        (np.stack([rng.uniform(-6, 6, q), rng.uniform(-6, 4, q), np.zeros(q)], 1), [0, 0, 1]),
+    ]
+    ang = np.linspace(0, 20, n_tgt - 3 * q)
+    pole = np.stack([np.cos(ang) * 0.2 + 2.0, np.sin(ang) * 0.2 - 1.0,
+                     rng.uniform(0, 3, len(ang))], 1)
+    pts = np.concatenate([p for p, _ in parts] + [pole]).astype(np.float32)
+    nrm = np.concatenate(
+        [np.tile(np.asarray(n, np.float32), (q, 1)) for _, n in parts]
+        + [np.stack([np.cos(ang), np.sin(ang), np.zeros_like(ang)], 1).astype(np.float32)]
+    )
+    if ties:
+        pts[1::5] = pts[0::5][: len(pts[1::5])]
+        nrm[1::5] = nrm[0::5][: len(nrm[1::5])]
+    order = sort_order_numpy(pts)
+    pts, nrm = pts[order], nrm[order]
+    nvalid = rng.uniform(size=len(pts)) > 0.1
+    T = np.eye(4, dtype=np.float32)
+    c, s = np.cos(0.017), np.sin(0.017)
+    T[:2, :2] = [[c, -s], [s, c]]
+    T[:3, 3] = [0.08, -0.06, 0.03]
+    n_src = M - 60
+    pick = pts[rng.choice(len(pts), n_src, replace=n_src > len(pts))]
+    src = (pick - T[:3, 3]) @ T[:3, :3] + rng.normal(0, 0.01, pick.shape)
+    src = sort_points_numpy(src.astype(np.float32))
+    sbuf = np.zeros((M, 3), np.float32)
+    sbuf[:n_src] = src
+    tbuf = np.zeros((N, 3), np.float32)
+    tbuf[: len(pts)] = pts
+    nbuf = np.zeros((N, 3), np.float32)
+    nbuf[: len(pts)] = nrm
+    vbuf = np.zeros(N, bool)
+    vbuf[: len(pts)] = nvalid
+    return sbuf, np.arange(M) < n_src, tbuf, np.arange(N) < len(pts), nbuf, vbuf, np.eye(4, dtype=np.float32)
+
+
+def p2p_core_inputs(scene, config, device="cpu", center=(0.5, -0.3, 0.1)):
+    """K4's arguments for `scene` (p2p_scene) as `point_to_plane_align_fused`
+    builds them: (src_pages, tgt_pages, pair_start, pair_cnt, pair_tgt,
+    T0_rebased)."""
+    src, smask, tgt, tmask, nrm, nvalid, T0 = (torch.from_numpy(a).to(device) for a in scene)
+    cached = tpf.build_cached_p2p_target(
+        tgt, tmask, nrm, nvalid, torch.tensor(center, device=device), config.tile_tgt
+    )
+    return tpf.p2p_inputs(src, smask, cached, T0, config)[0]
