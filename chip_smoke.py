@@ -48,13 +48,26 @@ check exits non-zero:
      device busy and idle share, K4's share, device operations a frame), the
      anchor refresh, pair demand against the list's capacity and the GPS
      accepted count.
+  7. the LIO path under bench.py bench_lio's `block` loop (the production
+     path on an accelerator, bench.py:77, :244-250): run_lio_superblocks at
+     phase 6's configuration and width over the same 128 frames, twice
+     from one state (one K7 launch a 16-frame block, no K4 launch).
+     Requires ATE-RMSE < 0.3 m, finite outputs and zero pair overflow (256
+     slots >= 4 source tiles x 32 target tiles: complete by construction).
+     Prints scans/s, slack violations, pair demand and one block's split
+     (refresh, prologue, K7, ring insert; device busy and idle share and
+     device operations a block under torch.profiler). Then
+     fleet_run_lio_superblocks with 2 robots over 33 frames: each robot
+     equals its own run, with 2 x 3 K7 launches.
 
 Phase 2 also holds K3 against its plain version (fresh and lazy, at the
 session's shapes), the per-frame superblock branch (K3 lazy) against K1 on
 the first superblock, and K4 (fixed and fresh correspondences), K5, K6 and
 K6(K5(x)) against K4 on a steady-state frame of the LIO world (frame 33,
-the ring full) against the anchor its block starts with. Every kernel's
-launch count is set to 0 before each path of phases 3-6 and read after it.
+the ring full) against the anchor its block starts with, and K7 against
+its plain version on the block of frames 33-48 from the same state.
+Every kernel's launch count is set to 0 before each path of phases 3-7
+and read after it.
 
 The line before the last is the kernels' JSON record (time, plain time,
 error against plain, launches on the main paths, and the least time the
@@ -82,6 +95,8 @@ LIO_FRAMES = 129  # phase 6: 1 seeding frame + 8 blocks of 16 (the bench runs 51
 LIO_CHUNK_FRAMES = 33  # run_lio_chunk, and the session poses held against it
 LIO_SPLIT_FRAMES = 8  # frames through the K5 -> K6 split registration
 LIO_WARM_FRAMES = 32  # frames before the kernel checks and the profile (the ring is full)
+FLEET_FRAMES = 33  # phase 7's fleet: 2 blocks of 16 and a padded block of 1
+FLEET_ROBOTS = 2
 ATE_LIMIT = 0.1  # m
 LIO_ATE_LIMIT = 0.3  # m: tests/test_lio.py's bound on the fused LIO backend
 K1_TOL = 3e-4  # poses/priors/state: tests/test_superblock_kernel.py's bound
@@ -91,9 +106,13 @@ K2_RTOL = 1e-5  # d2, relative
 K4_TOL = 3e-4  # T of K4 and K6
 K4_RTOL = 1e-4  # rmse, wr2 and the 21 JtJ lanes, relative
 K5_RTOL = 1e-6  # d2, relative; the matched pages are equal
+K7_TOL = 3e-4  # poses and state of K7; n_corr, GPS acceptance and slack flags equal
 #: float operations a point a pass of K6: the transform (18), the residual,
 #: Huber weight and Jacobian (~30) and the 29 moments (~60)
 FLOP_PER_GN_POINT = 110
+#: float operations of the EKF's 16x16 products: two a IMU sample (F P, then
+#: (F P) F^T) and four a frame (the two Joseph forms), 2 x 16^3 each
+FLOP_PER_EKF_PRODUCT = 2 * 16**3
 #: NVIDIA H100 SXM data sheet: float32 on the CUDA cores (the kernels use
 #: no tensor cores) and HBM3 bandwidth, both at the 700 W power limit
 PEAK_F32_FLOPS = 67e12
@@ -448,6 +467,61 @@ def check_gn(what, got, want, dev_name):
     return d
 
 
+def lio_block_inputs(lio, cfg, state, arrays, tau, lo, dev):
+    """K7's arguments for the block of frames lo.. of the LIO world from
+    `state`, through run_lio_superblocks' own prologue; and the tile pairs
+    in its lists."""
+    R = cfg.refresh_every
+    sp, sm, gy, ac, dt, gp, gv, gok = [a[lo:lo + R] for a in arrays]
+    anchor = lio._refresh_anchor(state.ring, state.ring_mask, state.ekf_state.p, cfg)
+    cache = anchor[4]
+    base_r = math.sqrt(cfg.p2p.max_correspondence_dist_sq) + cfg.p2p.reassoc_margin
+    ks = torch.arange(R, dtype=torch.float32, device=dev)
+    radius2 = (base_r + cfg.slack_base + cfg.superstep_slack * ks) ** 2
+    vld = torch.ones(R, dtype=torch.bool, device=dev)
+    pred_t, _, src_pages, pairs, demand, ovf = lio._block_prologue(
+        state, cache, sp, sm, tau[lo:lo + R], gy, ac, dt, vld, radius2, cfg)
+    if bool(ovf.any()):
+        fail("K7 check inputs: pair list overflow")
+    e0 = state.ekf_state
+    args = (*pairs, vld, gy, ac, dt, gp, gv, gok, pred_t, lio.ekf.pose_matrix(e0), e0.v,
+            e0.bg, e0.ba, e0.P, cache.center, src_pages, cache.pages)
+    print(f"K7 check inputs: src {tuple(src_pages.shape)} tgt {tuple(cache.pages.shape)}, pair "
+          f"demand {demand.tolist()}", flush=True)
+    return args, int(pairs[1].sum())
+
+
+def check_k7(args, params, dev_name):
+    """K7 against its plain version on one block; returns max |pose/state|
+    diff."""
+    from slam_sensor_fusion_tpu_torch.ops.lio_superblock_fused import (
+        lio_superblock,
+        lio_superblock_plain,
+    )
+
+    k = lio_superblock(*args, params)
+    p = lio_superblock_plain(*args, params)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for i, what in [(0, "poses"), (2, "pose"), (3, "v"), (4, "bg"), (5, "ba")]:
+        d = (k[i] - p[i]).abs().max().item()
+        worst = max(worst, d)
+        if not d <= K7_TOL:
+            fail(f"K7: {what} differs by {d} > {K7_TOL}")
+    e_P = rel_err(k[6], p[6])
+    if not e_P <= 1e-4:
+        fail(f"K7: P differs by {e_P} of max|P|")
+    for lane, what in [(1, "n_corr"), (2, "gps_accepted"), (4, "slack_violation")]:
+        if not torch.equal(k[1][:, lane], p[1][:, lane]):
+            fail(f"K7: {what} differ: {k[1][:, lane].tolist()} vs {p[1][:, lane].tolist()}")
+    if not int(p[1][:, 1].min()) >= 1000:
+        fail("K7: a frame with under 1000 correspondences, the comparison is vacuous")
+    print(f"K7 lio_superblock vs plain: max|pose/state| diff {worst:.3e}, P rel {e_P:.3e}, n_corr "
+          f"{k[1][:, 1].int().tolist()} equal, GPS accepted {int(k[1][:, 2].sum())} equal "
+          f"[{dev_name}]", flush=True)
+    return worst
+
+
 def push_args(seq, i):
     return (seq.scans[i], seq.odom_T_sensor[i], float(seq.gps_lat[i]), float(seq.gps_lon[i]),
             float(seq.gps_alt[i]), float(seq.compass_yaw[i]), float(seq.odom_cov_trace[i]),
@@ -487,6 +561,11 @@ def main() -> None:
     from slam_sensor_fusion_tpu_torch.models import lio
     from slam_sensor_fusion_tpu_torch.models.session import LIOSession
     from slam_sensor_fusion_tpu_torch.ops import p2p_fused as p2p
+    from slam_sensor_fusion_tpu_torch.ops.lio_superblock_fused import (
+        lio_superblock,
+        lio_superblock_plain,
+    )
+    from slam_sensor_fusion_tpu_torch.parallel import lio_fleet
     from slam_sensor_fusion_tpu_torch.ops.nn_pallas import pair_nn, pair_nn_plain
     from slam_sensor_fusion_tpu_torch.ops.superblock_fused import (
         superblock_fine,
@@ -494,7 +573,7 @@ def main() -> None:
     )
 
     kernels = (superblock_fine, pair_nn, _fused_core,
-               p2p._p2p_core, p2p._p2p_associate, p2p._p2p_gn_corr)
+               p2p._p2p_core, p2p._p2p_associate, p2p._p2p_gn_corr, lio_superblock)
 
     # ---- 1. build ----
     t0 = time.perf_counter()
@@ -642,6 +721,30 @@ def main() -> None:
     print(f"bounds: K4 fixed {k4_bound[0]:.4f} ms ({k4_bound[1]}), fresh {k4f_bound[0]:.4f} ms "
           f"({k4f_bound[1]}), K5 {k5_bound[0]:.4f} ms ({k5_bound[1]}), K6 {k6_bound[0]:.5f} ms "
           f"({k6_bound[1]}) [{tag}]", flush=True)
+
+    # K7 at the width of the LIO bench's `block` loop on a steady-state block: the
+    # block of frames 33-48 (16 frames of 10 IMU samples, 4 source tiles of
+    # 512 against 32 target tiles of 1024) from the state after two blocks,
+    # through run_lio_superblocks' own prologue
+    k7_in, k7_pairs = lio_block_inputs(lio, lcfg, lstate_w, larrays, ltau, w, dev)
+    k7_params = lio._superblock_params(lcfg)
+    k7_err = check_k7(k7_in, k7_params, name)
+    k7_ms = time_ms(lambda: lio_superblock(*k7_in, k7_params), 3)
+    k7_plain_ms = time_ms(lambda: lio_superblock_plain(*k7_in, k7_params), 1)
+    k7_out = lio_superblock(*k7_in, k7_params)
+    Kb, nSt7, _, TM7 = k7_in[17].shape
+    TN7 = k7_in[18].shape[-1]
+    Ki7 = k7_in[6].shape[1]
+    n_assoc = 1 if lcfg.p2p.fixed_correspondences else n_pass
+    k7_flops = (
+        n_assoc * k7_pairs * TM7 * TN7 * FLOP_PER_DISTANCE
+        + Kb * n_pass * nSt7 * TM7 * FLOP_PER_GN_POINT
+        + Kb * (2 * Ki7 + 4) * FLOP_PER_EKF_PRODUCT
+    )
+    k7_bound = bound(k7_flops, nbytes(*[a for a in k7_in if isinstance(a, torch.Tensor)])
+                     + nbytes(*k7_out))
+    print(f"K7 {k7_ms:.3f} ms/block of {Kb} frames (plain {k7_plain_ms:.3f}); {k7_pairs} tile "
+          f"pairs; bound {k7_bound[0]:.4f} ms ({k7_bound[1]}) [{tag}]", flush=True)
 
     k2_ms = time_ms(lambda: pair_nn(*k2_in), 20)
     k2_plain_ms = time_ms(lambda: pair_nn_plain(*k2_in), 5)
@@ -988,6 +1091,124 @@ def main() -> None:
         fail("split registration: K5 / K6 did not launch once a frame")
     print(f"phase 6 LIO path: {time.perf_counter() - t0:.1f} s; scans/s (pass 1) {lrate:.1f} "
           f"[{tag}]", flush=True)
+    # ---- 7. the LIO path under the block loop: run_lio_superblocks twice
+    # (one K7 launch a block), one block's split, then the fleet ----
+    t0 = time.perf_counter()
+    n_blk = -(-Tl // lcfg.refresh_every)
+    zero_counts(*kernels)
+    brate = 0.0
+    for p in range(2):
+        before = lio_superblock.launches
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        bfin, bout = lio.run_lio_superblocks(lstate0, *larrays, lcfg, scan_tau=ltau)
+        t_issue = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        launched = lio_superblock.launches - before
+        est = bout.world_T_body.cpu().numpy()
+        n_corr = bout.n_correspondences.cpu().numpy()
+        if launched != n_blk or p2p._p2p_core.launches:
+            fail(f"run_lio_superblocks pass {p}: K7 launched {launched} times for {n_blk} blocks, "
+                 f"K4 {p2p._p2p_core.launches} times")
+        if not (np.isfinite(est).all() and (n_corr > 0).all()
+                and torch.isfinite(bout.rmse).all() and torch.isfinite(bfin.ekf_state.P).all()):
+            fail(f"run_lio_superblocks pass {p}: non-finite output or a frame without correspondences")
+        n_ovf = int(bout.pair_overflow.sum())
+        if n_ovf:
+            fail(f"run_lio_superblocks pass {p}: pair overflow on {n_ovf} frames")
+        b_ate = ate_rmse(est, lgt[:Tl])
+        if not b_ate < LIO_ATE_LIMIT:
+            fail(f"run_lio_superblocks pass {p}: ATE-RMSE {b_ate} >= {LIO_ATE_LIMIT}")
+        brate = Tl / dt
+        dem = bout.pair_demand.cpu().numpy()
+        print(f"LIO block loop pass {p}: {Tl} frames {dt:.3f} s = {brate:.1f} scans/s "
+              f"({dt / n_blk * 1e3:.3f} ms a block of {lcfg.refresh_every}, host-issued "
+              f"{t_issue / n_blk * 1e3:.3f} ms a block), ATE-RMSE {b_ate:.4f} m, n_corr mean "
+              f"{n_corr.mean():.0f}, rmse mean {bout.rmse.mean().item():.4f} m, GPS accepted "
+              f"{int(bout.gps_accepted.sum())} of {Tl}, slack violations "
+              f"{int(bout.slack_violation.sum())}, slack dist max "
+              f"{bout.slack_dist.max().item():.4f} m, pair demand mean {dem.mean():.1f} max "
+              f"{dem.max()} of {k7_in[2].shape[1]} slots, overflow 0, K7 launches {launched} "
+              f"[{tag}]", flush=True)
+    record("lio_superblocks")
+
+    # one block's split: its parts timed alone on the card, then the whole
+    # block under the profiler (device busy, idle share, operations)
+    R7 = lcfg.refresh_every
+    blk7 = [a[w:w + R7] for a in larrays]
+    anchor_w = lio._refresh_anchor(lstate_w.ring, lstate_w.ring_mask, lstate_w.ekf_state.p, lcfg)
+    pro_args = (lstate_w, anchor_w[4], blk7[0], blk7[1], ltau[w:w + R7], blk7[2], blk7[3],
+                blk7[4], torch.ones(R7, dtype=torch.bool, device=dev),
+                (math.sqrt(lcfg.p2p.max_correspondence_dist_sq) + lcfg.p2p.reassoc_margin
+                 + lcfg.slack_base + lcfg.superstep_slack
+                 * torch.arange(R7, dtype=torch.float32, device=dev)) ** 2, lcfg)
+    _, xi_w, *_ = lio._block_prologue(*pro_args)
+    split = {
+        "refresh": time_ms(lambda: lio._refresh_anchor(
+            lstate_w.ring, lstate_w.ring_mask, lstate_w.ekf_state.p, lcfg), 3),
+        "prologue": time_ms(lambda: lio._block_prologue(*pro_args), 3),
+        "K7": k7_ms,
+        "ring insert": time_ms(lambda: lio._ring_sample(
+            blk7[0], blk7[1], ltau[w:w + R7], xi_w, lcfg), 3),
+    }
+    zero_counts(*kernels)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        lio.run_lio_superblocks(lstate_w, *blk7, lcfg, scan_tau=ltau[w:w + R7])
+        torch.cuda.synchronize()
+    wall7 = (time.perf_counter() - t1) * 1e3
+    on_dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy7 = sum(e.self_device_time_total for e in on_dev) / 1e3
+    k7_prof = sum(e.self_device_time_total for e in on_dev if "lio_superblock_kernel" in e.key) / 1e3
+    n_dev7 = sum(e.count for e in on_dev)
+    block_ms = 1e3 * R7 / brate  # the second pass's, without the profiler
+    parts = ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+    if busy7 > 0:
+        print(f"LIO block split (each part alone, CUDA events): {parts}; under the profiler: device "
+              f"busy {busy7:.3f} ms of the second pass's {block_ms:.3f} ms a block "
+              f"({100 * busy7 / block_ms:.1f}%, idle {100 - 100 * busy7 / block_ms:.1f}%), K7 "
+              f"{k7_prof:.3f} ms; {n_dev7} device operations a block; {wall7:.1f} ms a block under "
+              f"the profiler [{tag}]", flush=True)
+    else:
+        print(f"LIO block split: {parts}; the profiler recorded no device time (not measured) "
+              f"[{tag}]", flush=True)
+
+    # the fleet: 2 robots (the second without GPS) over 33 frames, each
+    # against its own run
+    nf = FLEET_FRAMES
+    robots = [[a[:nf] for a in larrays]]
+    robots.append(robots[0][:7] + [torch.zeros_like(robots[0][7])])
+    states = lio_fleet.fleet_init(lcfg, np.stack([lsp[0]] * FLEET_ROBOTS),
+                                  np.stack([lsm[0]] * FLEET_ROBOTS),
+                                  np.stack([lposes[0]] * FLEET_ROBOTS), device=dev)
+    states = states._replace(ekf_state=states.ekf_state._replace(
+        v=torch.stack([up(lv0)] * FLEET_ROBOTS)))
+    zero_counts(*kernels)
+    ffin, fout = lio_fleet.fleet_run_lio_superblocks(
+        states, *[torch.stack(xs) for xs in zip(*robots)], lcfg)
+    torch.cuda.synchronize()
+    record("lio_fleet")
+    f_launched = lio_superblock.launches
+    f_blocks = -(-nf // lcfg.refresh_every)
+    for b, frames in enumerate(robots):
+        sfin, sout = lio.run_lio_superblocks(lstate0, *frames, lcfg)
+        if not (torch.equal(fout.world_T_body[b], sout.world_T_body)
+                and torch.equal(ffin.ekf_state.P[b], sfin.ekf_state.P)
+                and torch.equal(ffin.ring[b], sfin.ring)):
+            fail(f"fleet robot {b} differs from its own run by "
+                 f"{(fout.world_T_body[b] - sout.world_T_body).abs().max().item()}")
+    f_ate = [ate_rmse(fout.world_T_body[b].cpu().numpy(), lgt[:nf]) for b in range(FLEET_ROBOTS)]
+    print(f"fleet_run_lio_superblocks: {FLEET_ROBOTS} robots x {nf} frames, each equal to its own "
+          f"run, ATE-RMSE {', '.join(f'{a:.4f}' for a in f_ate)} m, GPS accepted "
+          f"{fout.gps_accepted.sum(dim=1).tolist()}, K7 launches {f_launched} "
+          f"[{tag}]", flush=True)
+    if f_launched != FLEET_ROBOTS * f_blocks:
+        fail(f"fleet: K7 launched {f_launched} times, expected {FLEET_ROBOTS * f_blocks}")
+    print(f"phase 7 LIO block loop: {time.perf_counter() - t0:.1f} s; scans/s (pass 1) {brate:.1f} "
+          f"[{tag}]", flush=True)
+
     for kernel in kernels:
         if not sum(launches[kernel].values()):
             fail(f"{kernel.__name__} never launched on a main path")
@@ -1018,6 +1239,10 @@ def main() -> None:
             "slam_sensor_fusion_tpu/ops/p2p_fused.py:510", k5_err, k5_ms, k5_plain_ms, k5_bound),
         row(p2p._p2p_gn_corr, "K6 p2p_gn_corr", "slam_sensor_fusion_tpu_torch/csrc/p2p_fused.cu",
             "slam_sensor_fusion_tpu/ops/p2p_fused.py:536", k6_err, k6_ms, k6_plain_ms, k6_bound),
+        row(lio_superblock, "K7 lio_superblock",
+            "slam_sensor_fusion_tpu_torch/csrc/lio_superblock_fused.cu",
+            "slam_sensor_fusion_tpu/ops/lio_superblock_fused.py:196", k7_err, k7_ms, k7_plain_ms,
+            k7_bound),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

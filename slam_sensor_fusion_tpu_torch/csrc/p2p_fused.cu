@@ -10,12 +10,12 @@
 //      alone at the prior; its winners are the outputs;
 //   K6 `_make_gn_corr_kernel` (`p2p_gn_from_correspondences`): K4's GN on a
 //      matched set given as input.
-// Two device functions carry all three: `associate` writes each source
-// point's best d2 and matched (x, y, z, nx, ny, nz) to a per-point buffer,
-// `gn_drive` runs the iterations and the stats pass from that buffer.
-// K4 = associate (once at the prior with fixed correspondences, else in
-// every pass) + gn_drive; K5 = associate with the buffer as its output;
-// K6 = gn_drive with the buffer as its input.
+// Two device functions of p2p_fused.cuh (shared with K7) carry all three:
+// `associate` writes each source point's best d2 and matched (x, y, z, nx,
+// ny, nz) to a per-point buffer, `gn_passes` runs the iterations and the
+// stats pass from that buffer. K4 = associate (once at the prior with fixed
+// correspondences, else in every pass) + gn_passes; K5 = associate with the
+// buffer as its output; K6 = gn_passes with the buffer as its input.
 // Outputs of K4 and K6: T_out (4, 4) in the rebased frame and stats (128) =
 // [rmse, W, iterations, 21 damped JtJ entries (row-major lower triangle),
 // wr2, 0...], as the JAX kernels.
@@ -49,190 +49,28 @@
 // (`_p2p_core_plain`, `_p2p_associate_plain`, `_p2p_gn_corr_plain`).
 #include <cuda_runtime.h>
 
-#include "icp_fused.cuh"
-
-// Mirrors ctypes struct `_P2PParams` in ops/p2p_fused.py.
-struct P2PParams {
-  float gate;         // max_correspondence_dist_sq
-  float huber_delta;  // Huber kernel width on the plane residual
-  float damping;      // Levenberg damping on JtJ's diagonal
-  int num_iterations;
-  int fixed;          // associate once at the prior
-};
+#include "p2p_fused.cuh"
 
 namespace {
 
-constexpr int kNMom = 29;  // 21 JtJ (lower triangle), 6 Jtr, W, wr2
+using sfk::p2p::kNMom;
+using sfk::p2p::Shared;
+using sfk::p2p::Tiles;
 
-struct Shared {
-  // broadcast from thread 0 to the block
-  float R[9];
-  float t[3];
-  float mom[kNMom];
-};
-
-struct Tiles {
-  const float* src;  // (nSt, 3, TM) sensor-frame source pages
-  const float* tgt;  // (nTt, 6, TN) rebased target pages: xyz + normal
-  const int* ps;     // (nSt,) pair_start
-  const int* pc;     // (nSt,) pair_cnt
-  const int* pt;     // (max_pairs,) pair_tgt
-  float* d2;         // (nSt, 1, TM) best squared distance
-  float* qn;         // (nSt, 6, TM) matched point + normal
-  int nSt, TM, TN;
-};
-
-// Associate under (R, t) the points of source tiles first, first + stride,
-// ...; thread r of a tile's group owns its point r.
-__device__ void associate(const float* R, const float* t, const Tiles& T, int first,
-                          int stride) {
-  const int r = threadIdx.x % T.TM;
-  for (int i = first; i < T.nSt; i += stride) {
-    const float* s = T.src + (size_t)i * 3 * T.TM;
-    const float px = s[r], py = s[T.TM + r], pz = s[2 * T.TM + r];
-    const float sx = R[0] * px + R[1] * py + R[2] * pz + t[0];
-    const float sy = R[3] * px + R[4] * py + R[5] * pz + t[1];
-    const float sz = R[6] * px + R[7] * py + R[8] * pz + t[2];
-    const float* win;
-    T.d2[(size_t)i * T.TM + r] =
-        sfk::nearest_first<6>(T.tgt, T.pt, T.ps[i], T.pc[i], T.TN, sx, sy, sz, &win);
-    float* o = T.qn + (size_t)i * 6 * T.TM + r;
-#pragma unroll
-    for (int k = 0; k < 6; ++k) o[k * T.TM] = win ? win[k * T.TN] : 0.0f;
-  }
-}
-
-// The 29 moments under (S.R, S.t) on the matched set, into S.mom (every
-// thread must call it): p2p_fused.py:254-303 without the damping.
-__device__ void moments(Shared& S, const Tiles& T, const P2PParams& prm, float* red) {
-  float R[9], t[3];
-#pragma unroll
-  for (int m = 0; m < 9; ++m) R[m] = S.R[m];
-  t[0] = S.t[0]; t[1] = S.t[1]; t[2] = S.t[2];
-  float v[kNMom];
-#pragma unroll
-  for (int m = 0; m < kNMom; ++m) v[m] = 0.0f;
-  const int G = blockDim.x / T.TM;
-  const int r = threadIdx.x % T.TM;
-  for (int i = threadIdx.x / T.TM; i < T.nSt; i += G) {
-    const float* s = T.src + (size_t)i * 3 * T.TM;
-    const float sx = s[r], sy = s[T.TM + r], sz = s[2 * T.TM + r];
-    const float px = R[0] * sx + R[1] * sy + R[2] * sz + t[0];
-    const float py = R[3] * sx + R[4] * sy + R[5] * sz + t[1];
-    const float pz = R[6] * sx + R[7] * sy + R[8] * sz + t[2];
-    const float* q = T.qn + (size_t)i * 6 * T.TM + r;
-    const float qx = q[0], qy = q[T.TM], qz = q[2 * T.TM];
-    const float nx = q[3 * T.TM], ny = q[4 * T.TM], nz = q[5 * T.TM];
-    const float d2 = T.d2[(size_t)i * T.TM + r];
-    // invalid normals are stored as 0-vectors -> |n|^2 < 0.5
-    const float w_in =
-        (d2 < prm.gate && nx * nx + ny * ny + nz * nz > 0.5f) ? 1.0f : 0.0f;
-    const float res = nx * (px - qx) + ny * (py - qy) + nz * (pz - qz);
-    const float w = w_in * sfk::jmin(1.0f, prm.huber_delta / sfk::jmax(fabsf(res), 1e-12f));
-    // J = [n, p' x n]
-    const float J[6] = {nx, ny, nz, py * nz - pz * ny, pz * nx - px * nz, px * ny - py * nx};
-#pragma unroll
-    for (int a = 0; a < 6; ++a) {
-      const float wJ = w * J[a];
-#pragma unroll
-      for (int b = 0; b <= a; ++b) v[a * (a + 1) / 2 + b] += wJ * J[b];
-      v[21 + a] += wJ * res;
-    }
-    v[27] += w_in;
-    v[28] += w_in * res * res;
-  }
-  sfk::block_sum<kNMom>(v, red, S.mom);
-}
-
-// Solve (6x6 SPD) A x = b by unrolled Cholesky, pivots floored at
-// sqrt(1e-12) (p2p_fused.py:64-95). `tri` is A's row-major lower triangle.
-__device__ void chol6_solve(const float* tri, const float* b, float* x) {
-  float L[6][6];
-  for (int i = 0; i < 6; ++i)
-    for (int j = 0; j <= i; ++j) {
-      float s = tri[i * (i + 1) / 2 + j];
-      for (int k = 0; k < j; ++k) s = s - L[i][k] * L[j][k];
-      L[i][j] = i == j ? sqrtf(sfk::jmax(s, 1e-12f)) : s / L[j][j];
-    }
-  float y[6];
-  for (int i = 0; i < 6; ++i) {  // forward substitution L y = b
-    float s = b[i];
-    for (int k = 0; k < i; ++k) s = s - L[i][k] * y[k];
-    y[i] = s / L[i][i];
-  }
-  for (int i = 5; i >= 0; --i) {  // back substitution L^T x = y
-    float s = y[i];
-    for (int k = i + 1; k < 6; ++k) s = s - L[k][i] * x[k];
-    x[i] = s / L[i][i];
-  }
-}
-
-// exp([phi]x, rho) -> (R, t) by the nested 4-term Taylor series of
-// A = sin(th)/th, B = (1-cos th)/th^2, C = (1-A)/th^2 (p2p_fused.py:98-120).
-__device__ void se3_exp_taylor(const float* rho, const float* phi, float* R, float* t) {
-  const float t2 = phi[0] * phi[0] + phi[1] * phi[1] + phi[2] * phi[2];
-  const float A = 1.0f - t2 / 6.0f * (1.0f - t2 / 20.0f * (1.0f - t2 / 42.0f));
-  const float B = 0.5f * (1.0f - t2 / 12.0f * (1.0f - t2 / 30.0f * (1.0f - t2 / 56.0f)));
-  const float C =
-      (1.0f / 6.0f) * (1.0f - t2 / 20.0f * (1.0f - t2 / 42.0f * (1.0f - t2 / 72.0f)));
-  const float wx = phi[0], wy = phi[1], wz = phi[2];
-  const float zero = 0.0f * wx;
-  const float K[9] = {zero, -wz, wy, wz, zero, -wx, -wy, wx, zero};
-  float K2[9], V[9];
-  sfk::mm3(K, K, K2);
-#pragma unroll
-  for (int m = 0; m < 9; ++m) {
-    const float eye = (m % 4 == 0) ? 1.0f : 0.0f;
-    R[m] = eye + A * K[m] + B * K2[m];
-    V[m] = eye + B * K[m] + C * K2[m];
-  }
-  sfk::mv3(V, rho, t);
-}
-
-// The GN iterations and the stats pass from the matched set (every thread
-// must call it): p2p_fused.py:325-374. With `fresh`, every pass associates
-// first under the current transform. Thread 0 writes the outputs.
-__device__ void gn_drive(Shared& S, const Tiles& T, const P2PParams& prm, bool fresh,
-                         float* red, float* T_out, float* stats) {
-  const int G = blockDim.x / T.TM;
-  for (int it = 0; it <= prm.num_iterations; ++it) {
-    if (fresh) associate(S.R, S.t, T, threadIdx.x / T.TM, G);
-    moments(S, T, prm, red);
-    if (threadIdx.x == 0) {
-      float tri[21];
-      for (int k = 0; k < 21; ++k) tri[k] = S.mom[k];
-      // damping goes on the diagonal after the reduction
-      for (int a = 0; a < 6; ++a) tri[a * (a + 1) / 2 + a] = tri[a * (a + 1) / 2 + a] + prm.damping;
-      const float W = S.mom[27], wr2 = S.mom[28];
-      if (it < prm.num_iterations) {
-        float x[6], rho[3], phi[3], R_step[9], t_step[3], R_inv[9], Rn[9], v[3];
-        chol6_solve(tri, S.mom + 21, x);
-        // a starved frame must not step
-        const float ok = W >= 3.0f ? 1.0f : 0.0f;
-        for (int a = 0; a < 3; ++a) {
-          rho[a] = -x[a] * ok;
-          phi[a] = -x[3 + a] * ok;
-        }
-        se3_exp_taylor(rho, phi, R_step, t_step);
-        // one Newton-polar step pins orthogonality
-        sfk::adjugate_transpose_over_det(R_step, R_inv);
-        for (int m = 0; m < 9; ++m) R_step[m] = 0.5f * (R_step[m] + R_inv[m]);
-        sfk::mm3(R_step, S.R, Rn);
-        sfk::mv3(R_step, S.t, v);
-        for (int m = 0; m < 9; ++m) S.R[m] = Rn[m];
-        for (int a = 0; a < 3; ++a) S.t[a] = v[a] + t_step[a];
-      } else {  // the stats pass: moments at the final transform, no step
-        sfk::pack44(S.R, S.t, 1.0f, T_out);
-        stats[0] = sqrtf(wr2 / sfk::jmax(W, 1.0f));
-        stats[1] = W;
-        stats[2] = (float)prm.num_iterations;
-        for (int k = 0; k < 21; ++k) stats[3 + k] = tri[k];
-        stats[24] = wr2;
-        for (int m = 25; m < 128; ++m) stats[m] = 0.0f;
-      }
-    }
-    __syncthreads();
-  }
+// K4's and K6's outputs from the state gn_passes leaves (thread 0): T_out and
+// stats = [rmse, W, iterations, 21 damped JtJ entries, wr2, 0...].
+__device__ void pack_outputs(const Shared& S, const P2PParams& prm, float* T_out,
+                             float* stats) {
+  float tri[21];
+  sfk::p2p::damped_tri(S, prm.damping, tri);
+  const float W = S.mom[27], wr2 = S.mom[28];
+  sfk::pack44(S.R, S.t, 1.0f, T_out);
+  stats[0] = sqrtf(wr2 / sfk::jmax(W, 1.0f));
+  stats[1] = W;
+  stats[2] = (float)prm.num_iterations;
+  for (int k = 0; k < 21; ++k) stats[3 + k] = tri[k];
+  stats[24] = wr2;
+  for (int m = 25; m < 128; ++m) stats[m] = 0.0f;
 }
 
 __global__ void __launch_bounds__(1024, 1) p2p_fused_kernel(
@@ -253,8 +91,9 @@ __global__ void __launch_bounds__(1024, 1) p2p_fused_kernel(
                 best_d2, best_qn, nSt, TM, TN};
   if (threadIdx.x == 0) sfk::read44(T0, S.R, S.t);
   __syncthreads();
-  if (prm.fixed) associate(S.R, S.t, T, threadIdx.x / TM, blockDim.x / TM);
-  gn_drive(S, T, prm, !prm.fixed, red, T_out, stats);
+  if (prm.fixed) sfk::p2p::associate(S.R, S.t, T, threadIdx.x / TM, blockDim.x / TM);
+  sfk::p2p::gn_passes(S, T, prm, !prm.fixed, red);
+  if (threadIdx.x == 0) pack_outputs(S, prm, T_out, stats);
 }
 
 __global__ void __launch_bounds__(1024, 1) p2p_associate_kernel(
@@ -270,7 +109,7 @@ __global__ void __launch_bounds__(1024, 1) p2p_associate_kernel(
   sfk::read44(T0, R, t);
   // no sums follow, so the source tiles spread over the grid's blocks
   const int G = blockDim.x / TM;
-  associate(R, t, T, blockIdx.x * G + threadIdx.x / TM, gridDim.x * G);
+  sfk::p2p::associate(R, t, T, blockIdx.x * G + threadIdx.x / TM, gridDim.x * G);
 }
 
 __global__ void __launch_bounds__(1024, 1) p2p_gn_corr_kernel(
@@ -286,7 +125,8 @@ __global__ void __launch_bounds__(1024, 1) p2p_gn_corr_kernel(
                 const_cast<float*>(best_d2), const_cast<float*>(best_qn), nSt, TM, 0};
   if (threadIdx.x == 0) sfk::read44(T0, S.R, S.t);
   __syncthreads();
-  gn_drive(S, T, prm, false, red, T_out, stats);
+  sfk::p2p::gn_passes(S, T, prm, false, red);
+  if (threadIdx.x == 0) pack_outputs(S, prm, T_out, stats);
 }
 
 // Threads of one block: TM a source tile, as many tiles side by side as fit.

@@ -14,25 +14,40 @@ Everything is fixed-shape:
   update (+ gated GPS update) -> scan inserted into the ring.
 
 `lio_step` is one frame with the amortized refresh; `run_lio_chunk` loops
-it; `run_lio_blocks` is the throughput loop with the refresh hoisted to
-block boundaries. The ring slot and the frame counter advance by amounts
+it; `run_lio_blocks` is the per-frame throughput loop with the refresh
+hoisted to block boundaries; `run_lio_superblocks` is the whole-block
+loop: one K7 launch (ops/lio_superblock_fused.py) runs the EKF, the GN and
+both Kalman updates of `refresh_every` frames, around a batched prologue
+and ring insert. The ring slot and the frame counter advance by amounts
 the host knows, so they are Python ints and the refresh test costs no wait
 for the device; every other data-dependent choice is a select on device
-values. The whole-block kernel loop (`run_lio_superblocks`) is not ported
-yet; `LIOConfig` keeps its fields.
+values.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
 from slam_sensor_fusion_tpu_torch.models import ekf
+from slam_sensor_fusion_tpu_torch.models.pipeline_fast import _transformed_tile_boxes
 from slam_sensor_fusion_tpu_torch.ops import cloud as cl
 from slam_sensor_fusion_tpu_torch.ops import geometry
 from slam_sensor_fusion_tpu_torch.ops.deskew import deskew, se3_log
-from slam_sensor_fusion_tpu_torch.ops.morton import sort_by_morton
+from slam_sensor_fusion_tpu_torch.ops.icp_fused import SOURCE_SENTINEL
+from slam_sensor_fusion_tpu_torch.ops.lio_superblock_fused import (
+    LIOSuperblockParams,
+    lio_superblock,
+)
+from slam_sensor_fusion_tpu_torch.ops.morton import sort_by_morton, tile_bboxes
+from slam_sensor_fusion_tpu_torch.ops.nn_gated import (
+    pair_demand_from_d2,
+    pair_tiles_from_d2,
+    subtile_pair_dist2,
+)
+from slam_sensor_fusion_tpu_torch.ops.nn_pallas import _build_tile_pair_list
 from slam_sensor_fusion_tpu_torch.ops.p2p_fused import (
     CachedP2PTarget,
     build_cached_p2p_target,
@@ -70,8 +85,8 @@ class LIOConfig(NamedTuple):
     #: so registration against it is never more absolutely accurate than
     #: the ring itself
     gn_anchor_cov: bool = True
-    #: superblock loop only (not ported yet): whole-block fused kernel
-    #: instead of per-frame launches
+    #: kept for the JAX package's field set; the loop is chosen by calling
+    #: `run_lio_superblocks` (whole-block kernel) or `run_lio_blocks`
     block_kernel: bool = False
     #: superblock loop only: per-frame dilation of the block pair-search
     #: radius, plus its base
@@ -425,3 +440,238 @@ def run_lio_blocks(
         )
         outs += block
     return state, _stack_outputs(outs)
+
+
+def _dead_reckon(
+    e0: ekf.EKFState, gyro: torch.Tensor, accel: torch.Tensor, dts: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean-only IMU integration over a block's packets (gyro, accel
+    (K, Ki, 3), dts (K, Ki)): the poses (R (K, 3, 3), t (K, 3)) at each frame
+    boundary, biases frozen at block start, Rodrigues `geometry.so3_exp`.
+
+    The block's pair prologue builds its lists at these predictions; the
+    kernel's propagation starts from each frame's POSTERIOR, so the realized
+    prior differs by the accumulated GN/GPS corrections, which the per-frame
+    `superstep_slack` dilation budgets. The sample loop issues a few small
+    operations a sample and reads nothing back."""
+    g_w = ekf._constants(ekf.EKFConfig(), e0.p.device).g_w
+    # every sample's rotation increment at once; the chain stays sequential
+    steps = geometry.so3_exp((gyro - e0.bg) * dts[..., None])
+    f = accel - e0.ba
+    p, v, R = e0.p, e0.v, e0.R
+    Rs, ts = [], []
+    for k in range(dts.shape[0]):
+        for j in range(dts.shape[1]):
+            dd = dts[k, j]
+            a_w = R @ f[k, j] + g_w
+            p = p + v * dd + 0.5 * a_w * dd * dd
+            v = v + a_w * dd
+            R = R @ steps[k, j]
+        Rs.append(R)
+        ts.append(p)
+    return torch.stack(Rs), torch.stack(ts)
+
+
+def _superblock_params(config: LIOConfig) -> LIOSuperblockParams:
+    return LIOSuperblockParams(
+        p2p=config.p2p,
+        ekf=config.ekf,
+        icp_pos_std=config.icp_pos_std,
+        icp_rot_std=config.icp_rot_std,
+        icp_cov_mode=config.icp_cov_mode,
+        gn_cov_scale=config.gn_cov_scale,
+        gn_pos_std_floor=config.gn_pos_std_floor,
+        gn_rot_std_floor=config.gn_rot_std_floor,
+        gn_anchor_cov=config.gn_anchor_cov,
+        superstep_slack=config.superstep_slack,
+        slack_base=config.slack_base,
+    )
+
+
+def _block_prologue(st: LIOState, cache: CachedP2PTarget, sp, sm, tau, gy, ac, dt, vld,
+                    radius2, config: LIOConfig):
+    """Steps 2-4 of a block: dead reckoning, deskew twists, the
+    registration rows' source pages and the pair lists. Returns (pred_t,
+    twists or None, src_pages, (pair_start, pair_cnt, pair_tgt), pair
+    demand, pair overflow)."""
+    e0 = st.ekf_state
+    R = sp.shape[0]
+    TM, rsub = config.p2p.tile_src, config.reg_subsample
+    pred_R, pred_t = _dead_reckon(e0, gy, ac, dt)
+    # deskew twists from the dead-reckoned between-frame motion. Deskew is
+    # per point, so it runs after subset selection (select-then-deskew ==
+    # deskew-then-select): only the ::rsub registration rows and the ring
+    # sample are ever corrected
+    xi = None
+    if tau is not None:
+        prev_R = torch.cat([e0.R[None], pred_R[:-1]])
+        prev_t = torch.cat([e0.p[None], pred_t[:-1]])
+        rel_R = torch.einsum("kji,kjl->kil", prev_R, pred_R)
+        rel_t = torch.einsum("kji,kj->ki", prev_R, pred_t - prev_t)
+        xi = se3_log(geometry.make_T(rel_R, rel_t))  # (R, 6)
+    # registration on every rsub-th point of the (Morton-pre-sorted) scan;
+    # FINE sub-box gating against the cache's sub-boxes
+    rp, rm = sp[:, ::rsub], sm[:, ::rsub]
+    if xi is not None:
+        rp = deskew(rp, tau[:, ::rsub], xi)
+    nSt = rp.shape[1] // TM
+    src_pages = (
+        torch.where(rm[..., None], rp.float(), SOURCE_SENTINEL)
+        .reshape(R, nSt, TM, 3).transpose(2, 3).contiguous()
+    )
+    _, _, cnt_b = tile_bboxes(rp, rm, TM)
+    slo_b, shi_b, _ = tile_bboxes(rp, rm, config.gate_sub_src)
+    slo_w, shi_w = _transformed_tile_boxes(geometry.make_T(pred_R, pred_t), slo_b, shi_b)
+    d2_tiles = subtile_pair_dist2(
+        slo_w, shi_w, cache.sub_lo, cache.sub_hi, nSt, cache.pages.shape[0]
+    )
+    visits, counts, v_ovf = pair_tiles_from_d2(d2_tiles, cnt_b, radius2, config.p2p.max_visits)
+    max_pairs = nSt * config.max_pairs_factor
+    pairs = _build_tile_pair_list(visits, counts, max_pairs)
+    demand = pair_demand_from_d2(d2_tiles, cnt_b, radius2)
+    overflow = vld & (v_ovf | (demand > max_pairs))
+    return pred_t, xi, src_pages, pairs, demand, overflow
+
+
+def _ring_sample(sp, sm, tau, xi, config: LIOConfig) -> cl.Cloud:
+    """The K scans sampled to slot width and deskewed: (K, slot_points, 3)
+    points and their mask."""
+    SP = config.slot_points
+    if config.packed_scans:
+        # indices from the mask alone: gather slot-width rows of the RAW
+        # scan, then deskew only those
+        ridx, smask = cl.packed_sample_indices(sm, SP)
+        spts = torch.gather(sp, 1, ridx[..., None].expand(-1, -1, 3))
+        if xi is not None:
+            spts = deskew(spts, torch.gather(tau, 1, ridx), xi)
+        return cl.Cloud(spts, smask)
+    # arbitrary masks: the generic per-frame compaction
+    sp_full = deskew(sp, tau, xi) if xi is not None else sp
+    clouds = [cl.sample_to_capacity(cl.Cloud(p, m), SP) for p, m in zip(sp_full, sm)]
+    return cl.Cloud(torch.stack([c.points for c in clouds]), torch.stack([c.mask for c in clouds]))
+
+
+def run_lio_superblocks(
+    state: LIOState,
+    scan_points: torch.Tensor,  # (T, S, 3)
+    scan_mask: torch.Tensor,  # (T, S)
+    imu_gyro: torch.Tensor,  # (T, K, 3)
+    imu_accel: torch.Tensor,  # (T, K, 3)
+    imu_dt: torch.Tensor,  # (T, K)
+    gps_pos: torch.Tensor,  # (T, 3)
+    gps_var: torch.Tensor,  # (T,)
+    gps_valid: torch.Tensor,  # (T,)
+    config: LIOConfig = LIOConfig(),
+    scan_tau: torch.Tensor | None = None,  # (T, S) sweep fractions for deskew
+    valid: torch.Tensor | None = None,  # (T,) tail-padding no-op frames
+) -> tuple[LIOState, LIOOutput]:
+    """Whole-block loop: ONE K7 launch (ops/lio_superblock_fused.py: EKF
+    propagation, point-to-plane GN, pose and GPS Kalman updates) per
+    `refresh_every` frames, with the anchor refresh, deskew, pair prologue
+    and ring inserts batched per block:
+
+      1. anchor refresh from the ring (as run_lio_blocks);
+      2. mean-only IMU dead reckoning -> predicted per-frame poses;
+      3. deskew with the dead-reckoned between-frame twists;
+      4. pair prologue: predicted-pose source sub-boxes against the anchor's
+         sub-boxes, radius dilated by `slack_base + superstep_slack * k`;
+      5. the K7 launch;
+      6. the K registered scans' ring inserts (within a block the anchor is
+         frozen, so deferring them to the block's end equals
+         run_lio_blocks' per-frame inserts: they only become visible at the
+         next refresh).
+
+    T need not be a multiple of `refresh_every`: the last block is padded
+    with no-op frames. Invalid frames must be TRAILING (the ring slots
+    assume valid frames are contiguous from the start); a `valid` tensor
+    costs one wait for the device a call, to count them. Scans should come
+    Morton-PRE-SORTED from the loader (ops/morton.sort_order_numpy(
+    isotropic=True), deskew taus riding along), or the pair lists inflate;
+    `pair_overflow` shows it."""
+    R = config.refresh_every
+    T = scan_points.shape[0]
+    dev = scan_points.device
+    n_valid = T if valid is None else int(valid.sum())
+    if valid is None:
+        valid = torch.ones((T,), dtype=torch.bool, device=dev)
+    arrays = [scan_points, scan_mask, imu_gyro, imu_accel, imu_dt, gps_pos, gps_var]
+    if scan_tau is not None:
+        arrays.append(scan_tau)
+    pad = (-T) % R
+    if pad:  # repeat the last frame
+        arrays = [torch.cat([a, a[-1:].expand((pad,) + a.shape[1:])]) for a in arrays]
+        no = torch.zeros((pad,), dtype=torch.bool, device=dev)
+        gps_valid, valid = torch.cat([gps_valid, no]), torch.cat([valid, no])
+    sp_all, sm_all, gy_all, ac_all, dt_all, gp_all, gv_all = arrays[:7]
+    tau_all = arrays[7] if scan_tau is not None else None
+
+    # the pair-list dilation covers the FULL slack budget the kernel's
+    # violation check tolerates: slack_base + slack * k at frame k
+    base_r = math.sqrt(config.p2p.max_correspondence_dist_sq) + config.p2p.reassoc_margin
+    ks = torch.arange(R, dtype=torch.float32, device=dev)
+    radius2 = (base_r + config.slack_base + config.superstep_slack * ks) ** 2
+    params = _superblock_params(config)
+    SP, window = config.slot_points, config.window
+
+    st = state
+    outs = []
+    for lo in range(0, T + pad, R):
+        blk = slice(lo, lo + R)
+        sp, sm, gy, ac, dt = sp_all[blk], sm_all[blk], gy_all[blk], ac_all[blk], dt_all[blk]
+        tau = None if tau_all is None else tau_all[blk]
+        vld = valid[blk]
+        nv = min(max(n_valid - lo, 0), R)
+
+        # 1) anchor refresh
+        anchor = _refresh_anchor(st.ring, st.ring_mask, st.ekf_state.p, config)
+        cache = anchor[4]
+        # 2-4) dead reckoning, deskew, source pages, pair lists
+        pred_t, xi, src_pages, pairs, demand, overflow = _block_prologue(
+            st, cache, sp, sm, tau, gy, ac, dt, vld, radius2, config
+        )
+        # 5) the whole-block kernel
+        e0 = st.ekf_state
+        poses, stats, pose_n, v_n, bg_n, ba_n, P_n = lio_superblock(
+            *pairs, vld, gy, ac, dt, gp_all[blk], gv_all[blk], gps_valid[blk], pred_t,
+            ekf.pose_matrix(e0), e0.v, e0.bg, e0.ba, e0.P, cache.center, src_pages,
+            cache.pages, params,
+        )
+        # 6) ring inserts of the valid frames, in slot order, into a copy of
+        # the ring (the previous state stays valid); with more frames than
+        # slots later frames overwrite earlier ones, as one at a time would
+        sampled = _ring_sample(sp, sm, tau, xi, config)
+        world = (
+            torch.einsum("kij,knj->kni", poses[:, :3, :3], sampled.points)
+            + poses[:, None, :3, 3]
+        )
+        ring, ring_mask = st.ring.clone(), st.ring_mask.clone()
+        for i in range(nv):
+            off = ((st.slot + i) % window) * SP
+            ring[off : off + SP] = world[i]
+            ring_mask[off : off + SP] = sampled.mask[i]
+
+        st = _with_anchor(
+            st._replace(
+                ekf_state=ekf.EKFState(
+                    p=pose_n[:3, 3], v=v_n, R=pose_n[:3, :3], bg=bg_n, ba=ba_n, P=P_n
+                ),
+                ring=ring, ring_mask=ring_mask, slot=st.slot + nv, frame=st.frame + nv,
+            ),
+            anchor,
+            _pose_cov6(e0.P),
+        )
+        outs.append(
+            LIOOutput(
+                world_T_body=poses,
+                rmse=stats[:, 0],
+                n_correspondences=stats[:, 1].to(torch.int32),
+                refreshed=torch.arange(R, device=dev) == 0,
+                gps_accepted=stats[:, 2] > 0.5,
+                slack_violation=vld & (stats[:, 4] > 0.5),
+                slack_dist=stats[:, 5],
+                pair_overflow=overflow,
+                pair_demand=demand,
+                icp_std_xyz=stats[:, 6:9],
+            )
+        )
+    return st, LIOOutput(*[torch.cat(xs)[:T] for xs in zip(*outs)])

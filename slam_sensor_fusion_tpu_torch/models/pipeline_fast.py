@@ -24,6 +24,7 @@ reads the block's valid flags once.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -140,6 +141,13 @@ def build_paged_frames(
 _CORNER_SEL = np.array([[(k >> a) & 1 for a in range(3)] for k in range(8)], bool)
 
 
+@functools.lru_cache(maxsize=None)
+def _corner_sel(device: torch.device) -> torch.Tensor:
+    """The (8, 3) box-corner selector, uploaded once per device (a tensor
+    made from host data inside a loop would wait for the device)."""
+    return torch.from_numpy(_CORNER_SEL).to(device)
+
+
 def _transformed_tile_boxes(pred: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor):
     """AABBs of per-tile boxes under per-frame rigid transforms:
     pred (K,4,4); lo/hi (K,nSt,3) in the sensor frame -> map frame. The
@@ -150,7 +158,7 @@ def _transformed_tile_boxes(pred: torch.Tensor, lo: torch.Tensor, hi: torch.Tens
     emp = (lo > hi).any(dim=-1, keepdim=True)
     lo = torch.where(emp, _FAR, lo)
     hi = torch.where(emp, _FAR, hi)
-    sel = torch.from_numpy(_CORNER_SEL).to(lo.device)
+    sel = _corner_sel(lo.device)
     corners = torch.where(sel[None, None], hi[:, :, None, :], lo[:, :, None, :])
     wc = (
         torch.einsum("kij,kscj->ksci", pred[:, :3, :3], corners)

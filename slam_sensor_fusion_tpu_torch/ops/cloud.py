@@ -144,6 +144,23 @@ def sample_to_capacity(cloud: Cloud, out_capacity: int) -> Cloud:
     return Cloud(packed[idx], (idx < n) & ~dup)
 
 
+def packed_sample_indices(
+    mask: torch.Tensor, out_capacity: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """`sample_to_capacity`'s selection for PACKED masks (the valid rows
+    form a prefix, the loader contract for Morton-pre-sorted scans), as
+    indices: (idx (..., out_capacity) int64, mask (..., out_capacity)).
+    Callers gather only `out_capacity` rows, from the raw scan, before any
+    per-point work. Same `(i * n) // cap` stride, duplicate kill and empty
+    handling as `sample_to_capacity`; leading batch dimensions allowed."""
+    n = mask.sum(dim=-1, dtype=torch.int64)[..., None]
+    i = torch.arange(out_capacity, device=mask.device)
+    idx = (i * n) // out_capacity
+    first = torch.zeros_like(idx[..., :1], dtype=torch.bool)
+    dup = torch.cat([first, idx[..., 1:] == idx[..., :-1]], dim=-1)
+    return idx, (idx < n) & ~dup
+
+
 def voxel_downsample_numpy(
     points: np.ndarray, voxel_size: float, origin: np.ndarray | None = None
 ) -> np.ndarray:

@@ -120,6 +120,8 @@ def _declare(so: ctypes.CDLL) -> None:
     so.sfk_p2p_associate.restype = I
     so.sfk_p2p_gn_corr.argtypes = [P] * 6 + [I] * 2 + [P, P]
     so.sfk_p2p_gn_corr.restype = I
+    so.sfk_lio_superblock.argtypes = [P] * 24 + [I] * 6 + [P, P]
+    so.sfk_lio_superblock.restype = I
 
 
 def check(err: int, what: str) -> None:

@@ -37,11 +37,12 @@ def se3_log(T: torch.Tensor) -> torch.Tensor:
 
 
 def deskew(
-    points: torch.Tensor,  # (N, 3) body-frame points at their measurement times
-    tau: torch.Tensor,  # (N,) in [0, 1]: fraction of the sweep elapsed
-    frame_twist: torch.Tensor,  # (6,) = se3_log(T_prev^-1 @ T_curr)
+    points: torch.Tensor,  # (..., N, 3) body-frame points at their measurement times
+    tau: torch.Tensor,  # (..., N) in [0, 1]: fraction of the sweep elapsed
+    frame_twist: torch.Tensor,  # (..., 6) = se3_log(T_prev^-1 @ T_curr)
 ) -> torch.Tensor:
-    """Correct all points to the END-of-sweep frame.
+    """Correct all points to the END-of-sweep frame; leading dimensions are
+    frames, each with its own twist.
 
     A point measured at fraction tau sits in the frame exp((tau-1) * xi)
     relative to the sweep end; undo it. All per-point twists share ONE axis
@@ -53,13 +54,13 @@ def deskew(
         t(th)   = s [ r0 + (1-cos th)/th (k x r0)
                          + (th - sin th)/th  k x (k x r0) ],  s = tau - 1
     """
-    rho0 = frame_twist[:3]
-    phi0 = frame_twist[3:]
-    th0 = torch.sqrt(torch.clamp((phi0 * phi0).sum(), min=1e-24))
-    k = phi0 / th0
+    rho0 = frame_twist[..., :3]
+    phi0 = frame_twist[..., 3:]
+    th0 = torch.sqrt(torch.clamp((phi0 * phi0).sum(dim=-1), min=1e-24))
+    k = phi0 / th0[..., None]
 
-    s = tau - 1.0  # (N,) <= 0
-    th = s * th0  # signed angle about k
+    s = tau - 1.0  # (..., N) <= 0
+    th = s * th0[..., None]  # signed angle about k
     sin = torch.sin(th)
     cos = torch.cos(th)
     # (1-cos th)/th and (th-sin th)/th, series-safe at th ~ 0
@@ -68,16 +69,17 @@ def deskew(
     A = torch.where(small, 0.5 * th, (1.0 - cos) / d)
     B = torch.where(small, th * th / 6.0, (th - sin) / d)
 
-    kxp = torch.linalg.cross(k[None, :], points)  # (N, 3)
-    kkp = torch.linalg.cross(k[None, :], kxp)
-    Rp = points + sin[:, None] * kxp + (1.0 - cos)[:, None] * kkp
+    kp = k[..., None, :].expand(points.shape)
+    kxp = torch.linalg.cross(kp, points)  # (..., N, 3)
+    kkp = torch.linalg.cross(kp, kxp)
+    Rp = points + sin[..., None] * kxp + (1.0 - cos)[..., None] * kkp
 
-    kxr = torch.linalg.cross(k, rho0)  # fixed (3,)
+    kxr = torch.linalg.cross(k, rho0)  # fixed (..., 3)
     kkr = torch.linalg.cross(k, kxr)
     t = (
-        s[:, None] * rho0[None, :]
-        + (s * A)[:, None] * kxr[None, :]
-        + (s * B)[:, None] * kkr[None, :]
+        s[..., None] * rho0[..., None, :]
+        + (s * A)[..., None] * kxr[..., None, :]
+        + (s * B)[..., None] * kkr[..., None, :]
     )
     return Rp + t
 

@@ -98,6 +98,28 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
     return v * scale[..., None]
 
 
+def kabsch(src: torch.Tensor, tgt: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Weighted Kabsch/Umeyama rigid step: the best T with tgt ~= R src + t
+    (icp_point_to_point.cpp:112-159): weighted centroids, cross-covariance
+    H = src0^T diag(w) tgt0, 3x3 SVD, reflection fixed by flipping V's last
+    column, t = c_tgt - R c_src. src, tgt (N, 3); weights (N,), 0 for
+    masked-out rows. Returns (4, 4)."""
+    w = weights.to(src.dtype)
+    wsum = torch.clamp(w.sum(), min=1e-12)
+    c_src = (src * w[:, None]).sum(dim=0) / wsum
+    c_tgt = (tgt * w[:, None]).sum(dim=0) / wsum
+    src0 = (src - c_src) * w[:, None]
+    tgt0 = tgt - c_tgt
+    H = src0.T @ tgt0
+    U, _, Vh = torch.linalg.svd(H)
+    V = Vh.T
+    det = torch.linalg.det(V @ U.T)
+    flip = torch.ones(3, dtype=H.dtype, device=H.device)
+    flip[2] = torch.where(det < 0, -1.0, 1.0)
+    R = (V * flip[None, :]) @ U.T
+    return make_T(R, c_tgt - R @ c_src)
+
+
 def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     """exp of (..., 6) twists [rho, phi] -> (..., 4, 4) rigid transforms."""
     rho, phi = xi[..., :3], xi[..., 3:]

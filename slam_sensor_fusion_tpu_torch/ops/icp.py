@@ -19,6 +19,11 @@ against a tile pair list built with the gate radius dilated by
 could exceed that margin, so metre-scale rescue alignments never miss true
 neighbours. The loop runs on the host (one sync per iteration): it is the
 one-shot startup rescue, not the per-frame path.
+
+`_icp_xla` is the same control flow on the dense (M, 3) layout and the
+dense nearest-neighbour sweep: the fused ICP's fallback for capacities that
+are not multiples of the tiles (the JAX package computes it with XLA, so
+plain PyTorch is the port; there is no kernel).
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch
 from slam_sensor_fusion_tpu_torch.ops import geometry
 from slam_sensor_fusion_tpu_torch.ops.cloud import dist2
 from slam_sensor_fusion_tpu_torch.ops.morton import tile_bboxes
+from slam_sensor_fusion_tpu_torch.ops.nn import nearest_neighbor
 from slam_sensor_fusion_tpu_torch.ops.nn_gated import pair_tiles
 from slam_sensor_fusion_tpu_torch.ops.nn_pallas import (
     _build_tile_pair_list,
@@ -156,6 +162,67 @@ def association_inputs(source, source_mask, target, target_mask, initial_T, conf
         source, source_mask, target, target_mask, initial_T, config
     )
     return (pts, tgt_pages, *pairs)
+
+
+def _icp_xla(
+    source: torch.Tensor,
+    source_mask: torch.Tensor,
+    target: torch.Tensor,
+    target_mask: torch.Tensor,
+    initial_T: torch.Tensor,
+    config: ICPConfig,
+) -> ICPResult:
+    """The dense (M, 3)-layout ICP (the JAX `_icp_xla` without the gated
+    search): the same control flow as `icp_align` on the dense
+    nearest-neighbour sweep (ops/nn.nearest_neighbor), for any capacities.
+    It is the fused ICP's fallback when the capacities are not multiples of
+    the tiles. The loop runs on the host, one sync an iteration."""
+    dev = source.device
+    gate = config.max_correspondence_dist_sq
+    center = initial_T[:3, 3]
+
+    def associate(pts, mask):
+        d2, idx = nearest_neighbor(pts, mask, target, target_mask, center)
+        return d2, target[idx.long()]
+
+    def mean_error(pts, corr, alive):
+        w = alive.float()
+        return (torch.linalg.norm(pts - corr, dim=-1) * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+    pts = geometry.transform_points(initial_T, source)
+    d2, corr = associate(pts, source_mask)
+    alive = source_mask & (d2 < gate)
+    n_corr0 = alive.sum(dtype=torch.int32)
+    enough = int(n_corr0) >= config.min_correspondences
+    T = initial_T
+    i = 0
+    last_error = torch.tensor(_F32_MAX, dtype=torch.float32, device=dev)
+    done = not enough
+    while i < config.num_iterations and not done:
+        error = mean_error(pts, corr, alive)
+        done = bool(error < config.acceptable_mean_error)
+        if not done:
+            if bool((last_error - error).abs() < config.transformation_epsilon):
+                d2n, corr_n = associate(pts, alive)
+                alive = alive & (d2n < gate)
+                corr = torch.where(alive[:, None], corr_n, corr)
+            T_step = geometry.kabsch(pts, corr, alive.float())
+            T = T_step @ T
+            pts = geometry.transform_points(T_step, pts)
+            i += 1
+        last_error = error
+    error_out = last_error if enough else torch.tensor(1e6, device=dev)
+    return ICPResult(
+        transformation=T if enough else initial_T,
+        error=error_out,
+        iterations=torch.tensor(i if enough else 0, dtype=torch.int32, device=dev),
+        has_converged=torch.tensor(
+            enough and bool(error_out < config.acceptable_mean_error), device=dev
+        ),
+        n_correspondences=n_corr0,
+        pair_overflow=torch.zeros((), dtype=torch.bool, device=dev),
+        det_min=torch.zeros((), dtype=torch.float32, device=dev),
+    )
 
 
 def icp_align(

@@ -40,7 +40,7 @@ import torch
 
 from slam_sensor_fusion_tpu_torch.ops import cuda_lib
 from slam_sensor_fusion_tpu_torch.ops import geometry
-from slam_sensor_fusion_tpu_torch.ops.icp import ICPResult
+from slam_sensor_fusion_tpu_torch.ops.icp import ICPResult, _icp_xla
 from slam_sensor_fusion_tpu_torch.ops.morton import tile_bboxes
 from slam_sensor_fusion_tpu_torch.ops.nn_gated import pair_tiles
 from slam_sensor_fusion_tpu_torch.ops.nn_pallas import (
@@ -467,7 +467,7 @@ def fused_inputs(
     if M % TM or N % TN:
         raise ValueError(
             f"icp_align_fused: source {M} / target {N} points are not multiples of "
-            f"the tiles {TM} / {TN} (the dense fallback is not ported)"
+            f"the tiles {TM} / {TN}"
         )
     nSt = M // TM
     search_r2 = (math.sqrt(config.max_correspondence_dist_sq) + config.reassoc_margin) ** 2
@@ -502,10 +502,12 @@ def icp_align_fused(
 ) -> ICPResult:
     """Fresh-correspondence point-to-point ICP in one K3 launch.
 
-    Capacities must be multiples of the tiles (the JAX function falls back
-    to its dense XLA ICP otherwise; the port has no dense ICP and raises).
-    Passing `cached_target` (build_cached_target) skips the target page and
-    bbox construction — the pipeline caches it per re-crop."""
+    Capacities that are not multiples of the tiles fall back to the dense
+    ICP (ops/icp._icp_xla), as the JAX function does. Passing
+    `cached_target` (build_cached_target) skips the target page and bbox
+    construction — the pipeline caches it per re-crop."""
+    if source.shape[0] % config.tile_src or target.shape[0] % config.tile_tgt:
+        return _icp_xla(source, source_mask, target, target_mask, initial_T, config)
     core, shift, pair_overflow = fused_inputs(
         source, source_mask, target, target_mask, initial_T, config, cached_target
     )

@@ -171,30 +171,37 @@ def _jtj_from_tri(tri: torch.Tensor) -> torch.Tensor:
     return tri[_tri_lanes(tri.device)]
 
 
-def _gn_drive_plain(T0, src_pages, matched, config: PointToPlaneConfig):
-    """The GN iterations + the trailing stats pass + output packing.
-    `matched(R, t)` gives the matched set (d2, qn) of a pass: a fresh
-    association, or the set held fixed. Returns (T_out (4, 4), stats
-    (1, 128) = [rmse, W, iters, 21 damped JtJ, wr2, 0...])."""
-    dev = src_pages.device
-    damp = torch.zeros(21, dtype=torch.float32, device=dev)
+def _damped(tot: torch.Tensor, config: PointToPlaneConfig) -> torch.Tensor:
+    """The 21 JtJ lanes of the moments with the damping on the diagonal
+    (added after the reduction)."""
+    damp = torch.zeros(21, dtype=torch.float32, device=tot.device)
     damp[_DIAG_LANES] = config.damping
+    return tot[:21] + damp
 
-    def moments(R, t):
-        tot = _gn_moments_plain(src_pages, R, t, *matched(R, t), config)
-        # damping goes on the diagonal after the reduction
-        return tot[:21] + damp, tot[21:27], tot[27], tot[28]
 
-    R, t = T0[:3, :3], T0[:3, 3]
+def _gn_passes_plain(R, t, src_pages, matched, config: PointToPlaneConfig):
+    """The GN iterations from (R, t), then the trailing stats pass.
+    `matched(R, t)` gives the matched set (d2, qn) of a pass: a fresh
+    association, or the set held fixed. Returns (R, t, the stats pass's 29
+    UNDAMPED moments)."""
     for _ in range(config.num_iterations):
-        tri, b, W, _ = moments(R, t)
-        x = torch.stack(_chol6_solve(_jtj_from_tri(tri), b))
+        tot = _gn_moments_plain(src_pages, R, t, *matched(R, t), config)
+        x = torch.stack(_chol6_solve(_jtj_from_tri(_damped(tot, config)), tot[21:27]))
         # a starved frame must not step
-        step = -x * (W >= 3.0).float()
+        step = -x * (tot[27] >= 3.0).float()
         R_step, t_step = _se3_exp_taylor(step[:3], step[3:])
         R_step = _polar_polish(R_step)
         R, t = _mm3(R_step, R), _mv3(R_step, t) + t_step
-    tri, _, W, wr2 = moments(R, t)
+    return R, t, _gn_moments_plain(src_pages, R, t, *matched(R, t), config)
+
+
+def _gn_drive_plain(T0, src_pages, matched, config: PointToPlaneConfig):
+    """The GN iterations + the trailing stats pass + output packing.
+    Returns (T_out (4, 4), stats (1, 128) = [rmse, W, iters, 21 damped JtJ,
+    wr2, 0...])."""
+    dev = src_pages.device
+    R, t, tot = _gn_passes_plain(T0[:3, :3], T0[:3, 3], src_pages, matched, config)
+    tri, W, wr2 = _damped(tot, config), tot[27], tot[28]
     rmse = torch.sqrt(wr2 / torch.clamp(W, min=1.0))
     stats = torch.zeros((1, 128), dtype=torch.float32, device=dev)
     stats[0, 0] = rmse

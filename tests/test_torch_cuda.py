@@ -9,7 +9,10 @@ same first-min rule); K1 and K3 to 3e-4 on poses and state, 1e-3 on the
 ICP error, with EQUAL iteration and correspondence counts (the moment sums
 are reduced in another order). K4 and K6 agree to 3e-4 on T and 1e-4
 relative on rmse, wr2 and the JtJ lanes with EQUAL n_correspondences; K5's
-d2 to 1e-6 relative with EQUAL matched pages."""
+d2 to 1e-6 relative with EQUAL matched pages. K4, K5 and K6 give the same
+bits as before their device functions moved into csrc/p2p_fused.cuh. K7 to
+3e-4 on poses and state, 1e-4 of max|P| on P, 1e-4 relative on the stats
+lanes with EQUAL n_correspondences, GPS acceptance and slack flags."""
 
 import dataclasses
 import math
@@ -18,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from slam_sensor_fusion_tpu_torch.ops import lio_superblock_fused as tsb
 from slam_sensor_fusion_tpu_torch.ops import p2p_fused as tpf
 from slam_sensor_fusion_tpu_torch.ops.icp_fused import _fused_core, _fused_core_plain
 from slam_sensor_fusion_tpu_torch.ops.morton import sort_points_numpy, tile_bboxes
@@ -33,7 +37,14 @@ from slam_sensor_fusion_tpu_torch.ops.superblock_fused import (
     superblock_fine,
     superblock_fine_plain,
 )
-from torch_lio_world import p2p_core_inputs, p2p_scene
+from torch_lio_world import (
+    BENCH_LIO,
+    ODD_LIO,
+    k7_case,
+    p2p_core_inputs,
+    p2p_digest,
+    p2p_scene,
+)
 from torch_world import (  # noqa: F401
     K3_CONFIG,
     build_world,
@@ -207,3 +218,56 @@ def test_p2p_empty_pair_list_returns_prior(cuda_device):
     assert stats[0, 1] == 0 and stats_p[0, 1] == 0
     d2, qn = tpf._p2p_associate(*core)
     assert (d2 > 1e37).all() and (qn == 0).all()
+
+
+#: `p2p_digest` of K4, K5 and K6 as built before their device functions
+#: moved into csrc/p2p_fused.cuh (NVIDIA H100 80GB HBM3)
+P2P_DIGEST = "fe9b69ff3a2114e57bd6f478c916440175859294bc76ae9359ef0d60a2250539"
+
+
+def test_p2p_kernels_unchanged_by_the_header_move(cuda_device):
+    assert p2p_digest(cuda_device) == P2P_DIGEST
+
+
+K7_SHAPES = {"bench": (BENCH_LIO, 10, 1000), "odd": (ODD_LIO, 7, 50)}
+
+
+@pytest.mark.parametrize("shape", ["bench", "odd"])
+def test_lio_superblock_kernel_matches_plain(cuda_device, shape):
+    """K7 against its plain version on one block: 16 frames of 10 IMU
+    samples at the LIO bench's width, and an odd shape (3 frames of 7
+    samples, source tiles of 96, target tiles of 200, fresh
+    correspondences, the constant measurement covariance)."""
+    config, imu_rate, min_corr = K7_SHAPES[shape]
+    args, params = k7_case(config, cuda_device, imu_rate=imu_rate)
+    before = tsb.lio_superblock.launches
+    got = tsb.lio_superblock(*args, params)
+    want = tsb.lio_superblock_plain(*args, params)
+    torch.cuda.synchronize()
+    assert tsb.lio_superblock.launches == before + 1
+    (poses, stats, pose, v, bg, ba, P), (poses_p, stats_p, pose_p, v_p, bg_p, ba_p, P_p) = got, want
+    for a, b in [(poses, poses_p), (pose, pose_p), (v, v_p), (bg, bg_p), (ba, ba_p)]:
+        torch.testing.assert_close(a, b, rtol=0, atol=3e-4)
+    torch.testing.assert_close(P, P_p, rtol=0, atol=1e-4 * P_p.abs().max().item())
+    for lane in (1, 2, 4):
+        assert torch.equal(stats[:, lane], stats_p[:, lane]), lane
+    for lane in (0, 3, 5, 6, 7, 8):
+        torch.testing.assert_close(stats[:, lane], stats_p[:, lane], rtol=1e-4, atol=1e-6)
+    assert torch.equal(stats[:, 9:], torch.zeros_like(stats[:, 9:]))
+    assert stats_p[:, 1].min() >= min_corr
+
+
+def test_lio_superblock_skips_padding_frames(cuda_device):
+    """Trailing invalid frames carry the state over and report zeros, on
+    the card as in the plain version."""
+    args, params = k7_case(ODD_LIO, cuda_device, imu_rate=7)
+    args = list(args)
+    args[3] = torch.tensor([True, False, False], device=cuda_device)
+    got = tsb.lio_superblock(*args, params)
+    want = tsb.lio_superblock_plain(*args, params)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=3e-4)
+    assert torch.equal(got[0][1], got[0][0]) and torch.equal(got[0][2], got[0][0])
+    assert torch.equal(got[2], got[0][0])
+    assert (got[1][1:] == 0).all() and (want[1][1:] == 0).all()
+    torch.testing.assert_close(got[6], want[6], rtol=0, atol=1e-4 * want[6].abs().max().item())

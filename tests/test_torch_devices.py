@@ -29,6 +29,7 @@ EXPECTED = {
     "models.session.LocalizerSession",
     "ops.cloud.from_numpy",
     "ops.stochastic_filter.init_state",
+    "parallel.lio_fleet.fleet_init",
     "utils.convert.paged_frames_from_numpy",
     "utils.convert.state_from_numpy",
 }

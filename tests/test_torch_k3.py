@@ -145,6 +145,6 @@ def test_fused_core_rejects_malformed_inputs():
     with pytest.raises(ValueError, match="T0_rebased"):
         tif._fused_core(*bad, CFG)
     with pytest.raises(ValueError, match="not multiples of the tiles"):
-        tif.icp_align_fused(torch.zeros(300, 3), torch.ones(300, dtype=torch.bool),
+        tif.fused_inputs(torch.zeros(300, 3), torch.ones(300, dtype=torch.bool),
                             torch.zeros(512, 3), torch.ones(512, dtype=torch.bool),
                             torch.eye(4), CFG)

@@ -37,7 +37,8 @@ SMALL_LIO = LIOConfig(
 )
 
 
-def lio_sequence(n_frames: int, cap: int, seed: int = 0, extent: float = 50.0):
+def lio_sequence(n_frames: int, cap: int, seed: int = 0, extent: float = 50.0,
+                 imu_rate: int = 10):
     """bench.py bench_lio's data at test size: skewed scans (Morton
     pre-sorted with taus riding along), IMU packets, noisy GPS. Returns
     poses (T, 4, 4), v0 (3,), the first frame (scan, mask) and the arrays of
@@ -46,7 +47,7 @@ def lio_sequence(n_frames: int, cap: int, seed: int = 0, extent: float = 50.0):
     rng = np.random.default_rng(seed)
     world = syn.make_world(rng, extent=extent, n_buildings=15, n_poles=40, points_per_m2=24.0)
     poses = syn.make_trajectory(n_frames, speed_per_frame=0.15)
-    gyro, accel, dts = syn.make_imu(poses, gyro_noise=0.0005, accel_noise=0.005)
+    gyro, accel, dts = syn.make_imu(poses, imu_rate=imu_rate, gyro_noise=0.0005, accel_noise=0.005)
     sp = np.zeros((n_frames, cap, 3), np.float32)
     sm = np.zeros((n_frames, cap), bool)
     tp = np.ones((n_frames, cap), np.float32)
@@ -124,3 +125,77 @@ def p2p_core_inputs(scene, config, device="cpu", center=(0.5, -0.3, 0.1)):
         tgt, tmask, nrm, nvalid, torch.tensor(center, device=device), config.tile_tgt
     )
     return tpf.p2p_inputs(src, smask, cached, T0, config)[0]
+
+
+#: bench.py bench_lio's configuration for its `block` loop (one K7 launch a block):
+#: SMALL_LIO's settings at the bench's width, 16-frame blocks, registration
+#: on every 4th scan point (4 source tiles of 512 against 32 target tiles
+#: of 1024)
+BENCH_LIO = SMALL_LIO._replace(
+    scan_capacity=8192, window=16, slot_points=4096, refresh_every=16, reg_subsample=4,
+    max_pairs_factor=64, slack_base=0.1,
+    p2p=SMALL_LIO.p2p._replace(tile_src=512, tile_tgt=1024, assoc_unroll=1),
+)
+
+#: an odd shape for K7: 3-frame blocks of 7 IMU samples, 4 source tiles of
+#: 96 (scan 1152 every 3rd point) against 6 target tiles of 200 (a width the
+#: 16-byte association loads do not take)
+ODD_LIO = SMALL_LIO._replace(
+    scan_capacity=1152, window=3, slot_points=800, refresh_every=3, reg_subsample=3,
+    gate_sub_src=16, gate_sub_tgt=40, icp_cov_mode="constant",
+    p2p=SMALL_LIO.p2p._replace(tile_src=96, tile_tgt=200, fixed_correspondences=False),
+)
+
+
+def k7_case(config, device, imu_rate: int = 10, seed: int = 0):
+    """K7's arguments for the first block of a small world at `config`'s
+    width, through the port's own prologue (anchor refresh, dead
+    reckoning, deskew, pages, pair lists), on `device`; and its params."""
+    from slam_sensor_fusion_tpu_torch.models import lio as tl
+
+    R = config.refresh_every
+    poses, v0, (s0, m0), frames = lio_sequence(R + 1, config.scan_capacity, seed=seed,
+                                               imu_rate=imu_rate)
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    st = tl.init_state(config, up(s0), up(m0), up(poses[0]))
+    st = st._replace(ekf_state=st.ekf_state._replace(v=up(v0)))
+    sp, sm, gy, ac, dt, gp, gv, gok, tau = [up(a) for a in frames]
+    cache = tl._refresh_anchor(st.ring, st.ring_mask, st.ekf_state.p, config)[4]
+    base_r = float(np.sqrt(config.p2p.max_correspondence_dist_sq)) + config.p2p.reassoc_margin
+    ks = torch.arange(R, dtype=torch.float32, device=device)
+    radius2 = (base_r + config.slack_base + config.superstep_slack * ks) ** 2
+    vld = torch.ones(R, dtype=torch.bool, device=device)
+    pred_t, _, src_pages, pairs, _, _ = tl._block_prologue(
+        st, cache, sp, sm, tau, gy, ac, dt, vld, radius2, config)
+    e0 = st.ekf_state
+    args = (*pairs, vld, gy, ac, dt, gp, gv, gok, pred_t, tl.ekf.pose_matrix(e0), e0.v,
+            e0.bg, e0.ba, e0.P, cache.center, src_pages, cache.pages)
+    return args, tl._superblock_params(config)
+
+
+def p2p_digest(device) -> str:
+    """SHA-256 of K4 (fixed and fresh correspondences), K5 and K6's outputs
+    on the scenes of tests/test_torch_cuda.py's K4 tests (the LIO bench's
+    tiles and an odd shape): a kernel that rounds one bit differently
+    changes it."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for M, N, n_tgt, TM, TN in [(8192, 32768, 30000, 512, 1024), (96, 450, 400, 96, 150)]:
+        scene = p2p_scene(7, n_tgt=n_tgt, M=M, N=N, ties=True)
+        for fixed in (True, False):
+            config = tpp.PointToPlaneConfig(
+                num_iterations=2, tile_src=TM, tile_tgt=TN, max_visits=64, reassoc_margin=0.15,
+                nn_backend="fused", fixed_correspondences=fixed,
+            )
+            core = p2p_core_inputs(scene, config, device)
+            outs = list(tpf._p2p_core(*core, config))
+            if fixed:
+                d2, qn = tpf._p2p_associate(*core)
+                outs += [d2, qn, *tpf._p2p_gn_corr(core[5], core[0], d2, qn, config)]
+            for x in outs:
+                h.update(x.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
