@@ -10,7 +10,10 @@ check exits non-zero:
   0. device: a CUDA device must exist; prints nvidia-smi's name and power
      limit of the card;
   1. build: compiles the CUDA kernels from the checkout's sources
-     (slam_sensor_fusion_tpu_torch/csrc) and reports the seconds;
+     (slam_sensor_fusion_tpu_torch/csrc) and reports the seconds, ptxas's
+     registers and spills, and the cooperative grids of K1 and K4 at the
+     main paths' tiles (blocks, threads, blocks a multiprocessor holds;
+     at least 16 blocks);
   2. kernel against plain PyTorch at the main path's shapes, on inputs
      taken from the smoke world: K2 (pair-list NN) at the startup rescue's
      size, K1 (whole-superblock fine loop) on the first real superblock;
@@ -20,7 +23,10 @@ check exits non-zero:
      then build_paged_frames -> run_chunk_fast twice from the post-startup
      state (32 superblocks each, one K1 launch per superblock). Requires
      zero pair-overflow and slack-violation frames, finite poses,
-     ATE-RMSE < 0.1 m, and the launch counts the path implies.
+     ATE-RMSE < 0.1 m, and the launch counts the path implies. A third
+     pass runs under torch.profiler: K1's mean ms a steady-state
+     superblock, its share of device time and the device's idle share
+     (CUDA events around the launches if the profiler sees no device time).
   4. the online path at bench.py bench_latency's configuration (120 m
      world, 144 frames, scan 4096, cropped map 65 536, tile_src 512, fast
      ICP, block_kernel=False): LocalizerSession.push over every frame (one
@@ -71,7 +77,8 @@ and read after it.
 
 The line before the last is the kernels' JSON record (time, plain time,
 error against plain, launches on the main paths, and the least time the
-card could take for the same work); the last line is
+card could take for the same work; K1 also its steady-state time and K4
+its fresh-correspondence times, both their grids); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -118,6 +125,8 @@ FLOP_PER_EKF_PRODUCT = 2 * 16**3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 FLOP_PER_DISTANCE = 8  # 3 differences, 3 products, 2 sums
+#: K1 and K4 must spread each association over at least this many SMs
+MIN_GRID_BLOCKS = 16
 
 
 def fail(msg: str) -> None:
@@ -528,6 +537,54 @@ def push_args(seq, i):
             float(seq.gps_cov_trace[i]))
 
 
+def profile_pass(run, pf, n_blocks: int, pass_s: float, tag: str) -> float:
+    """One more steady pass of the superblock main path under
+    torch.profiler: prints K1's mean ms a launch, its share of the device
+    time and the device's idle share against `pass_s`, the last timed
+    pass's seconds. Where the profiler records no device time, K1 is timed
+    with CUDA events around each launch instead. Returns K1's ms a launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    on_dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in on_dev) / 1e3
+    k1 = [e for e in on_dev if "superblock_kernel" in e.key]
+    k1_total = sum(e.self_device_time_total for e in k1) / 1e3
+    k1_n = sum(e.count for e in k1)
+    if busy > 0 and k1_n == n_blocks:
+        pass_ms = pass_s * 1e3
+        print(f"superblock profile, one pass: K1 {k1_total / k1_n:.3f} ms a launch over {k1_n} "
+              f"launches, {100 * k1_total / busy:.1f}% of device time; device busy {busy:.3f} ms "
+              f"of the last timed pass's {pass_ms:.3f} ms (idle {100 - 100 * busy / pass_ms:.1f}%); "
+              f"{sum(e.count for e in on_dev)} device operations [{tag}]", flush=True)
+        return k1_total / k1_n
+    # no device time under the profiler: CUDA events around each K1 launch
+    inner, times = pf.superblock_fine, []
+
+    def timed(*args):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = inner(*args)
+        b.record()
+        times.append((a, b))
+        return out
+
+    pf.superblock_fine = timed
+    try:
+        run()
+    finally:
+        pf.superblock_fine = inner
+    torch.cuda.synchronize()
+    ms = float(np.mean([a.elapsed_time(b) for a, b in times]))
+    print(f"superblock profile: the profiler recorded no device time; K1 {ms:.3f} ms a launch "
+          f"over {len(times)} launches (CUDA events); device idle share not measured [{tag}]",
+          flush=True)
+    return ms
+
+
 def zero_counts(*kernels) -> None:
     for k in kernels:
         k.launches = 0
@@ -571,6 +628,8 @@ def main() -> None:
         superblock_fine,
         superblock_fine_plain,
     )
+    from slam_sensor_fusion_tpu_torch.ops.superblock_fused import kernel_grid as sb_grid
+    from torch.profiler import ProfilerActivity, profile
 
     kernels = (superblock_fine, pair_nn, _fused_core,
                p2p._p2p_core, p2p._p2p_associate, p2p._p2p_gn_corr, lio_superblock)
@@ -583,14 +642,26 @@ def main() -> None:
     for line in cuda_lib.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+    # K1 and K4 are cooperative grids: their launch shape at the main
+    # paths' tiles (bench_loc's 4 x 1024 source, 512-row target tiles;
+    # bench_lio's 16 x 512 source tiles)
+    config, lcfg = bench_config(), lio_config()
+    grids = {
+        "K1": sb_grid(config.capacity.cropped_scan // config.icp.tile_src, config.icp.tile_src,
+                      config.icp.tile_tgt),
+        "K4": p2p.kernel_grid(lcfg.scan_capacity // lcfg.p2p.tile_src, lcfg.p2p.tile_src),
+    }
+    for label, g in grids.items():
+        print(f"  grid: {label} {g['blocks']} blocks of {g['threads']} threads, one on each "
+              f"multiprocessor (a multiprocessor could hold {g['per_sm']}) [{tag}]", flush=True)
+        if g["blocks"] < MIN_GRID_BLOCKS:
+            fail(f"{label}: a grid of {g['blocks']} blocks spans fewer than {MIN_GRID_BLOCKS} SMs")
 
     # ---- worlds (host set-up: phases 2-3 and phases 2, 4-5) ----
     t0 = time.perf_counter()
-    config = bench_config()
     seq, map_data = build_world(N_FRAMES)
     scfg = session_config()
     sseq, smap = build_session_world(SESSION_FRAMES)
-    lcfg = lio_config()
     lposes, lv0, lsp, lsm, ltp, lgyro, laccel, ldts, lgps = build_lio_world(
         LIO_FRAMES, lcfg.scan_capacity)
     print(f"set-up worlds: {time.perf_counter() - t0:.1f} s, map points {map_data.map_points.shape[0]} "
@@ -840,8 +911,12 @@ def main() -> None:
     record("superblocks")
     if pair_nn.launches < 1:
         fail("K2 never launched on the main path")
+    k1_steady_ms = profile_pass(
+        lambda: pf.run_chunk_fast(state, frames, loc.map_cloud, config), pf, n_blocks, T / rate,
+        tag)
     print(f"phase 3 main path: {time.perf_counter() - t0:.1f} s (startup {t_start_path:.1f} s); "
-          f"launches K1 {superblock_fine.launches}, K2 {pair_nn.launches}; scans/s (pass 1) "
+          f"launches K1 {launches[superblock_fine]['superblocks']}, K2 "
+          f"{launches[pair_nn]['superblocks']} (before the profiled pass); scans/s (pass 1) "
           f"{rate:.1f} [{tag}]", flush=True)
 
     # ---- 4. the online path: LocalizerSession (K3 a push), then
@@ -1000,8 +1075,6 @@ def main() -> None:
 
     # where a frame's time goes: one block from the warmed-up state under
     # the profiler (kernel time by name, launches, the device's idle share)
-    from torch.profiler import ProfilerActivity, profile
-
     nb = lcfg.refresh_every
     blk = [a[w:w + nb] for a in larrays]
     torch.cuda.synchronize()
@@ -1214,18 +1287,19 @@ def main() -> None:
             fail(f"{kernel.__name__} never launched on a main path")
     print(f"total {time.perf_counter() - t_start:.1f} s [{tag}]", flush=True)
 
-    def row(kernel, label, source, replaces, err, ms, plain_ms, bnd):
+    def row(kernel, label, source, replaces, err, ms, plain_ms, bnd, **extra):
         by_path = {p: c for p, c in launches[kernel].items() if c}
         return {"name": label, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None, **extra}
 
     print(json.dumps({"kernels": [
         row(superblock_fine, "K1 superblock_fine",
             "slam_sensor_fusion_tpu_torch/csrc/superblock_fused.cu",
             "slam_sensor_fusion_tpu/ops/superblock_fused.py:105",
-            k1_err, k1_ms, k1_plain_ms, k1_bound),
+            k1_err, k1_ms, k1_plain_ms, k1_bound, ms_steady_superblock=k1_steady_ms,
+            grid=grids["K1"]),
         row(pair_nn, "K2 pair_nn", "slam_sensor_fusion_tpu_torch/csrc/nn_pallas.cu",
             "slam_sensor_fusion_tpu/ops/nn_pallas.py:105", k2_err, k2_ms, k2_plain_ms, k2_bound),
         row(_fused_core, "K3 icp_fused", "slam_sensor_fusion_tpu_torch/csrc/icp_fused.cu",
@@ -1233,7 +1307,8 @@ def main() -> None:
             k3_plain_ms, k3_bound),
         row(p2p._p2p_core, "K4 p2p_fused", "slam_sensor_fusion_tpu_torch/csrc/p2p_fused.cu",
             "slam_sensor_fusion_tpu/ops/p2p_fused.py:210", max(k4_err, k4f_err), k4_ms,
-            k4_plain_ms, k4_bound),
+            k4_plain_ms, k4_bound, ms_fresh=k4f_ms, plain_ms_fresh=k4f_plain_ms,
+            bound_ms_fresh=k4f_bound[0], grid=grids["K4"]),
         row(p2p._p2p_associate, "K5 p2p_associate",
             "slam_sensor_fusion_tpu_torch/csrc/p2p_fused.cu",
             "slam_sensor_fusion_tpu/ops/p2p_fused.py:510", k5_err, k5_ms, k5_plain_ms, k5_bound),

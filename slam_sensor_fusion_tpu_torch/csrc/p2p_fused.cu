@@ -24,32 +24,43 @@
 // issue. One pass walks every source tile's admitted target tiles, TM x TN
 // direct-difference distances a pair (8 float operations and a compare
 // each); at the LIO bench's shapes (16 source tiles of 512, target tiles of
-// 1024, up to 256 pairs) that is ~10^8 distances a pass. K4 issues them from
-// ONE SM: GN is a serial chain of passes around block-wide sums, and one
-// block a launch is the simple, correct first design (1 of 132 SMs). K5 has
-// no sums, so its launcher spreads the source tiles over blocks. K6 has no
-// distances: it reads 10 floats a point a pass and is bound by its bytes and
-// the latency of its serial scalar tail. Bytes never limit K4/K5: the target
-// pages (32 x 24 KiB) stay in L2 and a warp reads one target row at a time
-// as a broadcast.
+// 1024, up to 256 pairs) that is ~10^8 distances a pass. GN around it is a
+// serial chain of passes around block-wide sums. K6 has no distances: it
+// reads 10 floats a point a pass and is bound by its bytes and the latency
+// of its serial scalar tail. Bytes never limit K4/K5: the target pages
+// (32 x 24 KiB) stay in L2 and a warp reads one target row at a time as a
+// broadcast.
 //
-// Design: a block of TM x G threads, G = min(nSt, 1024 / TM) groups; group g
-// owns source tiles g, g + G, ... and thread r of a group owns point r of
-// each of them. The matched set (7 floats a point: 224 KiB at 16 tiles of
-// 512) is more than an SM's shared memory, so it lives in global buffers the
-// wrapper allocates, in K5's output layout (d2 (nSt, 1, TM), qn (nSt, 6,
-// TM)); each thread reads and writes only its own points, so it needs no
-// barrier, and the buffers stay in L2. The association is icp_fused.cuh's
-// `nearest_first` (K3's, with 6-row pages): first row within a tile, earlier
-// tile across tiles. The 29 moment sums go through the fixed-order block
-// reduction (no atomics: deterministic); the scalar tail (damping, Cholesky,
-// starve guard, Taylor exp, polish, composition) runs on thread 0 in the
-// JAX kernel's operation order, and the library builds with -fmad=false, so
-// products and sums round op by op as in the plain versions
-// (`_p2p_core_plain`, `_p2p_associate_plain`, `_p2p_gn_corr_plain`).
+// Design. K4 is a persistent cooperative grid, one block on each SM
+// (grid_assoc.cuh). Block 0, the leader, keeps the one-block layout of the
+// first port: TM x G threads, G = min(nSt, 1024 / TM); group g owns source
+// tiles g, g + G, ... and thread r of a group owns point r of each of them.
+// The matched set (7 floats a point: 224 KiB at 16 tiles of 512) is more
+// than an SM's shared memory, so it lives in global buffers the wrapper
+// allocates, in K5's output layout (d2 (nSt, 1, TM), qn (nSt, 6, TM)). Each
+// association is a round over the grid: every other block's G groups take
+// (source tile, pair slot) items and run icp_fused.cuh's `nearest_first`
+// (K3's, with 6-row pages) on the slot's one tile, writing the tile's best
+// d2 and first winning row to per-slot scratch; the leader then combines
+// each point's slots in order under a strict `<` (first row within a tile,
+// earlier tile across tiles, as the one-block walk) into the matched set.
+// With fixed correspondences that is one round at the prior followed by
+// p2p_fused.cuh's `gn_passes`; with fresh ones K4 runs gn_passes' order
+// itself with a round in every pass. The 29 moment sums go through the
+// fixed-order block reduction (no atomics: deterministic); the scalar tail
+// (damping, Cholesky, starve guard, Taylor exp, polish, composition) runs
+// on thread 0 in the JAX kernel's operation order, and the library builds
+// with -fmad=false, so products and sums round op by op as in the plain
+// versions (`_p2p_core_plain`, `_p2p_associate_plain`,
+// `_p2p_gn_corr_plain`) and K4's outputs equal the one-block kernel's bit
+// for bit. K5 has no sums: its launcher spreads the source tiles over
+// blocks with `associate`. K6 is `gn_passes` on one block.
 #include <cuda_runtime.h>
 
+#include "grid_assoc.cuh"
 #include "p2p_fused.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -73,6 +84,53 @@ __device__ void pack_outputs(const Shared& S, const P2PParams& prm, float* T_out
   for (int m = 25; m < 128; ++m) stats[m] = 0.0f;
 }
 
+// This worker's items of the round under the published (R, t): group h of
+// worker w takes items h * workers + w, + G * workers, ...;
+// for item (tile i, slot s) thread r scans target tile pt[s] for its point
+// r of tile i and writes the tile's best d2 and winning row (-1: none
+// below kBig) to slot_d2 / slot_row[s].
+__device__ void scan_items(const Tiles& T, const sfk::grid::Ctl* ctl, float* slot_d2,
+                           int* slot_row) {
+  const sfk::grid::Pose X = sfk::grid::read_pose(ctl);
+  const int TM = T.TM;
+  const int r = threadIdx.x % TM;
+  const int workers = sfk::grid::n_workers();
+  const int units = workers * (blockDim.x / TM);
+  const int n = sfk::grid::n_items(T.pc, T.nSt);
+  for (int j = (threadIdx.x / TM) * workers + sfk::grid::worker(); j < n; j += units) {
+    int s;
+    const int i = sfk::grid::item_at(j, T.ps, T.pc, &s);
+    const float* sp = T.src + (size_t)i * 3 * TM;
+    const float px = sp[r], py = sp[TM + r], pz = sp[2 * TM + r];
+    const float sx = X.R[0] * px + X.R[1] * py + X.R[2] * pz + X.t[0];
+    const float sy = X.R[3] * px + X.R[4] * py + X.R[5] * pz + X.t[1];
+    const float sz = X.R[6] * px + X.R[7] * py + X.R[8] * pz + X.t[2];
+    const float* win;
+    slot_d2[(size_t)s * TM + r] =
+        sfk::nearest_first<6>(T.tgt, T.pt, s, 1, T.TN, sx, sy, sz, &win);
+    slot_row[(size_t)s * TM + r] =
+        win ? (int)(win - (T.tgt + (size_t)T.pt[s] * 6 * T.TN)) : -1;
+  }
+}
+
+// The leader's combine of a round into the matched set, in its layout
+// (group g: tiles g, g + G, ...; thread r: point r), which is the layout
+// `moments` reads, so no barrier follows.
+__device__ void combine(const Tiles& T, const float* slot_d2, const int* slot_row) {
+  const int TM = T.TM;
+  const int r = threadIdx.x % TM;
+  for (int i = threadIdx.x / TM; i < T.nSt; i += blockDim.x / TM) {
+    int w;
+    T.d2[(size_t)i * TM + r] = sfk::grid::combine(slot_d2 + r, TM, T.ps[i], T.pc[i], &w);
+    const float* win =
+        w < 0 ? nullptr
+              : T.tgt + (size_t)T.pt[w] * 6 * T.TN + __ldcg(slot_row + (size_t)w * TM + r);
+    float* o = T.qn + (size_t)i * 6 * TM + r;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) o[k * TM] = win ? win[k * T.TN] : 0.0f;
+  }
+}
+
 __global__ void __launch_bounds__(1024, 1) p2p_fused_kernel(
     const float* __restrict__ src_pages,  // (nSt, 3, TM)
     const float* __restrict__ tgt_pages,  // (nTt, 6, TN)
@@ -84,15 +142,39 @@ __global__ void __launch_bounds__(1024, 1) p2p_fused_kernel(
     float* __restrict__ stats,            // (128,)
     float* __restrict__ best_d2,          // (nSt, 1, TM) scratch
     float* __restrict__ best_qn,          // (nSt, 6, TM) scratch
+    float* slot_d2,                       // (max_pairs, TM) rounds' winners by slot
+    int* slot_row,                        // (max_pairs, TM)
+    sfk::grid::Ctl* ctl,                  // the leader's published round
     int nSt, int TM, int TN, P2PParams prm) {
-  __shared__ float red[kNMom * 32];
-  __shared__ Shared S;
+  const cg::grid_group g = cg::this_grid();
   const Tiles T{src_pages, tgt_pages, pair_start, pair_cnt, pair_tgt,
                 best_d2, best_qn, nSt, TM, TN};
+  if (blockIdx.x != 0) {  // a worker: serve the leader's association rounds
+    sfk::grid::serve(g, ctl, [&] { scan_items(T, ctl, slot_d2, slot_row); });
+    return;
+  }
+  __shared__ float red[kNMom * 32];
+  __shared__ Shared S;
   if (threadIdx.x == 0) sfk::read44(T0, S.R, S.t);
   __syncthreads();
-  if (prm.fixed) sfk::p2p::associate(S.R, S.t, T, threadIdx.x / TM, blockDim.x / TM);
-  sfk::p2p::gn_passes(S, T, prm, !prm.fixed, red);
+  auto associate = [&] {
+    sfk::grid::lead_round(g, ctl, 0, S.R, S.t);
+    combine(T, slot_d2, slot_row);
+  };
+  if (prm.fixed) {
+    associate();
+    sfk::p2p::gn_passes(S, T, prm, false, red);
+  } else {  // gn_passes' order (p2p_fused.cuh) with a round in every pass
+    for (int it = 0; it <= prm.num_iterations; ++it) {
+      associate();
+      sfk::p2p::moments(S, T, prm, red);
+      if (it < prm.num_iterations) {
+        if (threadIdx.x == 0) sfk::p2p::gn_step(S, prm.damping);
+        __syncthreads();
+      }
+    }
+  }
+  sfk::grid::dismiss(g, ctl);
   if (threadIdx.x == 0) pack_outputs(S, prm, T_out, stats);
 }
 
@@ -145,13 +227,30 @@ inline bool bad_tiles(int nSt, int TM) {
 extern "C" int sfk_p2p_fused(const float* src_pages, const float* tgt_pages,
                              const int* pair_start, const int* pair_cnt,
                              const int* pair_tgt, const float* T0, float* T_out,
-                             float* stats, float* best_d2, float* best_qn, int nSt,
-                             int TM, int TN, const P2PParams* prm, cudaStream_t stream) {
+                             float* stats, float* best_d2, float* best_qn, float* slot_d2,
+                             int* slot_row, void* ctl, int nSt, int TM, int TN,
+                             const P2PParams* prm, cudaStream_t stream) {
   if (bad_tiles(nSt, TM)) return (int)cudaErrorInvalidValue;
-  p2p_fused_kernel<<<1, TM * groups(nSt, TM), 0, stream>>>(
-      src_pages, tgt_pages, pair_start, pair_cnt, pair_tgt, T0, T_out, stats, best_d2,
-      best_qn, nSt, TM, TN, *prm);
+  const int threads = TM * groups(nSt, TM);
+  int blocks, per_sm;
+  cudaError_t e = sfk::grid::grid_size((const void*)p2p_fused_kernel, threads, 0, &blocks, &per_sm);
+  if (e != cudaSuccess) return (int)e;
+  sfk::grid::Ctl* c = static_cast<sfk::grid::Ctl*>(ctl);
+  P2PParams p = *prm;
+  void* args[] = {&src_pages, &tgt_pages, &pair_start, &pair_cnt, &pair_tgt, &T0, &T_out, &stats,
+                  &best_d2, &best_qn, &slot_d2, &slot_row, &c, &nSt, &TM, &TN, &p};
+  e = cudaLaunchCooperativeKernel((const void*)p2p_fused_kernel, dim3(blocks), dim3(threads),
+                                  args, 0, stream);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// K4's cooperative grid for these tiles: blocks, threads a block and the
+// blocks a multiprocessor could hold.
+extern "C" int sfk_p2p_grid(int nSt, int TM, int* blocks, int* threads, int* per_sm) {
+  if (bad_tiles(nSt, TM)) return (int)cudaErrorInvalidValue;
+  *threads = TM * groups(nSt, TM);
+  return (int)sfk::grid::grid_size((const void*)p2p_fused_kernel, *threads, 0, blocks, per_sm);
 }
 
 extern "C" int sfk_p2p_associate(const float* src_pages, const float* tgt_pages,

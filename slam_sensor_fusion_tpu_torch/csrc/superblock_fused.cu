@@ -11,30 +11,40 @@
 // What bounds it on an H100: association. Per ICP association a frame visits
 // ~nSt x (admitted target tiles) pairs of TM x TN direct-difference
 // distances, each ~20 float instructions with the tie bookkeeping; at bench
-// shapes (TM = 1024, TN = 512) that is on the order of 10^8 distances per
-// association, issued by ONE SM. The target pages (128 x 6 KiB) stay in L2,
-// so bytes are not the limit; the frame chain is serial (each prior depends
-// on the last frame's ICP), so one block per superblock is the simple,
-// correct first design and uses 1 of 132 SMs. Spreading a superblock over a
-// cluster of blocks, double-buffered TMA page loads and many sequences per
-// launch are the levers for later.
+// shapes (4 source tiles of 1024, 17-45 admitted pairs a frame, TN = 512)
+// that is 0.9-2.4 x 10^7 distances an association, and a superblock runs
+// 8-25 associations. The target pages (128 x 6 KiB) stay in L2, so bytes
+// are not the limit; float instructions are, and the frame chain around
+// them is serial (each prior depends on the last frame's ICP).
+// The first port ran it all in ONE block, on 1 of 132 SMs.
 //
-// Design: one block of TM threads. Thread r owns point r of every source
-// tile: its sensor-frame coordinates, matched target coordinates and alive
-// flag stay in registers (NST x 7 floats). For each admitted target tile the
-// block stages the page into shared memory as float4 and every thread scans
-// it, tracking the tile minimum and the SUM and COUNT of coordinates of rows
-// that tie it exactly: K1 averages exact ties within a tile
-// (superblock_fused.py:199-216), unlike K2 and K3, which take the first row.
-// Across tiles a strict `<` keeps the earlier tile. The 17 moment sums are a
-// fixed-order block reduction (warp shuffles, then warps in order; no
-// atomics), so runs are deterministic. The scalar chain (prediction, blend,
-// filter, Kabsch solve by Newton polar, state selects) runs on thread 0 and
-// is broadcast through shared memory. Built with -fmad=false: the distance
-// expressions and moment products round as in the plain PyTorch version.
+// Design: a persistent cooperative grid, one block of TM threads on each SM
+// (grid_assoc.cuh). Block 0, the leader, keeps the one-block layout: thread
+// r owns point r of every source tile, its sensor-frame coordinates,
+// matched target coordinates and alive flag in registers (NST x 7 floats);
+// the 17 moment sums are a fixed-order block reduction (warp shuffles, then
+// warps in order; no atomics); the scalar chain (prediction, blend, filter,
+// Kabsch solve by Newton polar, state selects) runs on thread 0 and is
+// broadcast through shared memory. Each association is a round over the
+// grid: the leader publishes (R, t) and the frame, every block takes
+// (source tile, pair slot) items, cut into chunks of source rows so that a
+// round's ~17-45 items fill the 132 blocks, stages the slot's target page
+// in shared memory as float4 and scans it for its rows, tracking the tile
+// minimum and the SUM and COUNT of coordinates of rows that tie it exactly:
+// K1 averages exact ties within a tile (superblock_fused.py:199-216),
+// unlike K2 and K3, which take the first row; a chunk never splits a tile's
+// target rows, so the sums run in row order. Each item writes its tile
+// minimum and tie-averaged coordinates to a scratch buffer by slot; after
+// the barrier the leader combines each point's slots in order under a
+// strict `<` (the earlier tile keeps a tie), as the one-block loop did.
+// Built with -fmad=false: the same expressions round the same way, so
+// every output equals the one-block kernel's bit for bit and the plain
+// PyTorch version's to rounding of the moment sums.
 #include <cuda_runtime.h>
 
-#include "icp_fused.cuh"
+#include "grid_assoc.cuh"
+
+namespace cg = cooperative_groups;
 
 constexpr int kQmax = 8;
 constexpr int kNMom = 17;  // W, Ss[3], St[3], Mst[9], Eabs
@@ -73,58 +83,119 @@ struct Points {
   float al[NST];                    // alive / gate weight
 };
 
-// Tile-major association of this thread's points under (R, t), read from
-// shared memory. mode 0: al = (d2 < gate); mode 1: al *= (d2 < gate).
+// What one launch's association rounds read: the frames' source pages and
+// pair lists, the target pages, the per-slot scratch (max_pairs x 4 x TM:
+// tile minimum d2 and tie-averaged x, y, z) and the control block.
+struct Assoc {
+  const float* src;   // (K, nSt, 3, TM)
+  const int* ps;      // (K, nSt)
+  const int* pc;      // (K, nSt)
+  const int* pt;      // (K, max_pairs)
+  const float* tgt;   // (nTt, 3, TN)
+  float* scratch;     // (max_pairs, 4, TM)
+  sfk::grid::Ctl* ctl;
+  int TN, max_pairs;
+  int s_max;  // row chunks an item may be cut into (staging pages a block holds)
+};
+
+// This worker's share of the round the control block describes. A round of
+// n items has fewer items than the grid has workers at the main path's
+// shapes (~17-45 against 131), so each item is cut into P = workers / n
+// chunks of source rows (at most s_max, whole warps of rows), and a
+// worker's TM threads form TM / rows groups, each with its own staging
+// page. Chunk c (worker c % workers, group c / workers) is row chunk c % P
+// of item c / P: for item (tile i, slot s) of frame k, thread r of the
+// chunk transforms its point r of tile i and scans target tile pt[s],
+// staged in shared memory as float4; exact d2 ties of the tile minimum sum
+// their coordinates in row order. Writes the tile minimum and the averaged
+// coordinates to scratch[s]. Every thread of the block runs the same
+// number of trips, so the staging barriers are block-wide.
 template <int NST>
-__device__ void associate(Points<NST>& P, const Frame& F, float4* page,
-                          const int* pair_start, const int* pair_cnt,
-                          const int* pair_tgt, const float* tgt, int TN,
-                          float gate, int mode) {
-  float R[9], t[3];
-#pragma unroll
-  for (int m = 0; m < 9; ++m) R[m] = F.R[m];
-  t[0] = F.t[0]; t[1] = F.t[1]; t[2] = F.t[2];
+__device__ void scan_items(const Assoc& A, float4* page) {
+  const sfk::grid::Pose X = sfk::grid::read_pose(A.ctl);
+  const int k = sfk::grid::read_frame(A.ctl);
   const int TM = blockDim.x;
+  const int* ps = A.ps + k * NST;
+  const int* pc = A.pc + k * NST;
+  const int* pt = A.pt + (size_t)k * A.max_pairs;
+  const int TN = A.TN;
+  const int n = sfk::grid::n_items(pc, NST);
+  const int workers = sfk::grid::n_workers();
+  int P = n > 0 ? workers / n : 1;
+  P = P < 1 ? 1 : (P > A.s_max ? A.s_max : P);
+  const int rows = ((TM + P - 1) / P + 31) / 32 * 32;
+  P = (TM + rows - 1) / rows;
+  const int h = threadIdx.x / rows;  // the thread's group; TM / rows groups
+  const int lr = threadIdx.x % rows;
+  float4* pg = page + h * TN;
+  const int units = workers * (TM / rows);
+  const int chunks = n * P;
+  for (int c0 = 0; c0 < chunks; c0 += units) {
+    const int c = c0 + h * workers + sfk::grid::worker();
+    const int r = (c % P) * rows + lr;
+    const bool have = h < TM / rows && c < chunks;
+    int s = 0, i = 0;
+    if (have) i = sfk::grid::item_at(c / P, ps, pc, &s);
+    const float* tp = A.tgt + (size_t)pt[s] * 3 * TN;
+    __syncthreads();
+    if (have)
+      for (int cc = lr; cc < TN; cc += rows)
+        pg[cc] = make_float4(tp[cc], tp[TN + cc], tp[2 * TN + cc], 0.0f);
+    __syncthreads();
+    if (!have || r >= TM) continue;
+    const float* sp = A.src + ((size_t)k * NST + i) * 3 * TM;
+    const float px = sp[r], py = sp[TM + r], pz = sp[2 * TM + r];
+    const float sx = X.R[0] * px + X.R[1] * py + X.R[2] * pz + X.t[0];
+    const float sy = X.R[3] * px + X.R[4] * py + X.R[5] * pz + X.t[1];
+    const float sz = X.R[6] * px + X.R[7] * py + X.R[8] * pz + X.t[2];
+    float m = INFINITY, cx = 0.0f, cy = 0.0f, cz = 0.0f, cn = 0.0f;
+    // the one-block kernel's `if (d2 < m) reset; else if (d2 == m) add` as
+    // selects of the same values, without its branches
+#pragma unroll 4
+    for (int cc = 0; cc < TN; ++cc) {
+      const float4 p = pg[cc];
+      const float dx = p.x - sx;
+      const float dy = p.y - sy;
+      const float dz = p.z - sz;
+      const float d2 = dx * dx + dy * dy + dz * dz;
+      const bool lt = d2 < m;
+      const bool eq = d2 == m;
+      cx = lt ? p.x : (eq ? cx + p.x : cx);
+      cy = lt ? p.y : (eq ? cy + p.y : cy);
+      cz = lt ? p.z : (eq ? cz + p.z : cz);
+      cn = lt ? 1.0f : (eq ? cn + 1.0f : cn);
+      m = lt ? d2 : m;
+    }
+    const float inv = 1.0f / fmaxf(cn, 1.0f);
+    float* o = A.scratch + (size_t)s * 4 * TM + r;
+    o[0] = m;
+    o[TM] = cx * inv;
+    o[2 * TM] = cy * inv;
+    o[3 * TM] = cz * inv;
+  }
+}
+
+// Tile-major association of the leader's points under (F.R, F.t) for frame
+// k: one round over the grid, then each point's slots combined in order.
+// mode 0: al = (d2 < gate); mode 1: al *= (d2 < gate).
+template <int NST>
+__device__ void associate(const cg::grid_group& g, Points<NST>& P, const Frame& F,
+                          const Assoc& A, int k, float gate, int mode) {
+  sfk::grid::lead_round(g, A.ctl, k, F.R, F.t);
+  const int TM = blockDim.x;
+  const int* ps = A.ps + k * NST;
+  const int* pc = A.pc + k * NST;
+  const float* col = A.scratch + threadIdx.x;
 #pragma unroll
   for (int i = 0; i < NST; ++i) {
-    const float sx = R[0] * P.px[i] + R[1] * P.py[i] + R[2] * P.pz[i] + t[0];
-    const float sy = R[3] * P.px[i] + R[4] * P.py[i] + R[5] * P.pz[i] + t[1];
-    const float sz = R[6] * P.px[i] + R[7] * P.py[i] + R[8] * P.pz[i] + t[2];
-    float best = sfk::kBig, bx = 0.0f, by = 0.0f, bz = 0.0f;
-    const int start = pair_start[i];
-    const int cnt = pair_cnt[i];
-    for (int q = 0; q < cnt; ++q) {
-      const float* tp = tgt + (size_t)pair_tgt[start + q] * 3 * TN;
-      __syncthreads();
-      for (int c = threadIdx.x; c < TN; c += TM)
-        page[c] = make_float4(tp[c], tp[TN + c], tp[2 * TN + c], 0.0f);
-      __syncthreads();
-      float m = INFINITY, cx = 0.0f, cy = 0.0f, cz = 0.0f, n = 0.0f;
-      for (int c = 0; c < TN; ++c) {
-        const float4 p = page[c];
-        const float dx = p.x - sx;
-        const float dy = p.y - sy;
-        const float dz = p.z - sz;
-        const float d2 = dx * dx + dy * dy + dz * dz;
-        if (d2 < m) {
-          m = d2; cx = p.x; cy = p.y; cz = p.z; n = 1.0f;
-        } else if (d2 == m) {
-          cx += p.x; cy += p.y; cz += p.z; n += 1.0f;
-        }
-      }
-      if (m < best) {
-        const float inv = 1.0f / fmaxf(n, 1.0f);
-        best = m;
-        bx = cx * inv;
-        by = cy * inv;
-        bz = cz * inv;
-      }
-    }
-    P.bx[i] = bx;
-    P.by[i] = by;
-    P.bz[i] = bz;
-    const float g = best < gate ? 1.0f : 0.0f;
-    P.al[i] = mode == 0 ? g : P.al[i] * g;
+    int w;
+    const float best = sfk::grid::combine(col, 4 * (size_t)TM, ps[i], pc[i], &w);
+    const float* o = col + (size_t)(w < 0 ? 0 : w) * 4 * TM;
+    P.bx[i] = w < 0 ? 0.0f : __ldcg(o + TM);
+    P.by[i] = w < 0 ? 0.0f : __ldcg(o + 2 * TM);
+    P.bz[i] = w < 0 ? 0.0f : __ldcg(o + 3 * TM);
+    const float gt = best < gate ? 1.0f : 0.0f;
+    P.al[i] = mode == 0 ? gt : P.al[i] * gt;
   }
 }
 
@@ -161,11 +232,10 @@ __device__ void moments(const Points<NST>& P, Frame& F, float* red) {
 }
 
 template <int NST>
-__device__ sfk::IcpOut icp_lazy(Points<NST>& P, Frame& F, float4* page, float* red,
-                           const int* ps, const int* pc, const int* pt,
-                           const float* tgt, int TN, const SBParams& prm) {
+__device__ sfk::IcpOut icp_lazy(const cg::grid_group& g, Points<NST>& P, Frame& F, float* red,
+                                const Assoc& A, int k, const SBParams& prm) {
   sfk::IcpOut o{sfk::kBig, 0, 0, sfk::kBig};
-  associate(P, F, page, ps, pc, pt, tgt, TN, prm.gate, 0);
+  associate(g, P, F, A, k, prm.gate, 0);
   {
     float v[1];
     v[0] = 0.0f;
@@ -186,7 +256,7 @@ __device__ sfk::IcpOut icp_lazy(Points<NST>& P, Frame& F, float4* page, float* r
     }
     __syncthreads();
     if (F.need) {  // plateau: re-associate, the alive set only shrinks
-      associate(P, F, page, ps, pc, pt, tgt, TN, prm.gate, 1);
+      associate(g, P, F, A, k, prm.gate, 1);
       moments(P, F, red);
     }
     if (threadIdx.x == 0) {
@@ -206,13 +276,12 @@ __device__ sfk::IcpOut icp_lazy(Points<NST>& P, Frame& F, float4* page, float* r
 }
 
 template <int NST>
-__device__ sfk::IcpOut icp_fresh(Points<NST>& P, Frame& F, float4* page, float* red,
-                            const int* ps, const int* pc, const int* pt,
-                            const float* tgt, int TN, const SBParams& prm) {
+__device__ sfk::IcpOut icp_fresh(const cg::grid_group& g, Points<NST>& P, Frame& F, float* red,
+                                 const Assoc& A, int k, const SBParams& prm) {
   sfk::IcpOut o{sfk::kBig, 0, 0, sfk::kBig};
   bool live = true;
   for (int it = 0; it < prm.num_iterations && live; ++it) {
-    associate(P, F, page, ps, pc, pt, tgt, TN, prm.gate, 0);
+    associate(g, P, F, A, k, prm.gate, 0);
     moments(P, F, red);
     if (threadIdx.x == 0) {
       const float W = F.mom[0];
@@ -258,10 +327,20 @@ __global__ void __launch_bounds__(1024, 1) superblock_kernel(
     float* __restrict__ stats_out,        // (K, 128)
     float* __restrict__ state_out,        // (Q + 3, 4, 4)
     float* __restrict__ count_out,        // (1, 128)
-    int K, int TN, int max_pairs, SBParams prm) {
-  extern __shared__ float4 page[];
+    float* scratch,                       // (max_pairs, 4, TM), rounds' winners by slot
+    sfk::grid::Ctl* ctl,                  // the leader's published round
+    int K, int TN, int max_pairs, int s_max, SBParams prm) {
+  extern __shared__ float4 smem_page[];  // s_max staging pages of TN rows (workers)
   __shared__ float red[kNMom * 32];
   __shared__ Frame F;
+  float4* const page = smem_page;
+  const cg::grid_group g = cg::this_grid();
+  const Assoc A{src_pages, pair_start, pair_cnt, pair_tgt, tgt_pages, scratch, ctl,
+                TN, max_pairs, s_max};
+  if (blockIdx.x != 0) {  // a worker: serve the leader's association rounds
+    sfk::grid::serve(g, ctl, [&] { scan_items<NST>(A, page); });
+    return;
+  }
   const int TM = blockDim.x;
   const int Q = prm.Q;
 
@@ -365,11 +444,8 @@ __global__ void __launch_bounds__(1024, 1) superblock_kernel(
         P.py[i] = s[(i * 3 + 1) * TM + threadIdx.x];
         P.pz[i] = s[(i * 3 + 2) * TM + threadIdx.x];
       }
-      const int* ps = pair_start + k * NST;
-      const int* pc = pair_cnt + k * NST;
-      const int* pt = pair_tgt + (size_t)k * max_pairs;
-      o = prm.lazy ? icp_lazy<NST>(P, F, page, red, ps, pc, pt, tgt_pages, TN, prm)
-                   : icp_fresh<NST>(P, F, page, red, ps, pc, pt, tgt_pages, TN, prm);
+      o = prm.lazy ? icp_lazy<NST>(g, P, F, red, A, k, prm)
+                   : icp_fresh<NST>(g, P, F, red, A, k, prm);
     }
 
     if (threadIdx.x == 0) {
@@ -402,6 +478,7 @@ __global__ void __launch_bounds__(1024, 1) superblock_kernel(
     }
     __syncthreads();
   }
+  sfk::grid::dismiss(g, ctl);
 
   if (threadIdx.x == 0) {
     sfk::pack44(Rp, tp, 1.0f, state_out);
@@ -413,6 +490,15 @@ __global__ void __launch_bounds__(1024, 1) superblock_kernel(
   }
 }
 
+// The most row chunks an item may be cut into: up to 16, chunks of at
+// least a warp, and as many staging pages as fit 200 KB of the 227 KB of
+// shared memory a block may use.
+inline int chunk_max(int TM, int TN) {
+  int s = 16;
+  while (s > 1 && (32 * s > TM || (size_t)s * TN * sizeof(float4) > 200 * 1024)) --s;
+  return s;
+}
+
 template <int NST>
 int launch(const float* src_pages, const int* pair_start, const int* pair_cnt,
            const int* pair_tgt, const int* valid, const float* odom_T,
@@ -421,24 +507,43 @@ int launch(const float* src_pages, const int* pair_start, const int* pair_cnt,
            const int* count0, const float* filt_prev0, const float* center,
            const float* tgt_pages, float* poses_out, float* priors_out,
            float* odom_pred_out, float* stats_out, float* state_out,
-           float* count_out, int K, int TM, int TN, int max_pairs,
-           const SBParams& prm, cudaStream_t stream) {
-  const size_t smem = (size_t)TN * sizeof(float4);
+           float* count_out, float* scratch, sfk::grid::Ctl* ctl, int K, int TM,
+           int TN, int max_pairs, SBParams prm, cudaStream_t stream) {
+  int s_max = chunk_max(TM, TN);
+  const size_t smem = (size_t)s_max * TN * sizeof(float4);
   cudaError_t e = cudaFuncSetAttribute(
       superblock_kernel<NST>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  superblock_kernel<NST><<<1, TM, smem, stream>>>(
-      src_pages, pair_start, pair_cnt, pair_tgt, valid, odom_T, gps_T, odom_tr,
-      gps_tr, pose0, odom_prev0, trans0, count0, filt_prev0, center, tgt_pages,
-      poses_out, priors_out, odom_pred_out, stats_out, state_out, count_out, K,
-      TN, max_pairs, prm);
+  int blocks, per_sm;
+  e = sfk::grid::grid_size((const void*)superblock_kernel<NST>, TM, smem, &blocks, &per_sm);
+  if (e != cudaSuccess) return (int)e;
+  void* args[] = {&src_pages, &pair_start, &pair_cnt, &pair_tgt, &valid, &odom_T,
+                  &gps_T, &odom_tr, &gps_tr, &pose0, &odom_prev0, &trans0,
+                  &count0, &filt_prev0, &center, &tgt_pages, &poses_out, &priors_out,
+                  &odom_pred_out, &stats_out, &state_out, &count_out, &scratch, &ctl,
+                  &K, &TN, &max_pairs, &s_max, &prm};
+  e = cudaLaunchCooperativeKernel((const void*)superblock_kernel<NST>, dim3(blocks), dim3(TM),
+                                  args, smem, stream);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+template <int NST>
+int grid_of(int TM, int TN, int* blocks, int* per_sm) {
+  const size_t smem = (size_t)chunk_max(TM, TN) * TN * sizeof(float4);
+  cudaError_t e = cudaFuncSetAttribute(
+      superblock_kernel<NST>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)sfk::grid::grid_size((const void*)superblock_kernel<NST>, TM, smem, blocks, per_sm);
 }
 
 }  // namespace
 
-// Launch K1 on `stream`; returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for a tile count or queue size it was not built for.
+// Launch K1 on `stream` as a cooperative grid; returns the launch's error
+// (0 on success; a grid the card cannot hold co-resident is refused, not
+// shrunk), or cudaErrorInvalidValue for a tile count or queue size it was
+// not built for. `scratch` holds max_pairs x 4 x TM floats, `ctl` a
+// sfk::grid::Ctl; neither needs initialising.
 extern "C" int sfk_superblock_fine(
     const float* src_pages, const int* pair_start, const int* pair_cnt,
     const int* pair_tgt, const int* valid, const float* odom_T,
@@ -447,16 +552,18 @@ extern "C" int sfk_superblock_fine(
     const int* count0, const float* filt_prev0, const float* center,
     const float* tgt_pages, float* poses_out, float* priors_out,
     float* odom_pred_out, float* stats_out, float* state_out, float* count_out,
-    int K, int nSt, int TM, int TN, int max_pairs, const SBParams* prm,
-    cudaStream_t stream) {
+    float* scratch, void* ctl, int K, int nSt, int TM, int TN, int max_pairs,
+    const SBParams* prm, cudaStream_t stream) {
   if (prm->Q < 1 || prm->Q > kQmax) return (int)cudaErrorInvalidValue;
+  sfk::grid::Ctl* c = static_cast<sfk::grid::Ctl*>(ctl);
 #define SFK_LAUNCH(N)                                                        \
   case N:                                                                    \
     return launch<N>(src_pages, pair_start, pair_cnt, pair_tgt, valid,       \
                      odom_T, gps_T, odom_tr, gps_tr, pose0, odom_prev0,      \
                      trans0, count0, filt_prev0, center, tgt_pages,          \
                      poses_out, priors_out, odom_pred_out, stats_out,        \
-                     state_out, count_out, K, TM, TN, max_pairs, *prm, stream);
+                     state_out, count_out, scratch, c, K, TM, TN, max_pairs, \
+                     *prm, stream);
   switch (nSt) {
     SFK_LAUNCH(1)
     SFK_LAUNCH(2)
@@ -470,4 +577,22 @@ extern "C" int sfk_superblock_fine(
       return (int)cudaErrorInvalidValue;
   }
 #undef SFK_LAUNCH
+}
+
+// K1's cooperative grid for these tiles: blocks, threads a block (TM) and
+// the blocks a multiprocessor could hold.
+extern "C" int sfk_superblock_grid(int nSt, int TM, int TN, int* blocks, int* threads,
+                                   int* per_sm) {
+  *threads = TM;
+  switch (nSt) {
+    case 1: return grid_of<1>(TM, TN, blocks, per_sm);
+    case 2: return grid_of<2>(TM, TN, blocks, per_sm);
+    case 3: return grid_of<3>(TM, TN, blocks, per_sm);
+    case 4: return grid_of<4>(TM, TN, blocks, per_sm);
+    case 5: return grid_of<5>(TM, TN, blocks, per_sm);
+    case 6: return grid_of<6>(TM, TN, blocks, per_sm);
+    case 7: return grid_of<7>(TM, TN, blocks, per_sm);
+    case 8: return grid_of<8>(TM, TN, blocks, per_sm);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

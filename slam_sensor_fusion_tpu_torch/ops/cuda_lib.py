@@ -110,12 +110,16 @@ def _declare(so: ctypes.CDLL) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
     so.sfk_pair_nn.argtypes = [P, P, P, P, P, I, I, I, P, P, P, P]
     so.sfk_pair_nn.restype = I
-    so.sfk_superblock_fine.argtypes = [P] * 22 + [I] * 5 + [P, P]
+    so.sfk_superblock_fine.argtypes = [P] * 24 + [I] * 5 + [P, P]
     so.sfk_superblock_fine.restype = I
+    so.sfk_superblock_grid.argtypes = [I] * 3 + [P] * 3
+    so.sfk_superblock_grid.restype = I
     so.sfk_icp_fused.argtypes = [P] * 9 + [I] * 3 + [P, P]
     so.sfk_icp_fused.restype = I
-    so.sfk_p2p_fused.argtypes = [P] * 10 + [I] * 3 + [P, P]
+    so.sfk_p2p_fused.argtypes = [P] * 13 + [I] * 3 + [P, P]
     so.sfk_p2p_fused.restype = I
+    so.sfk_p2p_grid.argtypes = [I] * 2 + [P] * 3
+    so.sfk_p2p_grid.restype = I
     so.sfk_p2p_associate.argtypes = [P] * 8 + [I] * 3 + [P]
     so.sfk_p2p_associate.restype = I
     so.sfk_p2p_gn_corr.argtypes = [P] * 6 + [I] * 2 + [P, P]
@@ -128,6 +132,24 @@ def check(err: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launcher."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+#: int32 words of a grid kernel's control block (csrc/grid_assoc.cuh `Ctl`)
+CTL_WORDS = 16
+
+
+def control_block(device: torch.device) -> torch.Tensor:
+    """The control block a cooperative grid kernel's leader publishes its
+    rounds in; the kernel writes it before it reads it."""
+    return torch.empty(CTL_WORDS, dtype=torch.int32, device=device)
+
+
+def grid_shape(fn, *shape: int) -> dict:
+    """Ask a `sfk_*_grid` launcher for the cooperative grid it launches:
+    blocks, threads a block and the blocks a multiprocessor could hold."""
+    out = [ctypes.c_int(0) for _ in range(3)]
+    check(fn(*shape, *[ctypes.byref(o) for o in out]), fn.__name__)
+    return dict(zip(("blocks", "threads", "per_sm"), (o.value for o in out)))
 
 
 def stream_ptr(t: torch.Tensor) -> int:

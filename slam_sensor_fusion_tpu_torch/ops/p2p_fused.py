@@ -29,7 +29,8 @@ on a given matched set; K6(K5(x)) equals K4 with fixed correspondences,
 which is how a map-sharded registration combines per-shard winners.
 
 `_p2p_core`, `_p2p_associate` and `_p2p_gn_corr` launch the CUDA kernels
-(csrc/p2p_fused.cu) for tensors on the card and run the plain versions
+(csrc/p2p_fused.cu; K4 a cooperative grid of one block on each SM) for
+tensors on the card and run the plain versions
 (`_p2p_core_plain`, `_p2p_associate_plain`, `_p2p_gn_corr_plain`) for CPU
 tensors. The plain versions follow the kernels' arithmetic (direct
 differences, tile-major walk, Taylor exp, unrolled Cholesky), not
@@ -331,10 +332,17 @@ def _p2p_core(
     # output layout; each thread touches only its own points
     best_d2 = torch.empty((nSt, 1, TM), dtype=torch.float32, device=dev)
     best_qn = torch.empty((nSt, 6, TM), dtype=torch.float32, device=dev)
+    # an association round's per-slot winners (best d2, winning row) from
+    # the grid's workers, combined by the leader into best_d2 / best_qn
+    max_pairs = pair_tgt.shape[0]
+    slot_d2 = torch.empty((max_pairs, TM), dtype=torch.float32, device=dev)
+    slot_row = torch.empty((max_pairs, TM), dtype=torch.int32, device=dev)
+    ctl = cuda_lib.control_block(dev)
     prm = _params(config)
     err = cuda_lib.lib().sfk_p2p_fused(
         *[x.data_ptr() for x, *_ in specs],
         T_out.data_ptr(), stats.data_ptr(), best_d2.data_ptr(), best_qn.data_ptr(),
+        slot_d2.data_ptr(), slot_row.data_ptr(), ctl.data_ptr(),
         nSt, TM, TN, ctypes.addressof(prm), cuda_lib.stream_ptr(src_pages),
     )
     cuda_lib.check(err, "_p2p_core")
@@ -406,6 +414,12 @@ def _p2p_gn_corr(
 _p2p_core.launches = 0
 _p2p_associate.launches = 0
 _p2p_gn_corr.launches = 0
+
+
+def kernel_grid(n_src_tiles: int, tile_src: int) -> dict:
+    """K4's cooperative grid on the current card for these tiles: blocks,
+    threads a block and the blocks a multiprocessor could hold."""
+    return cuda_lib.grid_shape(cuda_lib.lib().sfk_p2p_grid, n_src_tiles, tile_src)
 
 
 # ---------------------------------------------------------------------------

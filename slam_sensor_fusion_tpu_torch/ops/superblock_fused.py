@@ -18,8 +18,9 @@ One call runs the fine loop of K frames (localization_node.cpp:263-374):
 Pose state lives in the ORIGINAL map frame; only the ICP shifts
 translations by the crop centre (the target pages' rebase point).
 
-`superblock_fine` launches the CUDA kernel (csrc/superblock_fused.cu) for
-tensors on the card and runs `superblock_fine_plain` for CPU tensors. The
+`superblock_fine` launches the CUDA kernel (csrc/superblock_fused.cu, a
+cooperative grid of one block on each SM) for tensors on the card and runs
+`superblock_fine_plain` for CPU tensors. The
 plain version is written as the per-frame path (ops/stochastic_filter.py
 plus a plain ICP with K1's association tie rule), the role the JAX
 package's per-frame scan plays for its kernel.
@@ -279,11 +280,16 @@ def superblock_fine(
     stats = torch.empty((K, 128), dtype=f32, device=dev)
     state = torch.empty((Q + 3, 4, 4), dtype=f32, device=dev)
     count_out = torch.empty((1, 128), dtype=f32, device=dev)
+    # an association round's per-slot winners (tile minimum d2, averaged
+    # x, y, z), reused frame after frame; it stays in L2
+    scratch = torch.empty((max_pairs, 4, TM), dtype=f32, device=dev)
+    ctl = cuda_lib.control_block(dev)
     prm = _params(config)
     err = cuda_lib.lib().sfk_superblock_fine(
         *[t.data_ptr() for t, *_ in args],
         poses.data_ptr(), priors.data_ptr(), odom_preds.data_ptr(),
         stats.data_ptr(), state.data_ptr(), count_out.data_ptr(),
+        scratch.data_ptr(), ctl.data_ptr(),
         K, nSt, TM, TN, max_pairs, ctypes.addressof(prm),
         cuda_lib.stream_ptr(src_pages),
     )
@@ -304,3 +310,10 @@ def superblock_fine(
 
 #: kernel launches made by `superblock_fine` (CUDA tensors only)
 superblock_fine.launches = 0
+
+
+def kernel_grid(n_src_tiles: int, tile_src: int, tile_tgt: int) -> dict:
+    """K1's cooperative grid on the current card for these tiles: blocks,
+    threads a block and the blocks a multiprocessor could hold."""
+    return cuda_lib.grid_shape(
+        cuda_lib.lib().sfk_superblock_grid, n_src_tiles, tile_src, tile_tgt)

@@ -10,7 +10,9 @@ ICP error, with EQUAL iteration and correspondence counts (the moment sums
 are reduced in another order). K4 and K6 agree to 3e-4 on T and 1e-4
 relative on rmse, wr2 and the JtJ lanes with EQUAL n_correspondences; K5's
 d2 to 1e-6 relative with EQUAL matched pages. K4, K5 and K6 give the same
-bits as before their device functions moved into csrc/p2p_fused.cuh. K7 to
+bits as before their device functions moved into csrc/p2p_fused.cuh, and
+K1 and K4 as cooperative grids the same bits as their one-block
+predecessors (SHA-256 digests of their outputs). K7 to
 3e-4 on poses and state, 1e-4 of max|P| on P, 1e-4 relative on the stats
 lanes with EQUAL n_correspondences, GPS acceptance and slack flags."""
 
@@ -46,10 +48,12 @@ from torch_lio_world import (
     p2p_scene,
 )
 from torch_world import (  # noqa: F401
+    K1_SCENES,
     K3_CONFIG,
     build_world,
     compare_superblock,
     cuda_device,
+    k1_digest,
     k3_inputs,
     k3_scene,
     port_slice,
@@ -94,9 +98,12 @@ def test_pair_nn_kernel_matches_plain(cuda_device, ties):
     assert torch.equal(xyzk, xyzp)
 
 
-@pytest.mark.parametrize("mode", ["parity", "fast"])
-def test_superblock_kernel_matches_plain(cuda_device, mode):
-    cfg, args = superblock_args(mode, cuda_device)
+@pytest.mark.parametrize("scene", list(K1_SCENES))
+def test_superblock_kernel_matches_plain(cuda_device, scene):
+    """K1 on the parity and fast superblocks, with the first and last
+    frames invalid, on 3 source tiles of 224 points, and with every tile
+    minimum an exact tie."""
+    cfg, args = superblock_args(device=cuda_device, **K1_SCENES[scene])
     before = superblock_fine.launches
     got = superblock_fine(*args, cfg)
     want = superblock_fine_plain(*args, cfg)
@@ -104,6 +111,25 @@ def test_superblock_kernel_matches_plain(cuda_device, mode):
     assert superblock_fine.launches == before + 1
     compare_superblock([x.cpu().numpy() for x in want], [x.cpu().numpy() for x in got],
                        args[4].cpu().numpy())
+
+
+#: `k1_digest` of K1 as the one-block kernel computed it, before the
+#: association spread over a cooperative grid (NVIDIA H100 80GB HBM3)
+K1_DIGEST = "8362c701d0d5e1daa1716db74923e3cd45f9540181d0cddd3fe28d112a7fa74c"
+
+
+def test_superblock_kernel_bits_equal_the_one_block_kernel(cuda_device):
+    assert k1_digest(cuda_device) == K1_DIGEST
+
+
+def test_grid_kernels_span_the_card(cuda_device):
+    """K1 and K4 launch one block on every multiprocessor at the main
+    path's tiles."""
+    from slam_sensor_fusion_tpu_torch.ops import superblock_fused as tsf
+
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for grid, threads in [(tsf.kernel_grid(4, 1024, 512), 1024), (tpf.kernel_grid(16, 512), 1024)]:
+        assert grid["blocks"] == sms and grid["threads"] == threads and grid["per_sm"] >= 1
 
 
 def test_slice_on_card_matches_cpu(cuda_device):
@@ -139,10 +165,13 @@ def test_icp_fused_kernel_matches_plain(cuda_device, n_tiles, tile_src, lazy):
 
 
 #: K4-K6 at the LIO bench's tiles (16 source tiles of 512, 32 target tiles
-#: of 1024) and at one small odd shape (1 source tile of 96, 3 target tiles
-#: of 150: not a multiple of 4, so the association takes its scalar loads)
+#: of 1024), the same with no admitted target tile for source tile 5, and
+#: at one small odd shape (1 source tile of 96, 3 target tiles of 150: not
+#: a multiple of 4, so the association takes its scalar loads)
 P2P_SHAPES = {
     "bench": dict(M=8192, N=32768, n_tgt=30000, tile_src=512, tile_tgt=1024, min_corr=3000),
+    "bench_empty_tile": dict(M=8192, N=32768, n_tgt=30000, tile_src=512, tile_tgt=1024,
+                             min_corr=3000, empty_tile=5),
     "odd": dict(M=96, N=450, n_tgt=400, tile_src=96, tile_tgt=150, min_corr=20),
 }
 
@@ -155,6 +184,10 @@ def _p2p_case(shape, device, **cfg):
     )
     scene = p2p_scene(7, n_tgt=s["n_tgt"], M=s["M"], N=s["N"], ties=True)
     core = p2p_core_inputs(scene, config, device)
+    if "empty_tile" in s:  # its points match nothing
+        core = list(core)
+        core[3] = core[3].clone()
+        core[3][s["empty_tile"]] = 0  # pair_cnt
     return config, core
 
 
@@ -170,7 +203,7 @@ def _assert_gn_outputs(got, want, min_corr):
 
 
 @pytest.mark.parametrize("fixed", [True, False], ids=["fixed", "fresh"])
-@pytest.mark.parametrize("shape", ["bench", "odd"])
+@pytest.mark.parametrize("shape", ["bench", "bench_empty_tile", "odd"])
 def test_p2p_fused_kernel_matches_plain(cuda_device, shape, fixed):
     config, core = _p2p_case(shape, cuda_device, fixed_correspondences=fixed)
     before = tpf._p2p_core.launches

@@ -75,11 +75,21 @@ def mode_config(mode):
     return dataclasses.replace(SLICE_CONFIG, icp=dataclasses.replace(SLICE_CONFIG.icp, mode=mode))
 
 
-def superblock_args(mode, device="cpu"):
+def superblock_args(mode, device="cpu", invalid=(3,), src_tiles=None, ties=False):
     """One superblock's K1 inputs from the port's prologue: the first 8
-    frames after the GPS start, frame 3 invalid."""
+    frames after the GPS start, the frames in `invalid` invalid.
+    `src_tiles` = (nSt, TM) re-tiles the cropped scan (nSt * TM points);
+    `ties` copies each even target row over the odd row after it, so every
+    tile minimum is an exact tie of two rows."""
     seq, map_data = build_world(n_frames=9, seed=2)
     cfg = mode_config(mode)
+    if src_tiles is not None:
+        n_tiles, tile_src = src_tiles
+        cfg = dataclasses.replace(
+            cfg,
+            capacity=dataclasses.replace(cfg.capacity, cropped_scan=n_tiles * tile_src),
+            icp=dataclasses.replace(cfg.icp, tile_src=tile_src),
+        )
     loc = tl.Localizer(map_data, cfg, device)
     gps_T = loc.gps_poses(seq.gps_lat, seq.gps_lon, seq.compass_yaw)
     state = tl.init_state(
@@ -87,20 +97,53 @@ def superblock_args(mode, device="cpu"):
         torch.from_numpy(seq.odom_T_sensor[0]).to(device),
     )
     valid = np.ones(8, bool)
-    valid[3] = False
+    valid[list(invalid)] = False
     blk = tpf.build_paged_frames(
         cfg, seq.scans[1:], seq.odom_T_sensor[1:], gps_T[1:],
         seq.odom_cov_trace[1:], seq.gps_cov_trace[1:], valid, device,
     )
     pro = tpf.superstep_prologue(state, blk, loc.map_cloud, cfg)
     fs = state.filter_state
+    tgt_pages = pro.cached_target.pages
+    if ties:
+        tgt_pages = tgt_pages.clone()
+        tgt_pages[..., 1::2] = tgt_pages[..., 0::2]
     return cfg, (
         blk.src_pages, pro.pair_start, pro.pair_cnt, pro.pair_tgt, blk.valid,
         blk.odom_T_sensor, blk.map_T_sensor_gps, blk.odom_cov_trace,
         blk.gps_cov_trace, state.map_T_sensor, state.odom_T_sensor_previous,
         fs.transitions, fs.count, fs.previous_pose, pro.cached_target.center,
-        pro.cached_target.pages,
+        tgt_pages,
     )
+
+
+#: the card tests' K1 scenes (superblock_args keywords): the parity and
+#: fast superblocks with frame 3 invalid, the first and last frames
+#: invalid, an odd tiling (3 source tiles of 224: not a power of two) and
+#: every tile minimum an exact tie
+K1_SCENES = {
+    "parity": dict(mode="parity"),
+    "fast": dict(mode="fast"),
+    "invalid_ends": dict(mode="parity", invalid=(0, 7)),
+    "odd": dict(mode="fast", src_tiles=(3, 224)),
+    "ties": dict(mode="parity", ties=True),
+}
+
+
+def k1_digest(device) -> str:
+    """SHA-256 of `superblock_fine`'s outputs on the K1_SCENES: a kernel
+    that rounds one bit differently, or takes another tile on a tie,
+    changes it."""
+    import hashlib
+
+    from slam_sensor_fusion_tpu_torch.ops.superblock_fused import superblock_fine
+
+    h = hashlib.sha256()
+    for scene in K1_SCENES.values():
+        cfg, args = superblock_args(device=device, **scene)
+        for x in superblock_fine(*args, cfg):
+            h.update(x.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def compare_superblock(a, b, valid):
