@@ -11,12 +11,21 @@ check exits non-zero:
      limit of the card;
   1. build: compiles the CUDA kernels from the checkout's sources
      (slam_sensor_fusion_tpu_torch/csrc) and reports the seconds, ptxas's
-     registers and spills, and the cooperative grids of K1 and K4 at the
-     main paths' tiles (blocks, threads, blocks a multiprocessor holds;
-     at least 16 blocks);
+     registers and spills of each kernel, and the cooperative grids of K1,
+     K3 and K4 at the main paths' tiles, and of K1 and K3 at the JAX
+     package's default and stress tiles (blocks, threads, blocks a
+     multiprocessor holds; at least 16 blocks);
   2. kernel against plain PyTorch at the main path's shapes, on inputs
      taken from the smoke world: K2 (pair-list NN) at the startup rescue's
      size, K1 (whole-superblock fine loop) on the first real superblock;
+     and at the JAX package's own tile shapes: K1 on the first superblock
+     of LocalizationConfig()'s tiles (64 source tiles of 256, the bench
+     world at subsample 2) and of bench.py's stress cell (16 tiles of
+     4096 against 1024 target tiles of 128: 122 000 raw points a scan
+     subsampled by 2, density 48, cropped map 131 072; 33 frames, not
+     256), K2 at the stress tiles, and K3 fresh and lazy on 4 tiles of
+     4096 of the stress scan; with their times, bounds, the
+     superstep_prologue's time and K1's per-slot scratch;
   3. the main path at the bench's defaults (bench.py bench_loc): synthetic
      world (24 000 raw points a scan, 140 m, 257 frames), map build,
      Localizer -> init_state -> coarse_attempt, one forced rescue ICP (K2),
@@ -66,19 +75,28 @@ check exits non-zero:
      fleet_run_lio_superblocks with 2 robots over 33 frames: each robot
      equals its own run, with 2 x 3 K7 launches.
 
+  8. the superblock main path at the JAX package's tile shapes: from each
+     of phase 2's two startup states, run_chunk_fast twice over 32 frames
+     (4 superblocks: the first frames still carry the coarse pose's
+     error), then once under torch.profiler. Requires zero
+     pair-overflow and slack-violation frames, ATE-RMSE < 0.1 m and one K1
+     launch a superblock; prints scans/s and K1's ms a superblock.
+
 Phase 2 also holds K3 against its plain version (fresh and lazy, at the
 session's shapes), the per-frame superblock branch (K3 lazy) against K1 on
 the first superblock, and K4 (fixed and fresh correspondences), K5, K6 and
 K6(K5(x)) against K4 on a steady-state frame of the LIO world (frame 33,
 the ring full) against the anchor its block starts with, and K7 against
 its plain version on the block of frames 33-48 from the same state.
-Every kernel's launch count is set to 0 before each path of phases 3-7
+Every kernel's launch count is set to 0 before each path of phases 3-8
 and read after it.
 
 The line before the last is the kernels' JSON record (time, plain time,
 error against plain, launches on the main paths, and the least time the
-card could take for the same work; K1 also its steady-state time and K4
-its fresh-correspondence times, both their grids); the last line is
+card could take for the same work; K1 also its steady-state time and its
+times at the JAX package's tile shapes, K2 at the stress tiles, K3 its
+lazy times and at 4 x 4096, K4 its fresh-correspondence times; K1, K3 and
+K4 their grids); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -95,6 +113,7 @@ import numpy as np
 import torch
 
 N_FRAMES = 257  # 1 startup frame + 32 superblocks of 8
+TILES_FRAMES = 33  # phase 8: 1 startup frame + 4 superblocks of 8 (the bench runs 1024 / 256)
 SESSION_FRAMES = 144  # bench.py bench_latency's sequence
 SESSION_WARMUP = 16  # pushes before the timed ones (bench.py:759)
 REPLAY_FRAMES = 33  # phase 5: 1 init frame + 1 coarse frame + 31 steady frames
@@ -142,15 +161,16 @@ def card() -> str:
     return out
 
 
-def bench_config():
-    """bench.py bench_loc's defaults (:405-466)."""
+def bench_config(raw_points=24000, subsample=8, tile_src=1024, tile_tgt=512, cropped_map=65536):
+    """bench.py bench_loc's defaults (:405-466); the keywords are its
+    BENCH_SCAN_POINTS, BENCH_SUBSAMPLE, BENCH_TILE_SRC, BENCH_TILE_TGT and
+    BENCH_CROPPED_MAP."""
     from slam_sensor_fusion_tpu_torch.utils.config import (
         CloudCapacity,
         ICPConfig,
         LocalizationConfig,
     )
 
-    raw_points, subsample = 24000, 8
     scan_cap = 1 << max(int(np.ceil(np.log2(max(raw_points // subsample, 1024)))), 10)
     return LocalizationConfig(
         block_kernel=True,
@@ -160,16 +180,32 @@ def bench_config():
         superblock_parity=True,
         icp=dataclasses.replace(
             ICPConfig(), mode="parity", reassoc_margin=0.5, num_iterations=10,
-            tile_src=1024, acceptable_mean_error=0.05, tile_tgt=512,
+            tile_src=tile_src, acceptable_mean_error=0.05, tile_tgt=tile_tgt,
             max_visits=128, max_pairs_factor=128,
         ),
         capacity=CloudCapacity(
-            scan=scan_cap, cropped_scan=scan_cap, cropped_map=65536,
+            scan=scan_cap, cropped_scan=scan_cap, cropped_map=cropped_map,
             map=1 << 20, bf_source=1024, bf_target=8192,
         ),
         map_subsample_step=1,
         brute_force_map_subsample_step=3,
     )
+
+
+def default_tiles_config():
+    """bench_loc in the JAX package's default LocalizationConfig() tile
+    shapes: the reference's scan subsample 2 (utils/config.py:254), so the
+    bench world's 24 000 raw points fill cropped_scan 16384 (:168) in 64
+    source tiles of 256 (:59) against target tiles of 512 (:60)."""
+    return bench_config(subsample=2, tile_src=256)
+
+
+def stress_config():
+    """bench.py's stress cell (STRESS_OVERRIDES, :340-348): 122 000 raw
+    points a scan subsampled by 2 (scan capacity 65536: 16 source tiles of
+    4096), cropped map 131 072 (1024 target tiles of 128)."""
+    return bench_config(raw_points=122000, subsample=2, tile_src=4096, tile_tgt=128,
+                        cropped_map=131072)
 
 
 def session_config():
@@ -213,19 +249,21 @@ def build_session_world(n_frames: int):
     return seq, build_map_data(tiles, odom_pos, gps_rows)
 
 
-def build_world(n_frames: int):
-    """bench.py bench_loc's synthetic world, sequence and map (:487-505)."""
+def build_world(n_frames: int, raw_points: int = 24000, density: float = 24.0):
+    """bench.py bench_loc's synthetic world, sequence and map (:487-505);
+    raw_points and density are its BENCH_SCAN_POINTS and BENCH_DENSITY."""
     from slam_sensor_fusion_tpu_torch.models.mapping import build_map_data
     from slam_sensor_fusion_tpu_torch.utils import synthetic as syn
 
     rng = np.random.default_rng(0)
-    world = syn.make_world(rng, extent=140.0, n_buildings=70, n_poles=200, points_per_m2=24.0)
+    world = syn.make_world(rng, extent=140.0, n_buildings=70, n_poles=200,
+                           points_per_m2=density)
     poses = syn.make_trajectory(n_frames, speed_per_frame=0.15, radius=30.0)
-    seq = syn.make_sequence(seed=0, world=world, poses=poses, scan_points=24000)
+    seq = syn.make_sequence(seed=0, world=world, poses=poses, scan_points=raw_points)
     tiles = []
     map_rng = np.random.default_rng(1)
     for i in range(0, n_frames, 4):
-        body = syn.render_scan(world, poses[i], map_rng, max_points=24000, noise=0.005)
+        body = syn.render_scan(world, poses[i], map_rng, max_points=raw_points, noise=0.005)
         tiles.append(body @ poses[i][:3, :3].T + poses[i][:3, 3])
     odom_pos, gps_rows = syn.make_mapping_logs(seq)
     return seq, build_map_data(tiles, odom_pos, gps_rows)
@@ -261,6 +299,30 @@ def rescue_start(coarse_T: torch.Tensor) -> torch.Tensor:
     """The coarse pose pushed ~1 m and 5 degrees off, so the rescue ICP has
     metre-scale work to do."""
     return nudge(coarse_T, 0.8, -0.6, 5.0)
+
+
+#: ptxas's mangled kernel names -> the kernels' labels (K1's register
+#: layout is built for 1-8 source tiles: `Points<n>`)
+KERNEL_SYMBOLS = [
+    ("pair_nn_kernel", "K2"), ("pair_nn_wide_kernel", "K2 wide tiles"),
+    ("icp_fused_kernel", "K3"), ("lio_superblock_kernel", "K7"),
+    ("GlobalPoints", "K1 global layout"), ("superblock_kernel", "K1 register layout"),
+    ("p2p_fused_kernel", "K4"), ("p2p_associate_kernel", "K5"), ("p2p_gn_corr_kernel", "K6"),
+]
+
+
+def ptxas_lines(log: str) -> list[str]:
+    """ptxas's registers, stack and spills of each kernel, labelled."""
+    out, label = [], "?"
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            label = next((k for sym, k in KERNEL_SYMBOLS if sym in line), "?")
+            if label == "K1 register layout" and "PointsILi" in line:
+                tiles = line.split("PointsILi", 1)[1].split("E", 1)[0]
+                label = f"K1 register layout, {tiles} tiles"
+        elif "registers" in line or "spill" in line:
+            out.append(f"{label}: {line.strip().removeprefix('ptxas info    : ')}")
+    return out
 
 
 def nbytes(*ts) -> int:
@@ -340,7 +402,8 @@ def check_k1(args, dev_name):
         fail("K1: queue count differs")
     print(f"K1 superblock_fine vs plain: max|pose/prior/state| diff {worst:.3e}, "
           f"iterations {k[3][:, 1].int().tolist()}, n_corr {k[3][:, 2].int().tolist()} "
-          f"equal [{dev_name}]", flush=True)
+          f"equal, shapes src {tuple(args[0].shape)} tgt {tuple(args[15].shape)} [{dev_name}]",
+          flush=True)
     return worst
 
 
@@ -629,6 +692,7 @@ def main() -> None:
         superblock_fine_plain,
     )
     from slam_sensor_fusion_tpu_torch.ops.superblock_fused import kernel_grid as sb_grid
+    from slam_sensor_fusion_tpu_torch.ops.icp_fused import kernel_grid as icp_grid
     from torch.profiler import ProfilerActivity, profile
 
     kernels = (superblock_fine, pair_nn, _fused_core,
@@ -639,16 +703,24 @@ def main() -> None:
     cuda_lib.build(force=True)
     cuda_lib.lib()
     print(f"phase 1 build: {time.perf_counter() - t0:.1f} s (nvcc {cuda_lib.build_seconds:.1f} s) [{tag}]", flush=True)
-    for line in cuda_lib.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
-    # K1 and K4 are cooperative grids: their launch shape at the main
+    for line in ptxas_lines(cuda_lib.build_log):
+        print(f"  ptxas: {line}")
+    # K1, K3 and K4 are cooperative grids: their launch shape at the main
     # paths' tiles (bench_loc's 4 x 1024 source, 512-row target tiles;
-    # bench_lio's 16 x 512 source tiles)
-    config, lcfg = bench_config(), lio_config()
+    # the session's 8 x 512 source tiles; bench_lio's 16 x 512 source
+    # tiles), and K1's and K3's at the JAX package's default and stress tiles
+    config, lcfg, scfg = bench_config(), lio_config(), session_config()
+    dcfg, xcfg = default_tiles_config(), stress_config()
+
+    def tiles(c):
+        return c.capacity.cropped_scan // c.icp.tile_src, c.icp.tile_src
+
     grids = {
-        "K1": sb_grid(config.capacity.cropped_scan // config.icp.tile_src, config.icp.tile_src,
-                      config.icp.tile_tgt),
+        "K1": sb_grid(*tiles(config), config.icp.tile_tgt),
+        "K1 64x256": sb_grid(*tiles(dcfg), dcfg.icp.tile_tgt),
+        "K1 16x4096": sb_grid(*tiles(xcfg), xcfg.icp.tile_tgt),
+        "K3": icp_grid(*tiles(scfg)),
+        "K3 4x4096": icp_grid(4, xcfg.icp.tile_src),
         "K4": p2p.kernel_grid(lcfg.scan_capacity // lcfg.p2p.tile_src, lcfg.p2p.tile_src),
     }
     for label, g in grids.items():
@@ -660,12 +732,13 @@ def main() -> None:
     # ---- worlds (host set-up: phases 2-3 and phases 2, 4-5) ----
     t0 = time.perf_counter()
     seq, map_data = build_world(N_FRAMES)
-    scfg = session_config()
+    xseq, xmap = build_world(TILES_FRAMES, raw_points=122000, density=48.0)
     sseq, smap = build_session_world(SESSION_FRAMES)
     lposes, lv0, lsp, lsm, ltp, lgyro, laccel, ldts, lgps = build_lio_world(
         LIO_FRAMES, lcfg.scan_capacity)
     print(f"set-up worlds: {time.perf_counter() - t0:.1f} s, map points {map_data.map_points.shape[0]} "
-          f"(bench), {smap.map_points.shape[0]} (session), LIO scan points mean "
+          f"(bench), {xmap.map_points.shape[0]} (stress), {smap.map_points.shape[0]} (session), "
+          f"LIO scan points mean "
           f"{lsm.sum(1).mean():.0f} of {lcfg.scan_capacity}", flush=True)
 
     # ---- 2. kernel against plain at main-path shapes ----
@@ -714,6 +787,93 @@ def main() -> None:
         fail("K3 check inputs: pair list overflow")
     k3_err, k3_pairs, _ = check_k3(k3_in, scfg.icp, False, name)
     k3l_err, k3l_pairs, _ = check_k3(k3_in, scfg.icp, True, name)
+
+    # K1, K2 and K3 at the JAX package's own tile shapes: LocalizationConfig()'s
+    # 64 source tiles of 256 (the bench world), and the stress cell's 16 tiles
+    # of 4096 against 1024 target tiles of 128 (the stress world). Each from
+    # its configuration's startup state; phase 8 runs their main path
+    wide = {}
+    for label, wcfg, wseq, wmap in [("64x256", dcfg, seq, map_data),
+                                    ("16x4096", xcfg, xseq, xmap)]:
+        wloc = lz.Localizer(wmap, wcfg, dev)
+        wgps = wloc.gps_poses(wseq.gps_lat, wseq.gps_lon, wseq.compass_yaw)
+        wstate, wscan, wcoarse = startup(wloc, wseq, wgps, wcfg, dev)
+        n = TILES_FRAMES
+        wframes = pf.build_paged_frames(
+            wcfg, wseq.scans[1:n], wseq.odom_T_sensor[1:n], wgps[1:n], wseq.odom_cov_trace[1:n],
+            wseq.gps_cov_trace[1:n], np.ones(n - 1, bool), dev,
+        )
+        wblk = pf.PagedFrames(*[x[:K] for x in wframes])
+        t1 = time.perf_counter()
+        wpro = pf.superstep_prologue(wstate, wblk, wloc.map_cloud, wcfg)
+        torch.cuda.synchronize()
+        pro_s = time.perf_counter() - t1
+        wfs = wstate.filter_state
+        wargs = (
+            wblk.src_pages, wpro.pair_start, wpro.pair_cnt, wpro.pair_tgt, wblk.valid,
+            wblk.odom_T_sensor, wblk.map_T_sensor_gps, wblk.odom_cov_trace, wblk.gps_cov_trace,
+            wstate.map_T_sensor, wstate.odom_T_sensor_previous, wfs.transitions, wfs.count,
+            wfs.previous_pose, wpro.cached_target.center, wpro.cached_target.pages, wcfg,
+        )
+        _icp_plain.pairs_visited = 0
+        w = dict(cfg=wcfg, seq=wseq, loc=wloc, gps=wgps, state=wstate, frames=wframes,
+                 k1_err=check_k1(wargs, name), k1_pairs=_icp_plain.pairs_visited)
+        w["k1_ms"] = time_ms(lambda: superblock_fine(*wargs), 3)
+        w["k1_plain_ms"] = time_ms(lambda: superblock_fine_plain(*wargs), 1)
+        TMw, TNw = wblk.src_pages.shape[-1], wpro.cached_target.pages.shape[-1]
+        w["k1_bound"] = bound(
+            w["k1_pairs"] * TMw * TNw * FLOP_PER_DISTANCE,
+            nbytes(*[a for a in wargs if isinstance(a, torch.Tensor)])
+            + nbytes(*superblock_fine(*wargs)),
+        )
+        w["prologue_ms"] = time_ms(lambda: pf.superstep_prologue(wstate, wblk, wloc.map_cloud, wcfg), 3)
+        w["scratch_mib"] = wpro.pair_tgt.shape[1] * 4 * TMw * 4 / 2**20
+        print(f"K1 at {label}: {w['k1_ms']:.3f} ms/superblock (plain {w['k1_plain_ms']:.3f}), bound "
+              f"{w['k1_bound'][0]:.4f} ms ({w['k1_bound'][1]}), {w['k1_pairs']} tile pairs visited, "
+              f"pair demand {wpro.demand.tolist()} of {wpro.pair_tgt.shape[1]} slots, per-slot scratch "
+              f"{w['scratch_mib']:.1f} MiB; superstep_prologue {w['prologue_ms']:.3f} ms "
+              f"({pro_s * 1e3:.1f} ms the first call) [{tag}]", flush=True)
+        wide[label] = w
+        if label != "16x4096":
+            continue
+        # K2 at the stress tiles: the first association of an ICP of the
+        # cropped scan (16 x 4096) against the cropped map (1024 x 128)
+        k2x_in = association_inputs(
+            wscan.points, wscan.mask, wstate.cropped_map.points, wstate.cropped_map.mask,
+            wcoarse.map_T_sensor, wcfg.icp,
+        )
+        w["k2_err"] = check_k2(k2x_in, name)
+        w["k2_ms"] = time_ms(lambda: pair_nn(*k2x_in), 5)
+        w["k2_plain_ms"] = time_ms(lambda: pair_nn_plain(*k2x_in), 1)
+        w["k2_bound"] = bound(
+            int(k2x_in[3].sum()) * k2x_in[0].shape[-1] * k2x_in[1].shape[-1] * FLOP_PER_DISTANCE,
+            nbytes(*k2x_in) + nbytes(*pair_nn(*k2x_in)),
+        )
+        # K3 at 4 tiles of 4096: the first quarter of the cropped scan
+        # (Morton order) against the cropped map, from a prior 0.3 m and 2
+        # degrees off the coarse pose, fresh and lazy
+        q = 4 * wcfg.icp.tile_src
+        x3cfg = dataclasses.replace(wcfg.icp, mode="fast")
+        k3x_in, _, k3x_ovf = fused_inputs(
+            wscan.points[:q], wscan.mask[:q], wstate.cropped_map.points, wstate.cropped_map.mask,
+            nudge(wcoarse.map_T_sensor, 0.3, -0.2, 2.0), x3cfg, wstate.cached_target,
+        )
+        if bool(k3x_ovf):
+            fail("K3 at 4 x 4096: pair list overflow")
+        for lazy, key in [(False, "fresh"), (True, "lazy")]:
+            err3, pairs3, _ = check_k3(k3x_in, x3cfg, lazy, name)
+            w[f"k3_{key}_err"] = err3
+            w[f"k3_{key}_ms"] = time_ms(lambda: _fused_core(*k3x_in, x3cfg, lazy), 5)
+            w[f"k3_{key}_plain_ms"] = time_ms(lambda: _fused_core_plain(*k3x_in, x3cfg, lazy), 1)
+            w[f"k3_{key}_bound"] = bound(
+                pairs3 * k3x_in[0].shape[-1] * k3x_in[1].shape[-1] * FLOP_PER_DISTANCE,
+                nbytes(*k3x_in) + nbytes(*_fused_core(*k3x_in, x3cfg, lazy)),
+            )
+        print(f"K2 at 16 x 4096: {w['k2_ms']:.3f} ms (plain {w['k2_plain_ms']:.3f}), bound "
+              f"{w['k2_bound'][0]:.4f} ms; K3 at 4 x 4096: fresh {w['k3_fresh_ms']:.3f} ms (plain "
+              f"{w['k3_fresh_plain_ms']:.3f}, bound {w['k3_fresh_bound'][0]:.4f}), lazy "
+              f"{w['k3_lazy_ms']:.3f} ms (plain {w['k3_lazy_plain_ms']:.3f}, bound "
+              f"{w['k3_lazy_bound'][0]:.4f}) [{tag}]", flush=True)
 
     # K4-K6 at the LIO bench's shapes on a steady-state frame of the LIO
     # world: the first two blocks fill the ring (16 slots), then frame 33 (16
@@ -828,6 +988,23 @@ def main() -> None:
     print(f"K1 {k1_ms:.3f} ms/superblock (plain {k1_plain_ms:.3f}); K2 {k2_ms:.3f} ms/call "
           f"(plain {k2_plain_ms:.3f}); K3 fresh {k3_ms:.3f} ms/ICP (plain {k3_plain_ms:.3f}), "
           f"lazy {k3l_ms:.3f} (plain {k3l_plain_ms:.3f}) [{tag}]", flush=True)
+    # the host's share of a K3 call (a session push makes one): the call as
+    # it returns, and the scratch and control block it allocates each time
+    reps = 50
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(reps):
+        _fused_core(*k3_in, scfg.icp, False)
+    k3_host_ms = (time.perf_counter() - t1) / reps * 1e3
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(reps):
+        torch.empty((k3_in[4].shape[0], k3_in[0].shape[-1]), dtype=torch.float32, device=dev)
+        torch.empty((k3_in[4].shape[0], k3_in[0].shape[-1]), dtype=torch.int32, device=dev)
+        cuda_lib.control_block(dev)
+    k3_alloc_ms = (time.perf_counter() - t1) / reps * 1e3
+    print(f"K3 host time a call (as it returns) {k3_host_ms:.4f} ms, of which its per-call grid "
+          f"scratch and control block {k3_alloc_ms:.4f} ms [{tag}]", flush=True)
 
     # least times from this run's inputs: the tile pairs the data made the
     # kernels visit, 8 FLOP a distance, each input read and output written once
@@ -1282,10 +1459,56 @@ def main() -> None:
     print(f"phase 7 LIO block loop: {time.perf_counter() - t0:.1f} s; scans/s (pass 1) {brate:.1f} "
           f"[{tag}]", flush=True)
 
+    # ---- 8. the superblock main path at the JAX package's tile shapes:
+    # run_chunk_fast twice from each startup state of phase 2 (one K1
+    # launch a superblock, 64 x 256 and 16 x 4096 source tiles) ----
+    t0 = time.perf_counter()
+    for label, w in wide.items():
+        wcfg, wseq, n = w["cfg"], w["seq"], TILES_FRAMES
+        gt = wseq.true_map_T_sensor[1:n]
+        n_blocks = (n - 1) // K
+        zero_counts(*kernels)
+        wrate = 0.0
+        for p in range(2):
+            before = superblock_fine.launches
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, out = pf.run_chunk_fast(w["state"], w["frames"], w["loc"].map_cloud, wcfg)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t1
+            launched = superblock_fine.launches - before
+            est = out.map_T_sensor.cpu().numpy()
+            ate = ate_rmse(est, gt)
+            n_ovf = int(out.pair_overflow.sum())
+            n_slack = int(out.slack_violation.sum())
+            wrate = (n - 1) / dt
+            print(f"tiles {label} pass {p}: {n - 1} frames {dt:.3f} s = {wrate:.1f} scans/s, ATE-RMSE "
+                  f"{ate:.4f} m, icp-converged {out.icp_converged.float().mean().item():.3f}, "
+                  f"pair-overflow frames {n_ovf}, slack-violations {n_slack}, K1 launches {launched}, "
+                  f"pair demand mean {out.pair_demand.float().mean().item():.1f} max "
+                  f"{int(out.pair_demand.max())} [{tag}]", flush=True)
+            if launched != n_blocks:
+                fail(f"tiles {label}: K1 launched {launched} times for {n_blocks} superblocks")
+            if n_ovf or n_slack:
+                fail(f"tiles {label}: pair overflow on {n_ovf} frames, slack violated on {n_slack}")
+            if not np.isfinite(est).all():
+                fail(f"tiles {label}: non-finite pose")
+            if not ate < ATE_LIMIT:
+                fail(f"tiles {label}: ATE-RMSE {ate} >= {ATE_LIMIT}")
+        record(f"tiles_{label}")
+        w["rate"] = wrate
+        w["k1_steady_ms"] = profile_pass(
+            lambda: pf.run_chunk_fast(w["state"], w["frames"], w["loc"].map_cloud, wcfg), pf,
+            n_blocks, (n - 1) / wrate, f"tiles {label}; {tag}")
+    print(f"phase 8 the JAX package's tile shapes: {time.perf_counter() - t0:.1f} s; scans/s (pass 1) "
+          + ", ".join(f"{k} {w['rate']:.1f}" for k, w in wide.items()) + f" [{tag}]", flush=True)
+
     for kernel in kernels:
         if not sum(launches[kernel].values()):
             fail(f"{kernel.__name__} never launched on a main path")
     print(f"total {time.perf_counter() - t_start:.1f} s [{tag}]", flush=True)
+
+    x = wide["16x4096"]
 
     def row(kernel, label, source, replaces, err, ms, plain_ms, bnd, **extra):
         by_path = {p: c for p, c in launches[kernel].items() if c}
@@ -1298,13 +1521,25 @@ def main() -> None:
         row(superblock_fine, "K1 superblock_fine",
             "slam_sensor_fusion_tpu_torch/csrc/superblock_fused.cu",
             "slam_sensor_fusion_tpu/ops/superblock_fused.py:105",
-            k1_err, k1_ms, k1_plain_ms, k1_bound, ms_steady_superblock=k1_steady_ms,
-            grid=grids["K1"]),
+            max([k1_err] + [w["k1_err"] for w in wide.values()]), k1_ms, k1_plain_ms, k1_bound,
+            ms_steady_superblock=k1_steady_ms, grid=grids["K1"],
+            **{f"{key}_{label}": val for label, w in wide.items() for key, val in [
+                ("ms", w["k1_ms"]), ("plain_ms", w["k1_plain_ms"]),
+                ("bound_ms", w["k1_bound"][0]), ("ms_steady_superblock", w["k1_steady_ms"]),
+                ("scratch_mib", w["scratch_mib"]), ("prologue_ms", w["prologue_ms"]),
+                ("grid", grids[f"K1 {label}"])]}),
         row(pair_nn, "K2 pair_nn", "slam_sensor_fusion_tpu_torch/csrc/nn_pallas.cu",
-            "slam_sensor_fusion_tpu/ops/nn_pallas.py:105", k2_err, k2_ms, k2_plain_ms, k2_bound),
+            "slam_sensor_fusion_tpu/ops/nn_pallas.py:105", max(k2_err, x["k2_err"]), k2_ms,
+            k2_plain_ms, k2_bound, ms_16x4096=x["k2_ms"], plain_ms_16x4096=x["k2_plain_ms"],
+            bound_ms_16x4096=x["k2_bound"][0]),
         row(_fused_core, "K3 icp_fused", "slam_sensor_fusion_tpu_torch/csrc/icp_fused.cu",
-            "slam_sensor_fusion_tpu/ops/icp_fused.py:131", max(k3_err, k3l_err), k3_ms,
-            k3_plain_ms, k3_bound),
+            "slam_sensor_fusion_tpu/ops/icp_fused.py:131",
+            max(k3_err, k3l_err, x["k3_fresh_err"], x["k3_lazy_err"]), k3_ms, k3_plain_ms, k3_bound,
+            ms_lazy=k3l_ms, plain_ms_lazy=k3l_plain_ms, bound_ms_lazy=k3l_bound[0], grid=grids["K3"],
+            **{f"{key}_4x4096_{v}": x[f"k3_{v}_{src}"] if key != "bound_ms" else x[f"k3_{v}_bound"][0]
+               for v in ("fresh", "lazy")
+               for key, src in [("ms", "ms"), ("plain_ms", "plain_ms"), ("bound_ms", "bound")]},
+            grid_4x4096=grids["K3 4x4096"]),
         row(p2p._p2p_core, "K4 p2p_fused", "slam_sensor_fusion_tpu_torch/csrc/p2p_fused.cu",
             "slam_sensor_fusion_tpu/ops/p2p_fused.py:210", max(k4_err, k4f_err), k4_ms,
             k4_plain_ms, k4_bound, ms_fresh=k4f_ms, plain_ms_fresh=k4f_plain_ms,

@@ -56,11 +56,11 @@ __device__ __forceinline__ unsigned long long now_ns() {
     atomicAdd(&g_prof[3], 1ull);
   }
 }"""),
-    ("""    sfk::grid::serve(g, ctl, [&] { scan_items<NST>(A, page); });
+    ("""      sfk::grid::serve(g, ctl, [&] { scan_items<Pts::kTiles>(A, page); });
     return;
-  }""", """    sfk::grid::serve(g, ctl, [&] {
+  }""", """      sfk::grid::serve(g, ctl, [&] {
       const unsigned long long t1 = now_ns();
-      scan_items<NST>(A, page);
+      scan_items<Pts::kTiles>(A, page);
       __syncthreads();
       if (threadIdx.x == 0) {
         const unsigned long long d = now_ns() - t1;

@@ -19,28 +19,44 @@
 // tile's admitted target tiles, TM x TN direct-difference distances a pair
 // (~13 float instructions each with the running minimum); at the session's
 // shapes (8 source tiles of 512, ~10-20 admitted tiles each) that is ~10^7
-// distances a pass, issued by ONE SM, since the ICP is a serial chain of
-// passes and one block per launch is the simple, correct first design (1 of
-// 132 SMs). Bytes are not the limit: the target pages (at most 128 x 6 KiB)
-// stay in L2 and each warp reads one target row at a time as a broadcast.
+// distances a pass. The ICP is a serial chain of passes, so only the
+// association is wide: the first port ran it all in ONE block (1 of 132
+// SMs). Bytes are not the limit: the target pages (at most 128 x 6 KiB at
+// the session's shapes) stay in L2 and each warp reads one target row at a
+// time as a broadcast.
 //
-// Design: one block of TM x G threads, G = min(nSt, 1024 / TM) groups; group
-// g owns source tiles g, g + G, ... and thread r of a group owns point r of
-// each of them. The per-point scratch (matched x, y, z and the gate/alive
-// weight, a float4 a point: 512 KiB at 128 tiles of 256) does not fit in
-// shared memory, so it lives in a global buffer the wrapper allocates; each
-// thread reads and writes only its own points, so it needs no barrier, and
-// it stays in the 50 MB L2. The association is icp_fused.cuh's
-// `nearest_first`, shared with K4: a strict `<` in visit order keeps the
-// FIRST row of an exact tie within a tile and the earlier tile across tiles,
-// the JAX kernel's argmin + strict-`<` rule (K1 averages ties instead). The
-// moment sums are the fixed-order block
-// reduction of icp_fused.cuh (no atomics: deterministic), and the library
-// builds with -fmad=false, so products and sums round op by op as in the
-// plain version `_fused_core_plain`.
+// Design: a persistent cooperative grid, one block on each SM
+// (grid_assoc.cuh), as K1 and K4. Block 0, the leader, keeps the one-block
+// layout: TM x G threads, G = min(nSt, 1024 / TM); thread x owns the points
+// x, x + TM G, ... of the flat (tile, row) order, i.e. group g owns source
+// tiles g, g + G, ... and thread r of a group owns point r of each of them
+// (tiles wider than 1024 rows: 1024 threads, the same flat order). The
+// per-point scratch (matched x, y, z and the gate/alive weight, a float4 a
+// point: 512 KiB at 128 tiles of 256) lives in a global buffer the wrapper
+// allocates; each leader thread reads and writes only its own points, so
+// it needs no barrier, and it stays in the 50 MB L2. Each association is a
+// first-row round over the grid (grid_assoc.cuh `scan_first<3>`, K4's
+// round on 3-row pages): the leader publishes (R, t), the other 131 blocks
+// scan (source tile, pair slot) items cut into chunks of whole warps of
+// source rows with icp_fused.cuh's `nearest_first` on the slot's one
+// target tile, writing the tile's best d2 and first winning row to
+// per-slot scratch; the leader then combines each point's slots in slot
+// order under a strict `<` from kBig (`combine_first<3>`) into the
+// per-point scratch: weight d2 < gate in a fresh round, weight *= (d2 <
+// gate) in a lazy re-association. That is the one-block running loop's
+// result bit for bit: the FIRST row of an exact tie within a tile and the
+// earlier tile across tiles, the JAX kernel's argmin + strict-`<` rule (K1
+// averages ties instead). The moment sums are the fixed-order block
+// reduction of icp_fused.cuh (no atomics: deterministic) in the one-block
+// layout, the Kabsch solve and the lazy branch logic run on thread 0 as
+// before, and the library builds with -fmad=false, so products and sums
+// round op by op as in the plain version `_fused_core_plain` and the
+// outputs equal the one-block kernel's bit for bit.
 #include <cuda_runtime.h>
 
-#include "icp_fused.cuh"
+#include "grid_assoc.cuh"
+
+namespace cg = cooperative_groups;
 
 // Mirrors ctypes struct `_K3Params` in ops/icp_fused.py.
 struct K3Params {
@@ -65,46 +81,33 @@ struct Shared {
   float mom[kNMom];
 };
 
-struct Tiles {
-  const float* src;    // (nSt, 3, TM) sensor-frame source pages
-  const float* tgt;    // (nTt, 3, TN) rebased target pages
-  const int* ps;       // (nSt,) pair_start
-  const int* pc;       // (nSt,) pair_cnt
-  const int* pt;       // (max_pairs,) pair_tgt
-  float4* scratch;     // (nSt, TM): matched x, y, z and weight
-  int nSt, TM, TN;
+// What the leader's association rounds read and write.
+struct Leader {
+  const cg::grid_group& g;
+  sfk::grid::Ctl* ctl;
+  const sfk::grid::FirstRound& A;
+  float4* scratch;  // (nSt, TM): matched x, y, z and weight
 };
 
-// Associate this thread's points under (S.R, S.t). shrink = 0: weight =
-// (d2 < gate); shrink = 1: weight *= (d2 < gate).
-__device__ void associate(const Shared& S, const Tiles& T, float gate, bool shrink) {
-  float R[9], t[3];
-#pragma unroll
-  for (int m = 0; m < 9; ++m) R[m] = S.R[m];
-  t[0] = S.t[0]; t[1] = S.t[1]; t[2] = S.t[2];
-  const int G = blockDim.x / T.TM;
-  const int r = threadIdx.x % T.TM;
-  for (int i = threadIdx.x / T.TM; i < T.nSt; i += G) {
-    const float* s = T.src + (size_t)i * 3 * T.TM;
-    const float px = s[r], py = s[T.TM + r], pz = s[2 * T.TM + r];
-    const float sx = R[0] * px + R[1] * py + R[2] * pz + t[0];
-    const float sy = R[3] * px + R[4] * py + R[5] * pz + t[1];
-    const float sz = R[6] * px + R[7] * py + R[8] * pz + t[2];
-    const float* win;
-    const float best =
-        sfk::nearest_first<3>(T.tgt, T.pt, T.ps[i], T.pc[i], T.TN, sx, sy, sz, &win);
+// Associate the leader's points under (S.R, S.t): one round over the grid,
+// then each point's slots combined in order. shrink = 0: weight = (d2 <
+// gate); shrink = 1: weight *= (d2 < gate).
+__device__ void associate(const Shared& S, const Leader& L, float gate, bool shrink) {
+  sfk::grid::lead_round(L.g, L.ctl, 0, S.R, S.t);
+  const int TM = L.A.TM, TN = L.A.TN;
+  sfk::grid::combine_first<3>(L.A, [&](int i, int r, float best, const float* win) {
     const float bx = win ? win[0] : 0.0f;
-    const float by = win ? win[T.TN] : 0.0f;
-    const float bz = win ? win[2 * T.TN] : 0.0f;
-    float4* o = T.scratch + (size_t)i * T.TM + r;
-    const float g = best < gate ? 1.0f : 0.0f;
-    *o = make_float4(bx, by, bz, shrink ? o->w * g : g);
-  }
+    const float by = win ? win[TN] : 0.0f;
+    const float bz = win ? win[2 * TN] : 0.0f;
+    float4* o = L.scratch + (size_t)i * TM + r;
+    const float gt = best < gate ? 1.0f : 0.0f;
+    *o = make_float4(bx, by, bz, shrink ? o->w * gt : gt);
+  });
 }
 
 // The 17 gated Kabsch moments under (S.R, S.t), weights from the scratch,
 // into S.mom (every thread must call it).
-__device__ void moments(Shared& S, const Tiles& T, float* red) {
+__device__ void moments(Shared& S, const Leader& L, float* red) {
   float R[9], t[3];
 #pragma unroll
   for (int m = 0; m < 9; ++m) R[m] = S.R[m];
@@ -112,12 +115,13 @@ __device__ void moments(Shared& S, const Tiles& T, float* red) {
   float v[kNMom];
 #pragma unroll
   for (int m = 0; m < kNMom; ++m) v[m] = 0.0f;
-  const int G = blockDim.x / T.TM;
-  const int r = threadIdx.x % T.TM;
-  for (int i = threadIdx.x / T.TM; i < T.nSt; i += G) {
-    const float* s = T.src + (size_t)i * 3 * T.TM;
-    const float px = s[r], py = s[T.TM + r], pz = s[2 * T.TM + r];
-    const float4 b = T.scratch[(size_t)i * T.TM + r];
+  const int TM = L.A.TM;
+  for (int p = threadIdx.x; p < L.A.nSt * TM; p += blockDim.x) {
+    const int i = p / TM;
+    const int r = p - i * TM;
+    const float* s = L.A.src + (size_t)i * 3 * TM;
+    const float px = s[r], py = s[TM + r], pz = s[2 * TM + r];
+    const float4 b = L.scratch[p];
     const float w = b.w;
     const float sp[3] = {R[0] * px + R[1] * py + R[2] * pz + t[0],
                          R[3] * px + R[4] * py + R[5] * pz + t[1],
@@ -137,20 +141,18 @@ __device__ void moments(Shared& S, const Tiles& T, float* red) {
   sfk::block_sum<kNMom>(v, red, S.mom);
 }
 
-__device__ sfk::IcpOut icp_lazy(Shared& S, const Tiles& T, float* red, const K3Params& prm) {
+__device__ sfk::IcpOut icp_lazy(Shared& S, const Leader& L, float* red, const K3Params& prm) {
   sfk::IcpOut o{sfk::kBig, 0, 0, sfk::kBig};
-  associate(S, T, prm.gate, false);
+  associate(S, L, prm.gate, false);
   {
     float v[1] = {0.0f};
-    const int G = blockDim.x / T.TM;
-    const int r = threadIdx.x % T.TM;
-    for (int i = threadIdx.x / T.TM; i < T.nSt; i += G) v[0] += T.scratch[(size_t)i * T.TM + r].w;
+    for (int p = threadIdx.x; p < L.A.nSt * L.A.TM; p += blockDim.x) v[0] += L.scratch[p].w;
     sfk::block_sum<1>(v, red, S.mom);
   }
   o.n_corr = (int)S.mom[0];
   bool live = o.n_corr >= prm.min_corr;
   for (int it = 0; it < prm.num_iterations && live; ++it) {
-    moments(S, T, red);
+    moments(S, L, red);
     float err = 0.0f;
     bool hit = false;
     if (threadIdx.x == 0) {
@@ -160,8 +162,8 @@ __device__ sfk::IcpOut icp_lazy(Shared& S, const Tiles& T, float* red, const K3P
     }
     __syncthreads();
     if (S.need) {  // plateau: re-associate, the alive set only shrinks
-      associate(S, T, prm.gate, true);
-      moments(S, T, red);
+      associate(S, L, prm.gate, true);
+      moments(S, L, red);
     }
     if (threadIdx.x == 0) {
       float R_step[9], t_step[3], detH;
@@ -179,12 +181,12 @@ __device__ sfk::IcpOut icp_lazy(Shared& S, const Tiles& T, float* red, const K3P
   return o;  // meaningful on thread 0
 }
 
-__device__ sfk::IcpOut icp_fresh(Shared& S, const Tiles& T, float* red, const K3Params& prm) {
+__device__ sfk::IcpOut icp_fresh(Shared& S, const Leader& L, float* red, const K3Params& prm) {
   sfk::IcpOut o{sfk::kBig, 0, 0, sfk::kBig};
   bool live = true;
   for (int it = 0; it < prm.num_iterations && live; ++it) {
-    associate(S, T, prm.gate, false);
-    moments(S, T, red);
+    associate(S, L, prm.gate, false);
+    moments(S, L, red);
     if (threadIdx.x == 0) {
       const float W = S.mom[0];
       const float Wc = sfk::jmax(W, 1.0f);
@@ -215,13 +217,24 @@ __global__ void __launch_bounds__(1024, 1) icp_fused_kernel(
     float* __restrict__ T_out,            // (4, 4)
     float* __restrict__ stats,            // (128,)
     float4* __restrict__ scratch,         // (nSt, TM)
+    float* slot_d2,                       // (max_pairs, TM) rounds' winners by slot
+    int* slot_row,                        // (max_pairs, TM)
+    sfk::grid::Ctl* ctl,                  // the leader's published round
     int nSt, int TM, int TN, K3Params prm) {
+  const cg::grid_group g = cg::this_grid();
+  const sfk::grid::FirstRound A{src_pages, tgt_pages, pair_start, pair_cnt, pair_tgt,
+                                slot_d2, slot_row, nSt, TM, TN};
+  if (blockIdx.x != 0) {  // a worker: serve the leader's association rounds
+    sfk::grid::serve(g, ctl, [&] { sfk::grid::scan_first<3>(A, ctl); });
+    return;
+  }
   __shared__ float red[kNMom * 32];
   __shared__ Shared S;
-  const Tiles T{src_pages, tgt_pages, pair_start, pair_cnt, pair_tgt, scratch, nSt, TM, TN};
+  const Leader L{g, ctl, A, scratch};
   if (threadIdx.x == 0) sfk::read44(T0, S.R, S.t);
   __syncthreads();
-  const sfk::IcpOut o = prm.lazy ? icp_lazy(S, T, red, prm) : icp_fresh(S, T, red, prm);
+  const sfk::IcpOut o = prm.lazy ? icp_lazy(S, L, red, prm) : icp_fresh(S, L, red, prm);
+  sfk::grid::dismiss(g, ctl);
   if (threadIdx.x == 0) {
     sfk::pack44(S.R, S.t, 1.0f, T_out);
     stats[0] = o.err;
@@ -232,19 +245,44 @@ __global__ void __launch_bounds__(1024, 1) icp_fused_kernel(
   }
 }
 
+inline bool bad_tiles(int nSt, int TM) {
+  return TM < 32 || TM > 4096 || TM % 32 || nSt < 1;
+}
+
 }  // namespace
 
-// Launch K3 on `stream`; returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for a tile width it does not take.
+// Launch K3 on `stream` as a cooperative grid; returns the launch's error
+// (0 on success; a grid the card cannot hold co-resident is refused, not
+// shrunk), or cudaErrorInvalidValue for a tile width it does not take.
+// `scratch` holds nSt x TM float4, `slot_d2` and `slot_row` max_pairs x TM
+// floats and ints, `ctl` a sfk::grid::Ctl; none needs initialising.
 extern "C" int sfk_icp_fused(const float* src_pages, const float* tgt_pages,
                              const int* pair_start, const int* pair_cnt,
                              const int* pair_tgt, const float* T0, float* T_out,
-                             float* stats, float* scratch, int nSt, int TM, int TN,
-                             const K3Params* prm, cudaStream_t stream) {
-  if (TM < 32 || TM > 1024 || TM % 32 || nSt < 1) return (int)cudaErrorInvalidValue;
-  const int G = nSt < 1024 / TM ? nSt : 1024 / TM;
-  icp_fused_kernel<<<1, TM * G, 0, stream>>>(
-      src_pages, tgt_pages, pair_start, pair_cnt, pair_tgt, T0, T_out, stats,
-      reinterpret_cast<float4*>(scratch), nSt, TM, TN, *prm);
+                             float* stats, float* scratch, float* slot_d2, int* slot_row,
+                             void* ctl, int nSt, int TM, int TN, const K3Params* prm,
+                             cudaStream_t stream) {
+  if (bad_tiles(nSt, TM)) return (int)cudaErrorInvalidValue;
+  const int threads = sfk::grid::first_threads(nSt, TM);
+  int blocks, per_sm;
+  cudaError_t e =
+      sfk::grid::grid_size((const void*)icp_fused_kernel, threads, 0, &blocks, &per_sm);
+  if (e != cudaSuccess) return (int)e;
+  float4* s4 = reinterpret_cast<float4*>(scratch);
+  sfk::grid::Ctl* c = static_cast<sfk::grid::Ctl*>(ctl);
+  K3Params p = *prm;
+  void* args[] = {&src_pages, &tgt_pages, &pair_start, &pair_cnt, &pair_tgt, &T0, &T_out,
+                  &stats, &s4, &slot_d2, &slot_row, &c, &nSt, &TM, &TN, &p};
+  e = cudaLaunchCooperativeKernel((const void*)icp_fused_kernel, dim3(blocks), dim3(threads),
+                                  args, 0, stream);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// K3's cooperative grid for these tiles: blocks, threads a block and the
+// blocks a multiprocessor could hold.
+extern "C" int sfk_icp_grid(int nSt, int TM, int* blocks, int* threads, int* per_sm) {
+  if (bad_tiles(nSt, TM)) return (int)cudaErrorInvalidValue;
+  *threads = sfk::grid::first_threads(nSt, TM);
+  return (int)sfk::grid::grid_size((const void*)icp_fused_kernel, *threads, 0, blocks, per_sm);
 }

@@ -38,12 +38,14 @@
 // The matched set (7 floats a point: 224 KiB at 16 tiles of 512) is more
 // than an SM's shared memory, so it lives in global buffers the wrapper
 // allocates, in K5's output layout (d2 (nSt, 1, TM), qn (nSt, 6, TM)). Each
-// association is a round over the grid: every other block's G groups take
-// (source tile, pair slot) items and run icp_fused.cuh's `nearest_first`
-// (K3's, with 6-row pages) on the slot's one tile, writing the tile's best
-// d2 and first winning row to per-slot scratch; the leader then combines
-// each point's slots in order under a strict `<` (first row within a tile,
-// earlier tile across tiles, as the one-block walk) into the matched set.
+// association is a round over the grid, grid_assoc.cuh's first-row round
+// that K3 runs on 3-row pages: every other block takes chunks of (source
+// tile, pair slot) items and runs icp_fused.cuh's `nearest_first` on the
+// slot's one tile, writing the tile's best d2 and first winning row to
+// per-slot scratch (`scan_first<6>`); the leader then combines each
+// point's slots in order under a strict `<` (first row within a tile,
+// earlier tile across tiles, as the one-block walk) into the matched set
+// (`combine_first<6>`).
 // With fixed correspondences that is one round at the prior followed by
 // p2p_fused.cuh's `gn_passes`; with fresh ones K4 runs gn_passes' order
 // itself with a round in every pass. The 29 moment sums go through the
@@ -84,53 +86,6 @@ __device__ void pack_outputs(const Shared& S, const P2PParams& prm, float* T_out
   for (int m = 25; m < 128; ++m) stats[m] = 0.0f;
 }
 
-// This worker's items of the round under the published (R, t): group h of
-// worker w takes items h * workers + w, + G * workers, ...;
-// for item (tile i, slot s) thread r scans target tile pt[s] for its point
-// r of tile i and writes the tile's best d2 and winning row (-1: none
-// below kBig) to slot_d2 / slot_row[s].
-__device__ void scan_items(const Tiles& T, const sfk::grid::Ctl* ctl, float* slot_d2,
-                           int* slot_row) {
-  const sfk::grid::Pose X = sfk::grid::read_pose(ctl);
-  const int TM = T.TM;
-  const int r = threadIdx.x % TM;
-  const int workers = sfk::grid::n_workers();
-  const int units = workers * (blockDim.x / TM);
-  const int n = sfk::grid::n_items(T.pc, T.nSt);
-  for (int j = (threadIdx.x / TM) * workers + sfk::grid::worker(); j < n; j += units) {
-    int s;
-    const int i = sfk::grid::item_at(j, T.ps, T.pc, &s);
-    const float* sp = T.src + (size_t)i * 3 * TM;
-    const float px = sp[r], py = sp[TM + r], pz = sp[2 * TM + r];
-    const float sx = X.R[0] * px + X.R[1] * py + X.R[2] * pz + X.t[0];
-    const float sy = X.R[3] * px + X.R[4] * py + X.R[5] * pz + X.t[1];
-    const float sz = X.R[6] * px + X.R[7] * py + X.R[8] * pz + X.t[2];
-    const float* win;
-    slot_d2[(size_t)s * TM + r] =
-        sfk::nearest_first<6>(T.tgt, T.pt, s, 1, T.TN, sx, sy, sz, &win);
-    slot_row[(size_t)s * TM + r] =
-        win ? (int)(win - (T.tgt + (size_t)T.pt[s] * 6 * T.TN)) : -1;
-  }
-}
-
-// The leader's combine of a round into the matched set, in its layout
-// (group g: tiles g, g + G, ...; thread r: point r), which is the layout
-// `moments` reads, so no barrier follows.
-__device__ void combine(const Tiles& T, const float* slot_d2, const int* slot_row) {
-  const int TM = T.TM;
-  const int r = threadIdx.x % TM;
-  for (int i = threadIdx.x / TM; i < T.nSt; i += blockDim.x / TM) {
-    int w;
-    T.d2[(size_t)i * TM + r] = sfk::grid::combine(slot_d2 + r, TM, T.ps[i], T.pc[i], &w);
-    const float* win =
-        w < 0 ? nullptr
-              : T.tgt + (size_t)T.pt[w] * 6 * T.TN + __ldcg(slot_row + (size_t)w * TM + r);
-    float* o = T.qn + (size_t)i * 6 * TM + r;
-#pragma unroll
-    for (int k = 0; k < 6; ++k) o[k * TM] = win ? win[k * T.TN] : 0.0f;
-  }
-}
-
 __global__ void __launch_bounds__(1024, 1) p2p_fused_kernel(
     const float* __restrict__ src_pages,  // (nSt, 3, TM)
     const float* __restrict__ tgt_pages,  // (nTt, 6, TN)
@@ -149,17 +104,26 @@ __global__ void __launch_bounds__(1024, 1) p2p_fused_kernel(
   const cg::grid_group g = cg::this_grid();
   const Tiles T{src_pages, tgt_pages, pair_start, pair_cnt, pair_tgt,
                 best_d2, best_qn, nSt, TM, TN};
+  const sfk::grid::FirstRound A{src_pages, tgt_pages, pair_start, pair_cnt, pair_tgt,
+                                slot_d2, slot_row, nSt, TM, TN};
   if (blockIdx.x != 0) {  // a worker: serve the leader's association rounds
-    sfk::grid::serve(g, ctl, [&] { scan_items(T, ctl, slot_d2, slot_row); });
+    sfk::grid::serve(g, ctl, [&] { sfk::grid::scan_first<6>(A, ctl); });
     return;
   }
   __shared__ float red[kNMom * 32];
   __shared__ Shared S;
   if (threadIdx.x == 0) sfk::read44(T0, S.R, S.t);
   __syncthreads();
+  // the combine writes the matched set in the layout `moments` reads
+  // (group g: tiles g, g + G, ...; thread r: point r), so no barrier follows
   auto associate = [&] {
     sfk::grid::lead_round(g, ctl, 0, S.R, S.t);
-    combine(T, slot_d2, slot_row);
+    sfk::grid::combine_first<6>(A, [&](int i, int r, float best, const float* win) {
+      T.d2[(size_t)i * TM + r] = best;
+      float* o = T.qn + (size_t)i * 6 * TM + r;
+#pragma unroll
+      for (int k = 0; k < 6; ++k) o[k * TM] = win ? win[k * TN] : 0.0f;
+    });
   };
   if (prm.fixed) {
     associate();
@@ -212,7 +176,7 @@ __global__ void __launch_bounds__(1024, 1) p2p_gn_corr_kernel(
 }
 
 // Threads of one block: TM a source tile, as many tiles side by side as fit.
-inline int groups(int nSt, int TM) { return nSt < 1024 / TM ? nSt : 1024 / TM; }
+inline int groups(int nSt, int TM) { return sfk::grid::first_threads(nSt, TM) / TM; }
 
 inline bool bad_tiles(int nSt, int TM) {
   return TM < 32 || TM > 1024 || TM % 32 || nSt < 1;

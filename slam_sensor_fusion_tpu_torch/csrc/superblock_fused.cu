@@ -18,7 +18,7 @@
 // them is serial (each prior depends on the last frame's ICP).
 // The first port ran it all in ONE block, on 1 of 132 SMs.
 //
-// Design: a persistent cooperative grid, one block of TM threads on each SM
+// Design: a persistent cooperative grid, one block on each SM
 // (grid_assoc.cuh). Block 0, the leader, keeps the one-block layout: thread
 // r owns point r of every source tile, its sensor-frame coordinates,
 // matched target coordinates and alive flag in registers (NST x 7 floats);
@@ -40,6 +40,22 @@
 // Built with -fmad=false: the same expressions round the same way, so
 // every output equals the one-block kernel's bit for bit and the plain
 // PyTorch version's to rounding of the moment sums.
+//
+// Two leader layouts. Up to 8 source tiles of at most 1024 rows (the bench
+// path), the leader's points live in registers as above, and the block is
+// TM threads. Past that (the JAX package's default 64 tiles of 256, its
+// autosize rule's 32 of 512, the stress cell's 16 of 4096) the GLOBAL
+// layout keeps each point's matched x, y, z and alive weight as a float4
+// in a global buffer (nSt, TM) and reads its sensor coordinates from the
+// source pages, as K3 does. Every block is then 1024 threads whatever TM
+// is; leader thread x owns rows x, x + L, ... (L = min(TM, 1024)) of every
+// tile and sums them tile by tile, so at the register layout's shapes it
+// sums the same points in the same order and its outputs equal the
+// register layout's bit for bit (threads past L add zeros to the block
+// sums). A round of the global layout has many items (~12 a tile), and
+// its combine reads every slot of every point, so the combine is spread
+// too: after the scan's barrier each block combines a share of the
+// points into the float4 buffer, and a third barrier ends the round.
 #include <cuda_runtime.h>
 
 #include "grid_assoc.cuh"
@@ -76,16 +92,10 @@ struct Frame {
   float mom[kNMom];
 };
 
-template <int NST>
-struct Points {
-  float px[NST], py[NST], pz[NST];  // sensor-frame source point of each tile
-  float bx[NST], by[NST], bz[NST];  // matched target coords (rebased frame)
-  float al[NST];                    // alive / gate weight
-};
-
 // What one launch's association rounds read: the frames' source pages and
 // pair lists, the target pages, the per-slot scratch (max_pairs x 4 x TM:
-// tile minimum d2 and tie-averaged x, y, z) and the control block.
+// tile minimum d2 and tie-averaged x, y, z), the global layout's points
+// and the control block.
 struct Assoc {
   const float* src;   // (K, nSt, 3, TM)
   const int* ps;      // (K, nSt)
@@ -93,47 +103,88 @@ struct Assoc {
   const int* pt;      // (K, max_pairs)
   const float* tgt;   // (nTt, 3, TN)
   float* scratch;     // (max_pairs, 4, TM)
+  float4* state;      // (nSt, TM): the global layout's matched x, y, z, alive
   sfk::grid::Ctl* ctl;
-  int TN, max_pairs;
+  int nSt, TM, TN, max_pairs;
   int s_max;  // row chunks an item may be cut into (staging pages a block holds)
+  float gate;
 };
 
+// The register layout's points of leader thread r: point r of each tile.
+template <int NST>
+struct Points {
+  static constexpr bool kGlobal = false;
+  static constexpr int kTiles = NST;
+  float px[NST], py[NST], pz[NST];  // sensor-frame source point of each tile
+  float bx[NST], by[NST], bz[NST];  // matched target coords (rebased frame)
+  float al[NST];                    // alive / gate weight
+  // frame pages s (nSt, 3, TM)
+  __device__ __forceinline__ void load(const float* s, int TM, const Assoc&) {
+#pragma unroll
+    for (int i = 0; i < NST; ++i) {
+      px[i] = s[(i * 3 + 0) * TM + threadIdx.x];
+      py[i] = s[(i * 3 + 1) * TM + threadIdx.x];
+      pz[i] = s[(i * 3 + 2) * TM + threadIdx.x];
+    }
+  }
+};
+
+// The global layout's points: the frame's source pages and the state
+// buffer; leader thread x owns rows x, x + L, ... of every tile.
+struct GlobalPoints {
+  static constexpr bool kGlobal = true;
+  static constexpr int kTiles = 0;
+  const float* src;  // (nSt, 3, TM) of the frame
+  float4* state;     // (nSt, TM)
+  int nSt, TM, L;
+  __device__ __forceinline__ void load(const float* s, int TM_, const Assoc& A) {
+    src = s;
+    state = A.state;
+    nSt = A.nSt;
+    TM = TM_;
+    L = TM_ < (int)blockDim.x ? TM_ : (int)blockDim.x;
+  }
+};
+
+
 // This worker's share of the round the control block describes. A round of
-// n items has fewer items than the grid has workers at the main path's
-// shapes (~17-45 against 131), so each item is cut into P = workers / n
-// chunks of source rows (at most s_max, whole warps of rows), and a
-// worker's TM threads form TM / rows groups, each with its own staging
-// page. Chunk c (worker c % workers, group c / workers) is row chunk c % P
-// of item c / P: for item (tile i, slot s) of frame k, thread r of the
-// chunk transforms its point r of tile i and scans target tile pt[s],
-// staged in shared memory as float4; exact d2 ties of the tile minimum sum
-// their coordinates in row order. Writes the tile minimum and the averaged
-// coordinates to scratch[s]. Every thread of the block runs the same
-// number of trips, so the staging barriers are block-wide.
+// n items is cut by grid_assoc.cuh's `chunking`: at the bench path's
+// shapes a round has fewer items than the grid has workers (~17-45
+// against 131), so each item is cut into about workers / n chunks of
+// source rows (at most s_max, whole warps of rows, at most a block), and a
+// worker's threads form groups of `rows` threads, each with its own
+// staging page. Chunk c (worker c % workers, group c / workers) is row
+// chunk c % P of item c / P: for item (tile i, slot s) of frame k, thread
+// r of the chunk transforms its point r of tile i and scans target tile
+// pt[s], staged in shared memory as float4; exact d2 ties of the tile
+// minimum sum their coordinates in row order. Writes the tile minimum and
+// the averaged coordinates to scratch[s]. Every thread of the block runs
+// the same number of trips, so the staging barriers are block-wide. NST is
+// the register layout's tile count (its blocks are TM threads), known to
+// the compiler; 0 for the global layout.
 template <int NST>
 __device__ void scan_items(const Assoc& A, float4* page) {
   const sfk::grid::Pose X = sfk::grid::read_pose(A.ctl);
   const int k = sfk::grid::read_frame(A.ctl);
-  const int TM = blockDim.x;
-  const int* ps = A.ps + k * NST;
-  const int* pc = A.pc + k * NST;
+  const int nSt = NST > 0 ? NST : A.nSt;
+  const int TM = NST > 0 ? (int)blockDim.x : A.TM;
+  const int* ps = A.ps + k * nSt;
+  const int* pc = A.pc + k * nSt;
   const int* pt = A.pt + (size_t)k * A.max_pairs;
   const int TN = A.TN;
-  const int n = sfk::grid::n_items(pc, NST);
+  const int n = sfk::grid::n_items(pc, nSt);
   const int workers = sfk::grid::n_workers();
-  int P = n > 0 ? workers / n : 1;
-  P = P < 1 ? 1 : (P > A.s_max ? A.s_max : P);
-  const int rows = ((TM + P - 1) / P + 31) / 32 * 32;
-  P = (TM + rows - 1) / rows;
-  const int h = threadIdx.x / rows;  // the thread's group; TM / rows groups
+  const sfk::grid::Chunks C = sfk::grid::chunking(n, TM, A.s_max);
+  const int rows = C.rows, P = C.P;
+  const int h = threadIdx.x / rows;  // the thread's group
   const int lr = threadIdx.x % rows;
   float4* pg = page + h * TN;
-  const int units = workers * (TM / rows);
+  const int units = workers * C.groups;
   const int chunks = n * P;
   for (int c0 = 0; c0 < chunks; c0 += units) {
     const int c = c0 + h * workers + sfk::grid::worker();
     const int r = (c % P) * rows + lr;
-    const bool have = h < TM / rows && c < chunks;
+    const bool have = h < C.groups && c < chunks;
     int s = 0, i = 0;
     if (have) i = sfk::grid::item_at(c / P, ps, pc, &s);
     const float* tp = A.tgt + (size_t)pt[s] * 3 * TN;
@@ -143,7 +194,7 @@ __device__ void scan_items(const Assoc& A, float4* page) {
         pg[cc] = make_float4(tp[cc], tp[TN + cc], tp[2 * TN + cc], 0.0f);
     __syncthreads();
     if (!have || r >= TM) continue;
-    const float* sp = A.src + ((size_t)k * NST + i) * 3 * TM;
+    const float* sp = A.src + ((size_t)k * nSt + i) * 3 * TM;
     const float px = sp[r], py = sp[TM + r], pz = sp[2 * TM + r];
     const float sx = X.R[0] * px + X.R[1] * py + X.R[2] * pz + X.t[0];
     const float sy = X.R[3] * px + X.R[4] * py + X.R[5] * pz + X.t[1];
@@ -172,6 +223,32 @@ __device__ void scan_items(const Assoc& A, float4* page) {
     o[TM] = cx * inv;
     o[2 * TM] = cy * inv;
     o[3 * TM] = cz * inv;
+  }
+}
+
+// The global layout's combine: block b takes the points b * blockDim.x +
+// x, + gridDim.x * blockDim.x, ... of the flat (tile, row) order, combines
+// each point's slots in order under a strict `<` from kBig, and writes its
+// winner's averaged x, y, z (zeros where no slot won) and alive weight
+// (mode 0: the gate test; mode 1: times the gate test) to the state buffer.
+__device__ void combine_share(const Assoc& A) {
+  const int k = sfk::grid::read_frame(A.ctl);
+  const int mode = sfk::grid::read_mode(A.ctl);
+  const int* ps = A.ps + k * A.nSt;
+  const int* pc = A.pc + k * A.nSt;
+  const int TM = A.TM;
+  const size_t stride = 4 * (size_t)TM;
+  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < A.nSt * TM;
+       p += gridDim.x * blockDim.x) {
+    const int i = p / TM;
+    const float* col = A.scratch + (p - i * TM);
+    int w;
+    const float best = sfk::grid::combine(col, stride, ps[i], pc[i], &w);
+    const float* o = col + (size_t)(w < 0 ? 0 : w) * stride;
+    const float gt = best < A.gate ? 1.0f : 0.0f;
+    const float al = mode == 0 ? gt : __ldcg(&A.state[p].w) * gt;
+    A.state[p] = make_float4(w < 0 ? 0.0f : __ldcg(o + TM), w < 0 ? 0.0f : __ldcg(o + 2 * TM),
+                             w < 0 ? 0.0f : __ldcg(o + 3 * TM), al);
   }
 }
 
@@ -231,18 +308,75 @@ __device__ void moments(const Points<NST>& P, Frame& F, float* red) {
   sfk::block_sum<kNMom>(v, red, F.mom);
 }
 
+// The global layout's association: one round over the grid whose combine
+// every block shares (combine_share).
+__device__ void associate(const cg::grid_group& g, GlobalPoints&, const Frame& F,
+                          const Assoc& A, int k, float, int mode) {
+  sfk::grid::lead_round(g, A.ctl, k, mode, F.R, F.t, [&] { combine_share(A); });
+}
+
+// The register layout's moments over the global layout's points: the same
+// expressions over thread x's rows, tile by tile.
+__device__ void moments(const GlobalPoints& P, Frame& F, float* red) {
+  float R[9], t[3];
+#pragma unroll
+  for (int m = 0; m < 9; ++m) R[m] = F.R[m];
+  t[0] = F.t[0]; t[1] = F.t[1]; t[2] = F.t[2];
+  float v[kNMom];
+#pragma unroll
+  for (int m = 0; m < kNMom; ++m) v[m] = 0.0f;
+  const int first = threadIdx.x < P.L ? (int)threadIdx.x : P.TM;
+  for (int i = 0; i < P.nSt; ++i) {
+    const float* s = P.src + (size_t)i * 3 * P.TM;
+    for (int r = first; r < P.TM; r += P.L) {
+      const float4 b = __ldcg(P.state + (size_t)i * P.TM + r);
+      const float w = b.w;
+      const float px = s[r], py = s[P.TM + r], pz = s[2 * P.TM + r];
+      const float sp[3] = {
+          R[0] * px + R[1] * py + R[2] * pz + t[0],
+          R[3] * px + R[4] * py + R[5] * pz + t[1],
+          R[6] * px + R[7] * py + R[8] * pz + t[2]};
+      const float tb[3] = {b.x, b.y, b.z};
+      v[0] += w;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        v[1 + a] += sp[a] * w;
+        v[4 + a] += tb[a] * w;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) v[7 + 3 * a + c] += sp[a] * w * tb[c];
+      }
+      const float dx = sp[0] - tb[0], dy = sp[1] - tb[1], dz = sp[2] - tb[2];
+      v[16] += w * sqrtf(dx * dx + dy * dy + dz * dz);
+    }
+  }
+  sfk::block_sum<kNMom>(v, red, F.mom);
+}
+
+// The sum of the alive weights into F.mom[0] (every thread must call it).
 template <int NST>
-__device__ sfk::IcpOut icp_lazy(const cg::grid_group& g, Points<NST>& P, Frame& F, float* red,
+__device__ void alive(const Points<NST>& P, Frame& F, float* red) {
+  float v[1];
+  v[0] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < NST; ++i) v[0] += P.al[i];
+  sfk::block_sum<1>(v, red, F.mom);
+}
+
+__device__ void alive(const GlobalPoints& P, Frame& F, float* red) {
+  float v[1];
+  v[0] = 0.0f;
+  const int first = threadIdx.x < P.L ? (int)threadIdx.x : P.TM;
+  for (int i = 0; i < P.nSt; ++i)
+    for (int r = first; r < P.TM; r += P.L) v[0] += __ldcg(&P.state[(size_t)i * P.TM + r].w);
+  sfk::block_sum<1>(v, red, F.mom);
+}
+
+template <class Pts>
+__device__ sfk::IcpOut icp_lazy(const cg::grid_group& g, Pts& P, Frame& F, float* red,
                                 const Assoc& A, int k, const SBParams& prm) {
   sfk::IcpOut o{sfk::kBig, 0, 0, sfk::kBig};
   associate(g, P, F, A, k, prm.gate, 0);
-  {
-    float v[1];
-    v[0] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < NST; ++i) v[0] += P.al[i];
-    sfk::block_sum<1>(v, red, F.mom);
-  }
+  alive(P, F, red);
   o.n_corr = (int)F.mom[0];
   bool live = o.n_corr >= prm.min_corr;
   for (int it = 0; it < prm.num_iterations && live; ++it) {
@@ -275,8 +409,8 @@ __device__ sfk::IcpOut icp_lazy(const cg::grid_group& g, Points<NST>& P, Frame& 
   return o;  // meaningful on thread 0
 }
 
-template <int NST>
-__device__ sfk::IcpOut icp_fresh(const cg::grid_group& g, Points<NST>& P, Frame& F, float* red,
+template <class Pts>
+__device__ sfk::IcpOut icp_fresh(const cg::grid_group& g, Pts& P, Frame& F, float* red,
                                  const Assoc& A, int k, const SBParams& prm) {
   sfk::IcpOut o{sfk::kBig, 0, 0, sfk::kBig};
   bool live = true;
@@ -303,7 +437,7 @@ __device__ sfk::IcpOut icp_fresh(const cg::grid_group& g, Points<NST>& P, Frame&
   return o;
 }
 
-template <int NST>
+template <class Pts>
 __global__ void __launch_bounds__(1024, 1) superblock_kernel(
     const float* __restrict__ src_pages,  // (K, nSt, 3, TM)
     const int* __restrict__ pair_start,   // (K, nSt)
@@ -328,20 +462,23 @@ __global__ void __launch_bounds__(1024, 1) superblock_kernel(
     float* __restrict__ state_out,        // (Q + 3, 4, 4)
     float* __restrict__ count_out,        // (1, 128)
     float* scratch,                       // (max_pairs, 4, TM), rounds' winners by slot
+    float4* point_state,                  // (nSt, TM): the global layout's points
     sfk::grid::Ctl* ctl,                  // the leader's published round
-    int K, int TN, int max_pairs, int s_max, SBParams prm) {
+    int K, int nSt, int TM, int TN, int max_pairs, int s_max, SBParams prm) {
   extern __shared__ float4 smem_page[];  // s_max staging pages of TN rows (workers)
   __shared__ float red[kNMom * 32];
   __shared__ Frame F;
   float4* const page = smem_page;
   const cg::grid_group g = cg::this_grid();
-  const Assoc A{src_pages, pair_start, pair_cnt, pair_tgt, tgt_pages, scratch, ctl,
-                TN, max_pairs, s_max};
+  const Assoc A{src_pages, pair_start, pair_cnt, pair_tgt, tgt_pages, scratch, point_state,
+                ctl, nSt, TM, TN, max_pairs, s_max, prm.gate};
   if (blockIdx.x != 0) {  // a worker: serve the leader's association rounds
-    sfk::grid::serve(g, ctl, [&] { scan_items<NST>(A, page); });
+    if constexpr (Pts::kGlobal)
+      sfk::grid::serve(g, ctl, [&] { scan_items<0>(A, page); }, [&] { combine_share(A); });
+    else
+      sfk::grid::serve(g, ctl, [&] { scan_items<Pts::kTiles>(A, page); });
     return;
   }
-  const int TM = blockDim.x;
   const int Q = prm.Q;
 
   // carried state, thread 0 only
@@ -436,16 +573,9 @@ __global__ void __launch_bounds__(1024, 1) superblock_kernel(
 
     sfk::IcpOut o{sfk::kBig, 0, 0, sfk::kBig};
     if (v) {  // an invalid frame's ICP result is discarded: skip it
-      Points<NST> P;
-      const float* s = src_pages + (size_t)k * NST * 3 * TM;
-#pragma unroll
-      for (int i = 0; i < NST; ++i) {
-        P.px[i] = s[(i * 3 + 0) * TM + threadIdx.x];
-        P.py[i] = s[(i * 3 + 1) * TM + threadIdx.x];
-        P.pz[i] = s[(i * 3 + 2) * TM + threadIdx.x];
-      }
-      o = prm.lazy ? icp_lazy<NST>(g, P, F, red, A, k, prm)
-                   : icp_fresh<NST>(g, P, F, red, A, k, prm);
+      Pts P;
+      P.load(src_pages + (size_t)k * nSt * 3 * TM, TM, A);
+      o = prm.lazy ? icp_lazy(g, P, F, red, A, k, prm) : icp_fresh(g, P, F, red, A, k, prm);
     }
 
     if (threadIdx.x == 0) {
@@ -493,13 +623,19 @@ __global__ void __launch_bounds__(1024, 1) superblock_kernel(
 // The most row chunks an item may be cut into: up to 16, chunks of at
 // least a warp, and as many staging pages as fit 200 KB of the 227 KB of
 // shared memory a block may use.
-inline int chunk_max(int TM, int TN) {
+inline int chunk_max(int threads, int TN) {
   int s = 16;
-  while (s > 1 && (32 * s > TM || (size_t)s * TN * sizeof(float4) > 200 * 1024)) --s;
+  while (s > 1 && (32 * s > threads || (size_t)s * TN * sizeof(float4) > 200 * 1024)) --s;
   return s;
 }
 
-template <int NST>
+// Threads a block: the register layout's TM, the global layout's 1024.
+template <class Pts>
+int block_threads(int TM) {
+  return Pts::kGlobal ? 1024 : TM;
+}
+
+template <class Pts>
 int launch(const float* src_pages, const int* pair_start, const int* pair_cnt,
            const int* pair_tgt, const int* valid, const float* odom_T,
            const float* gps_T, const float* odom_tr, const float* gps_tr,
@@ -507,43 +643,56 @@ int launch(const float* src_pages, const int* pair_start, const int* pair_cnt,
            const int* count0, const float* filt_prev0, const float* center,
            const float* tgt_pages, float* poses_out, float* priors_out,
            float* odom_pred_out, float* stats_out, float* state_out,
-           float* count_out, float* scratch, sfk::grid::Ctl* ctl, int K, int TM,
-           int TN, int max_pairs, SBParams prm, cudaStream_t stream) {
-  int s_max = chunk_max(TM, TN);
+           float* count_out, float* scratch, float4* point_state, sfk::grid::Ctl* ctl, int K,
+           int nSt, int TM, int TN, int max_pairs, SBParams prm, cudaStream_t stream) {
+  const int threads = block_threads<Pts>(TM);
+  int s_max = chunk_max(threads, TN);
   const size_t smem = (size_t)s_max * TN * sizeof(float4);
   cudaError_t e = cudaFuncSetAttribute(
-      superblock_kernel<NST>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      superblock_kernel<Pts>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   int blocks, per_sm;
-  e = sfk::grid::grid_size((const void*)superblock_kernel<NST>, TM, smem, &blocks, &per_sm);
+  e = sfk::grid::grid_size((const void*)superblock_kernel<Pts>, threads, smem, &blocks, &per_sm);
   if (e != cudaSuccess) return (int)e;
   void* args[] = {&src_pages, &pair_start, &pair_cnt, &pair_tgt, &valid, &odom_T,
                   &gps_T, &odom_tr, &gps_tr, &pose0, &odom_prev0, &trans0,
                   &count0, &filt_prev0, &center, &tgt_pages, &poses_out, &priors_out,
-                  &odom_pred_out, &stats_out, &state_out, &count_out, &scratch, &ctl,
-                  &K, &TN, &max_pairs, &s_max, &prm};
-  e = cudaLaunchCooperativeKernel((const void*)superblock_kernel<NST>, dim3(blocks), dim3(TM),
-                                  args, smem, stream);
+                  &odom_pred_out, &stats_out, &state_out, &count_out, &scratch, &point_state,
+                  &ctl, &K, &nSt, &TM, &TN, &max_pairs, &s_max, &prm};
+  e = cudaLaunchCooperativeKernel((const void*)superblock_kernel<Pts>, dim3(blocks),
+                                  dim3(threads), args, smem, stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-template <int NST>
-int grid_of(int TM, int TN, int* blocks, int* per_sm) {
-  const size_t smem = (size_t)chunk_max(TM, TN) * TN * sizeof(float4);
+template <class Pts>
+int grid_of(int TM, int TN, int* blocks, int* threads, int* per_sm) {
+  *threads = block_threads<Pts>(TM);
+  const size_t smem = (size_t)chunk_max(*threads, TN) * TN * sizeof(float4);
   cudaError_t e = cudaFuncSetAttribute(
-      superblock_kernel<NST>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      superblock_kernel<Pts>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  return (int)sfk::grid::grid_size((const void*)superblock_kernel<NST>, TM, smem, blocks, per_sm);
+  return (int)sfk::grid::grid_size((const void*)superblock_kernel<Pts>, *threads, smem, blocks,
+                                   per_sm);
+}
+
+// Does (nSt, TM) take the global layout? Past 8 tiles or 1024 rows, or
+// when the caller asks for it.
+inline bool global_layout(int nSt, int TM, int force) { return force || nSt > 8 || TM > 1024; }
+
+inline bool bad_tiles(int nSt, int TM) {
+  return TM < 32 || TM > 4096 || TM % 32 || nSt < 1;
 }
 
 }  // namespace
 
 // Launch K1 on `stream` as a cooperative grid; returns the launch's error
 // (0 on success; a grid the card cannot hold co-resident is refused, not
-// shrunk), or cudaErrorInvalidValue for a tile count or queue size it was
-// not built for. `scratch` holds max_pairs x 4 x TM floats, `ctl` a
-// sfk::grid::Ctl; neither needs initialising.
+// shrunk), or cudaErrorInvalidValue for a tile shape or queue size it does
+// not take. `scratch` holds max_pairs x 4 x TM floats, `point_state` nSt x
+// TM x 4 floats (read only by the global layout: past 8 source tiles or
+// 1024 rows, or with `global` set), `ctl` a sfk::grid::Ctl; none needs
+// initialising.
 extern "C" int sfk_superblock_fine(
     const float* src_pages, const int* pair_start, const int* pair_cnt,
     const int* pair_tgt, const int* valid, const float* odom_T,
@@ -552,47 +701,45 @@ extern "C" int sfk_superblock_fine(
     const int* count0, const float* filt_prev0, const float* center,
     const float* tgt_pages, float* poses_out, float* priors_out,
     float* odom_pred_out, float* stats_out, float* state_out, float* count_out,
-    float* scratch, void* ctl, int K, int nSt, int TM, int TN, int max_pairs,
-    const SBParams* prm, cudaStream_t stream) {
-  if (prm->Q < 1 || prm->Q > kQmax) return (int)cudaErrorInvalidValue;
+    float* scratch, float* point_state, void* ctl, int K, int nSt, int TM, int TN,
+    int max_pairs, int global, const SBParams* prm, cudaStream_t stream) {
+  if (prm->Q < 1 || prm->Q > kQmax || bad_tiles(nSt, TM)) return (int)cudaErrorInvalidValue;
   sfk::grid::Ctl* c = static_cast<sfk::grid::Ctl*>(ctl);
-#define SFK_LAUNCH(N)                                                        \
-  case N:                                                                    \
-    return launch<N>(src_pages, pair_start, pair_cnt, pair_tgt, valid,       \
-                     odom_T, gps_T, odom_tr, gps_tr, pose0, odom_prev0,      \
-                     trans0, count0, filt_prev0, center, tgt_pages,          \
-                     poses_out, priors_out, odom_pred_out, stats_out,        \
-                     state_out, count_out, scratch, c, K, TM, TN, max_pairs, \
-                     *prm, stream);
+  float4* ps4 = reinterpret_cast<float4*>(point_state);
+#define SFK_LAUNCH(PTS)                                                       \
+  launch<PTS>(src_pages, pair_start, pair_cnt, pair_tgt, valid, odom_T, gps_T, \
+              odom_tr, gps_tr, pose0, odom_prev0, trans0, count0, filt_prev0,  \
+              center, tgt_pages, poses_out, priors_out, odom_pred_out,         \
+              stats_out, state_out, count_out, scratch, ps4, c, K, nSt, TM,    \
+              TN, max_pairs, *prm, stream)
+  if (global_layout(nSt, TM, global)) return SFK_LAUNCH(GlobalPoints);
   switch (nSt) {
-    SFK_LAUNCH(1)
-    SFK_LAUNCH(2)
-    SFK_LAUNCH(3)
-    SFK_LAUNCH(4)
-    SFK_LAUNCH(5)
-    SFK_LAUNCH(6)
-    SFK_LAUNCH(7)
-    SFK_LAUNCH(8)
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 1: return SFK_LAUNCH(Points<1>);
+    case 2: return SFK_LAUNCH(Points<2>);
+    case 3: return SFK_LAUNCH(Points<3>);
+    case 4: return SFK_LAUNCH(Points<4>);
+    case 5: return SFK_LAUNCH(Points<5>);
+    case 6: return SFK_LAUNCH(Points<6>);
+    case 7: return SFK_LAUNCH(Points<7>);
+    default: return SFK_LAUNCH(Points<8>);
   }
 #undef SFK_LAUNCH
 }
 
-// K1's cooperative grid for these tiles: blocks, threads a block (TM) and
-// the blocks a multiprocessor could hold.
+// K1's cooperative grid for these tiles: blocks, threads a block and the
+// blocks a multiprocessor could hold.
 extern "C" int sfk_superblock_grid(int nSt, int TM, int TN, int* blocks, int* threads,
                                    int* per_sm) {
-  *threads = TM;
+  if (bad_tiles(nSt, TM)) return (int)cudaErrorInvalidValue;
+  if (global_layout(nSt, TM, 0)) return grid_of<GlobalPoints>(TM, TN, blocks, threads, per_sm);
   switch (nSt) {
-    case 1: return grid_of<1>(TM, TN, blocks, per_sm);
-    case 2: return grid_of<2>(TM, TN, blocks, per_sm);
-    case 3: return grid_of<3>(TM, TN, blocks, per_sm);
-    case 4: return grid_of<4>(TM, TN, blocks, per_sm);
-    case 5: return grid_of<5>(TM, TN, blocks, per_sm);
-    case 6: return grid_of<6>(TM, TN, blocks, per_sm);
-    case 7: return grid_of<7>(TM, TN, blocks, per_sm);
-    case 8: return grid_of<8>(TM, TN, blocks, per_sm);
-    default: return (int)cudaErrorInvalidValue;
+    case 1: return grid_of<Points<1>>(TM, TN, blocks, threads, per_sm);
+    case 2: return grid_of<Points<2>>(TM, TN, blocks, threads, per_sm);
+    case 3: return grid_of<Points<3>>(TM, TN, blocks, threads, per_sm);
+    case 4: return grid_of<Points<4>>(TM, TN, blocks, threads, per_sm);
+    case 5: return grid_of<Points<5>>(TM, TN, blocks, threads, per_sm);
+    case 6: return grid_of<Points<6>>(TM, TN, blocks, threads, per_sm);
+    case 7: return grid_of<Points<7>>(TM, TN, blocks, threads, per_sm);
+    default: return grid_of<Points<8>>(TM, TN, blocks, threads, per_sm);
   }
 }

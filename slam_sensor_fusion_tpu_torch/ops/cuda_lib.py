@@ -110,12 +110,14 @@ def _declare(so: ctypes.CDLL) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
     so.sfk_pair_nn.argtypes = [P, P, P, P, P, I, I, I, P, P, P, P]
     so.sfk_pair_nn.restype = I
-    so.sfk_superblock_fine.argtypes = [P] * 24 + [I] * 5 + [P, P]
+    so.sfk_superblock_fine.argtypes = [P] * 25 + [I] * 6 + [P, P]
     so.sfk_superblock_fine.restype = I
     so.sfk_superblock_grid.argtypes = [I] * 3 + [P] * 3
     so.sfk_superblock_grid.restype = I
-    so.sfk_icp_fused.argtypes = [P] * 9 + [I] * 3 + [P, P]
+    so.sfk_icp_fused.argtypes = [P] * 12 + [I] * 3 + [P, P]
     so.sfk_icp_fused.restype = I
+    so.sfk_icp_grid.argtypes = [I] * 2 + [P] * 3
+    so.sfk_icp_grid.restype = I
     so.sfk_p2p_fused.argtypes = [P] * 13 + [I] * 3 + [P, P]
     so.sfk_p2p_fused.restype = I
     so.sfk_p2p_grid.argtypes = [I] * 2 + [P] * 3

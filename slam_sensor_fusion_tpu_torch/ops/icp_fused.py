@@ -19,8 +19,9 @@ icp_point_to_point.cpp:185-254) associates once at the prior, lets the
 alive set only shrink, and re-associates only on an error plateau that is
 not a hit.
 
-`_fused_core` launches the CUDA kernel (csrc/icp_fused.cu) for tensors on
-the card and runs `_fused_core_plain` for CPU tensors. `icp_align_fused`
+`_fused_core` launches the CUDA kernel (csrc/icp_fused.cu, a cooperative
+grid of one block on each SM) for tensors on the card and runs
+`_fused_core_plain` for CPU tensors. `icp_align_fused`
 (per-frame fast mode, the lite pipeline) builds the pages and the pair
 list around one launch; `icp_align_fused_paged` takes host-paged frames
 (the per-frame branch of models/pipeline_fast).
@@ -44,6 +45,7 @@ from slam_sensor_fusion_tpu_torch.ops.icp import ICPResult, _icp_xla
 from slam_sensor_fusion_tpu_torch.ops.morton import tile_bboxes
 from slam_sensor_fusion_tpu_torch.ops.nn_gated import pair_tiles
 from slam_sensor_fusion_tpu_torch.ops.nn_pallas import (
+    MAX_TILE_SRC,
     _build_tile_pair_list,
     _tile_chunk,
     make_pages,
@@ -363,13 +365,20 @@ def _fused_core(
         )
     if dev.type != "cuda":
         raise ValueError(f"_fused_core: unsupported device {dev}")
-    if TM > 1024 or TM % 32:
-        raise ValueError(f"_fused_core: tile_src {TM} must be a multiple of 32, <= 1024")
+    if TM > MAX_TILE_SRC or TM % 32:
+        raise ValueError(
+            f"_fused_core: tile_src {TM} must be a multiple of 32, <= {MAX_TILE_SRC}")
     T_out = torch.empty((4, 4), dtype=f32, device=dev)
     stats = torch.empty((1, 128), dtype=f32, device=dev)
     # per-point scratch (matched x, y, z and the gate/alive weight): too big
     # for shared memory at 128 source tiles, it stays in L2
     scratch = torch.empty((nSt, TM, 4), dtype=f32, device=dev)
+    # an association round's per-slot winners (the tile's best d2 and first
+    # winning row), combined by the grid's leader
+    max_pairs = pair_tgt.shape[0]
+    slot_d2 = torch.empty((max_pairs, TM), dtype=f32, device=dev)
+    slot_row = torch.empty((max_pairs, TM), dtype=i32, device=dev)
+    ctl = cuda_lib.control_block(dev)
     prm = _K3Params(
         gate=config.max_correspondence_dist_sq,
         eps=config.transformation_epsilon,
@@ -380,7 +389,8 @@ def _fused_core(
     )
     err = cuda_lib.lib().sfk_icp_fused(
         *[x.data_ptr() for x, *_ in args],
-        T_out.data_ptr(), stats.data_ptr(), scratch.data_ptr(),
+        T_out.data_ptr(), stats.data_ptr(), scratch.data_ptr(), slot_d2.data_ptr(),
+        slot_row.data_ptr(), ctl.data_ptr(),
         nSt, TM, TN, ctypes.addressof(prm), cuda_lib.stream_ptr(src_pages),
     )
     cuda_lib.check(err, "_fused_core")
@@ -390,6 +400,12 @@ def _fused_core(
 
 #: kernel launches made by `_fused_core` (CUDA tensors only)
 _fused_core.launches = 0
+
+
+def kernel_grid(n_src_tiles: int, tile_src: int) -> dict:
+    """K3's cooperative grid on the current card for these tiles: blocks,
+    threads a block and the blocks a multiprocessor could hold."""
+    return cuda_lib.grid_shape(cuda_lib.lib().sfk_icp_grid, n_src_tiles, tile_src)
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,9 @@ from slam_sensor_fusion_tpu_torch.ops import cuda_lib
 
 _BIG = 3.0e38
 _FAR = 1.0e7  # sentinel coordinate for invalid points (d2 ~ 1e14 << _BIG)
+#: the widest source tile K1, K2 and K3 take (the JAX package's stress
+#: configuration and its autosize rule use 4096)
+MAX_TILE_SRC = 4096
 
 
 def _build_tile_pair_list(
@@ -150,8 +153,8 @@ def pair_nn(
         return pair_nn_plain(src_pages, tgt_pages, pair_start, pair_cnt, pair_tgt)
     if dev.type != "cuda":
         raise ValueError(f"pair_nn: unsupported device {dev}")
-    if TM > 1024:
-        raise ValueError(f"pair_nn: tile_src {TM} > 1024 threads")
+    if TM > MAX_TILE_SRC:
+        raise ValueError(f"pair_nn: tile_src {TM} > {MAX_TILE_SRC}")
     if TN * 16 > 227 * 1024:
         raise ValueError(f"pair_nn: tile_tgt {TN} exceeds shared memory")
     d2 = torch.empty((nSt, 1, TM), dtype=f32, device=dev)

@@ -20,7 +20,11 @@ translations by the crop centre (the target pages' rebase point).
 
 `superblock_fine` launches the CUDA kernel (csrc/superblock_fused.cu, a
 cooperative grid of one block on each SM) for tensors on the card and runs
-`superblock_fine_plain` for CPU tensors. The
+`superblock_fine_plain` for CPU tensors. The kernel takes any number of
+source tiles of up to 4096 rows: up to 8 tiles of up to 1024 rows its
+leader keeps each point in registers, past that in a global buffer (the
+global layout, which `_superblock_fine` can also be asked for at the
+register layout's shapes; both give the same bits there). The
 plain version is written as the per-frame path (ops/stochastic_filter.py
 plus a plain ICP with K1's association tie rule), the role the JAX
 package's per-frame scan plays for its kernel.
@@ -37,7 +41,7 @@ from slam_sensor_fusion_tpu_torch.ops import cuda_lib
 from slam_sensor_fusion_tpu_torch.ops import geometry as geo
 from slam_sensor_fusion_tpu_torch.ops import stochastic_filter as sf
 from slam_sensor_fusion_tpu_torch.ops.icp_fused import _icp_plain
-from slam_sensor_fusion_tpu_torch.ops.nn_pallas import _tile_chunk
+from slam_sensor_fusion_tpu_torch.ops.nn_pallas import MAX_TILE_SRC, _tile_chunk
 from slam_sensor_fusion_tpu_torch.utils.config import LocalizationConfig
 
 _BIG = 3.0e38
@@ -230,6 +234,20 @@ def superblock_fine(
     (K,4,4), priors, odom_preds, stats (K,128) = [err, iters, n_corr, conv,
     det_min, 0...], new_pose, new_odom_prev, new_filt_trans,
     new_filt_count, new_filt_prev) — the JAX function's 9-tuple."""
+    return _superblock_fine(
+        src_pages, pair_start, pair_cnt, pair_tgt, valid, odom_T, gps_T, odom_tr,
+        gps_tr, pose, odom_prev, filt_trans, filt_count, filt_prev, center,
+        tgt_pages, config,
+    )
+
+
+def _superblock_fine(*inputs, global_layout: bool = False):
+    """`superblock_fine`'s body; `global_layout` launches K1 with its
+    leader's points in the global buffer at any shape (the layout it takes
+    by itself past 8 source tiles or 1024 rows)."""
+    (src_pages, pair_start, pair_cnt, pair_tgt, valid, odom_T, gps_T, odom_tr,
+     gps_tr, pose, odom_prev, filt_trans, filt_count, filt_prev, center,
+     tgt_pages, config) = inputs
     dev = src_pages.device
     K, nSt, _, TM = src_pages.shape
     nTt, _, TN = tgt_pages.shape
@@ -266,14 +284,15 @@ def superblock_fine(
         )
     if dev.type != "cuda":
         raise ValueError(f"superblock_fine: unsupported device {dev}")
-    if TM > 1024 or TM % 32:
-        raise ValueError(f"superblock_fine: tile_src {TM} must be a multiple of 32, <= 1024")
+    if TM > MAX_TILE_SRC or TM % 32:
+        raise ValueError(
+            f"superblock_fine: tile_src {TM} must be a multiple of 32, <= {MAX_TILE_SRC}")
     if TN % 32:
         raise ValueError(f"superblock_fine: tile_tgt {TN} not a multiple of 32")
     if TN * 16 + 4096 > 227 * 1024:
         raise ValueError(f"superblock_fine: tile_tgt {TN} exceeds shared memory")
-    if not 1 <= nSt <= 8:
-        raise ValueError(f"superblock_fine: {nSt} source tiles; the kernel takes 1..8")
+    if nSt < 1:
+        raise ValueError("superblock_fine: no source tile")
     poses = torch.empty((K, 4, 4), dtype=f32, device=dev)
     priors = torch.empty((K, 4, 4), dtype=f32, device=dev)
     odom_preds = torch.empty((K, 4, 4), dtype=f32, device=dev)
@@ -283,14 +302,16 @@ def superblock_fine(
     # an association round's per-slot winners (tile minimum d2, averaged
     # x, y, z), reused frame after frame; it stays in L2
     scratch = torch.empty((max_pairs, 4, TM), dtype=f32, device=dev)
+    # the global layout's points: matched x, y, z and the alive weight
+    point_state = torch.empty((nSt, TM, 4), dtype=f32, device=dev)
     ctl = cuda_lib.control_block(dev)
     prm = _params(config)
     err = cuda_lib.lib().sfk_superblock_fine(
         *[t.data_ptr() for t, *_ in args],
         poses.data_ptr(), priors.data_ptr(), odom_preds.data_ptr(),
         stats.data_ptr(), state.data_ptr(), count_out.data_ptr(),
-        scratch.data_ptr(), ctl.data_ptr(),
-        K, nSt, TM, TN, max_pairs, ctypes.addressof(prm),
+        scratch.data_ptr(), point_state.data_ptr(), ctl.data_ptr(),
+        K, nSt, TM, TN, max_pairs, int(global_layout), ctypes.addressof(prm),
         cuda_lib.stream_ptr(src_pages),
     )
     cuda_lib.check(err, "superblock_fine")

@@ -5,14 +5,16 @@ one; nothing here imports JAX, so on a GPU host without JAX run them as
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 K2 must agree with its plain version exactly (same fused dot products,
-same first-min rule); K1 and K3 to 3e-4 on poses and state, 1e-3 on the
+same first-min rule), at tiles of up to 4096 rows as well; K1 and K3 to
+3e-4 on poses and state, 1e-3 on the
 ICP error, with EQUAL iteration and correspondence counts (the moment sums
 are reduced in another order). K4 and K6 agree to 3e-4 on T and 1e-4
 relative on rmse, wr2 and the JtJ lanes with EQUAL n_correspondences; K5's
 d2 to 1e-6 relative with EQUAL matched pages. K4, K5 and K6 give the same
 bits as before their device functions moved into csrc/p2p_fused.cuh, and
-K1 and K4 as cooperative grids the same bits as their one-block
-predecessors (SHA-256 digests of their outputs). K7 to
+K1, K3 and K4 as cooperative grids the same bits as their one-block
+predecessors (SHA-256 digests of their outputs), and K1 with its leader's
+points in a global buffer the same bits as with them in registers. K7 to
 3e-4 on poses and state, 1e-4 of max|P| on P, 1e-4 relative on the stats
 lanes with EQUAL n_correspondences, GPS acceptance and slack flags."""
 
@@ -49,11 +51,13 @@ from torch_lio_world import (
 )
 from torch_world import (  # noqa: F401
     K1_SCENES,
+    K1_WIDE_SCENES,
     K3_CONFIG,
     build_world,
     compare_superblock,
     cuda_device,
     k1_digest,
+    k3_digest,
     k3_inputs,
     k3_scene,
     port_slice,
@@ -63,15 +67,16 @@ from torch_world import (  # noqa: F401
 pytestmark = pytest.mark.cuda
 
 
-def _k2_case(seed, ties, device):
-    """Rescue-sized K2 inputs: 4 source tiles of 256, 16 target tiles of 512."""
+def _k2_case(seed, ties, device, n_tiles=4, TM=256):
+    """Rescue-sized K2 inputs: 4 source tiles of 256 (or n_tiles of TM), 16
+    target tiles of 512."""
     rng = np.random.default_rng(seed)
-    TM, TN = 256, 512
+    TN = 512
     tgt = rng.uniform(-8, 8, (16 * TN, 3)).astype(np.float32)
     if ties:
         tgt[1::7] = tgt[0::7][: len(tgt[1::7])]
     tgt = sort_points_numpy(tgt)
-    src = tgt[rng.choice(len(tgt), 4 * TM, replace=False)]
+    src = tgt[rng.choice(len(tgt), n_tiles * TM, replace=False)]
     src = sort_points_numpy(src + rng.normal(0, 0.05, src.shape).astype(np.float32))
     s, tg = torch.from_numpy(src).to(device), torch.from_numpy(tgt).to(device)
     sm = torch.ones(len(src), dtype=torch.bool, device=device)
@@ -85,9 +90,15 @@ def _k2_case(seed, ties, device):
             *_build_tile_pair_list(visits, counts, 4 * 32))
 
 
-@pytest.mark.parametrize("ties", [False, True])
-def test_pair_nn_kernel_matches_plain(cuda_device, ties):
-    args = _k2_case(0, ties, cuda_device)
+@pytest.mark.parametrize(
+    "ties, n_tiles, tile_src",
+    [(False, 4, 256), (True, 4, 256), (False, 2, 2048), (True, 1, 4096)],
+    ids=["False", "True", "2x2048", "1x4096-ties"],
+)
+def test_pair_nn_kernel_matches_plain(cuda_device, ties, n_tiles, tile_src):
+    """The rescue's tiles, and tiles wider than a block (the stress
+    configuration's 4096 rows)."""
+    args = _k2_case(0, ties, cuda_device, n_tiles, tile_src)
     before = pair_nn.launches
     d2k, idxk, xyzk = pair_nn(*args)
     d2p, idxp, xyzp = pair_nn_plain(*args)
@@ -98,12 +109,13 @@ def test_pair_nn_kernel_matches_plain(cuda_device, ties):
     assert torch.equal(xyzk, xyzp)
 
 
-@pytest.mark.parametrize("scene", list(K1_SCENES))
+@pytest.mark.parametrize("scene", list(K1_SCENES) + list(K1_WIDE_SCENES))
 def test_superblock_kernel_matches_plain(cuda_device, scene):
     """K1 on the parity and fast superblocks, with the first and last
-    frames invalid, on 3 source tiles of 224 points, and with every tile
-    minimum an exact tie."""
-    cfg, args = superblock_args(device=cuda_device, **K1_SCENES[scene])
+    frames invalid, on 3 source tiles of 224 points, with every tile
+    minimum an exact tie, and past its register layout: 16 source tiles of
+    128, 64 of 32 and one of 2048."""
+    cfg, args = superblock_args(device=cuda_device, **{**K1_SCENES, **K1_WIDE_SCENES}[scene])
     before = superblock_fine.launches
     got = superblock_fine(*args, cfg)
     want = superblock_fine_plain(*args, cfg)
@@ -122,13 +134,28 @@ def test_superblock_kernel_bits_equal_the_one_block_kernel(cuda_device):
     assert k1_digest(cuda_device) == K1_DIGEST
 
 
+def test_superblock_global_layout_bits_equal_the_register_layout(cuda_device):
+    """K1 with its leader's points in the global buffer (its layout past 8
+    source tiles or 1024 rows) on the K1_SCENES: the register layout's
+    bits."""
+    assert k1_digest(cuda_device, global_layout=True) == K1_DIGEST
+
+
 def test_grid_kernels_span_the_card(cuda_device):
-    """K1 and K4 launch one block on every multiprocessor at the main
-    path's tiles."""
+    """K1, K3 and K4 launch one block on every multiprocessor at the main
+    paths' tiles, and K1 and K3 at the JAX package's default and stress
+    tiles."""
+    from slam_sensor_fusion_tpu_torch.ops import icp_fused as tif
     from slam_sensor_fusion_tpu_torch.ops import superblock_fused as tsf
 
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    for grid, threads in [(tsf.kernel_grid(4, 1024, 512), 1024), (tpf.kernel_grid(16, 512), 1024)]:
+    grids = [
+        (tsf.kernel_grid(4, 1024, 512), 1024), (tsf.kernel_grid(64, 256, 512), 1024),
+        (tsf.kernel_grid(16, 4096, 128), 1024), (tpf.kernel_grid(16, 512), 1024),
+        (tif.kernel_grid(8, 512), 1024), (tif.kernel_grid(128, 256), 1024),
+        (tif.kernel_grid(4, 4096), 1024),
+    ]
+    for grid, threads in grids:
         assert grid["blocks"] == sms and grid["threads"] == threads and grid["per_sm"] >= 1
 
 
@@ -146,11 +173,14 @@ def test_slice_on_card_matches_cpu(cuda_device):
 
 
 @pytest.mark.parametrize("lazy", [False, True], ids=["fresh", "lazy"])
-@pytest.mark.parametrize("n_tiles, tile_src", [(8, 512), (128, 256)])
+@pytest.mark.parametrize("n_tiles, tile_src", [(8, 512), (128, 256), (2, 2048), (1, 4096)])
 def test_icp_fused_kernel_matches_plain(cuda_device, n_tiles, tile_src, lazy):
-    """K3 at the online session's source shape (8 tiles of 512) and at the
-    default scan capacity's (128 tiles of 256), against 32 target tiles."""
-    cfg = dataclasses.replace(K3_CONFIG, tile_src=tile_src)
+    """K3 at the online session's source shape (8 tiles of 512), at the
+    default scan capacity's (128 tiles of 256) and at tiles wider than a
+    block (the stress configuration's 4096 rows), against 32 target
+    tiles; the wide tiles' pair lists hold every target tile."""
+    cfg = dataclasses.replace(K3_CONFIG, tile_src=tile_src,
+                              max_pairs_factor=max(K3_CONFIG.max_pairs_factor, 64 // n_tiles))
     M = n_tiles * tile_src
     args = k3_inputs(cfg, k3_scene(1, n_src=M - 100, M=M, N=16384), cuda_device)
     before = _fused_core.launches
@@ -162,6 +192,15 @@ def test_icp_fused_kernel_matches_plain(cuda_device, n_tiles, tile_src, lazy):
     assert torch.equal(st_k[0, 1:3], st_p[0, 1:3])  # iterations, n_corr
     torch.testing.assert_close(st_k[0, 0], st_p[0, 0], rtol=0, atol=1e-3)
     assert st_p[0, 1] >= 2 and st_p[0, 2] > M // 2
+
+
+#: `k3_digest` of K3 as the one-block kernel computed it, before the
+#: association spread over a cooperative grid (NVIDIA H100 80GB HBM3)
+K3_DIGEST = "c8f08adac2e85fa22ab60ac8270546ae0aac50c72a72b2c11692a9f812edf9c0"
+
+
+def test_icp_fused_kernel_bits_equal_the_one_block_kernel(cuda_device):
+    assert k3_digest(cuda_device) == K3_DIGEST
 
 
 #: K4-K6 at the LIO bench's tiles (16 source tiles of 512, 32 target tiles

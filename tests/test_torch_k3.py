@@ -49,11 +49,17 @@ def _assert_result_equal(got, want):
 
 
 @pytest.mark.parametrize("lazy", [False, True], ids=["fresh", "lazy"])
-@pytest.mark.parametrize("seed", [0, 1])
-def test_fused_core_plain_matches_jax_kernel(seed, lazy):
-    inputs = k3_inputs(CFG, k3_scene(seed))
-    got = tif._fused_core(*inputs, CFG, lazy)  # CPU tensors -> the plain version
-    want = jif._fused_core(*[jnp.asarray(x.numpy()) for x in inputs], _jcfg(CFG),
+@pytest.mark.parametrize("seed, tile_src", [(0, 256), (1, 256), (0, 2048)],
+                         ids=["0", "1", "0-2048"])
+def test_fused_core_plain_matches_jax_kernel(seed, tile_src, lazy):
+    """4 source tiles of 256, and one tile of 2048 rows: wider than a block
+    of the port's kernel, as the JAX package's stress configuration's
+    4096."""
+    cfg = dataclasses.replace(CFG, tile_src=tile_src)
+    M = max(1024, tile_src)
+    inputs = k3_inputs(cfg, k3_scene(seed, n_src=M - 24, M=M))
+    got = tif._fused_core(*inputs, cfg, lazy)  # CPU tensors -> the plain version
+    want = jif._fused_core(*[jnp.asarray(x.numpy()) for x in inputs], _jcfg(cfg),
                            interpret=True, lazy=lazy)
     _assert_core_equal(got, want)
     assert got[1][0, 1] >= 2  # several steps: the comparison is not vacuous

@@ -22,7 +22,7 @@ from torch_parity import t
 TM, TN = 256, 512
 
 
-def _case(rng, ties: bool):
+def _case(rng, ties: bool, n_src_tiles: int = 4, TM: int = TM):
     """Rescue-sized pages (4 source tiles of 256, 16 target tiles of 512)
     and the visit lists the rescue ICP would build."""
     tgt = rng.uniform(-8, 8, (16 * TN, 3)).astype(np.float32)
@@ -30,7 +30,7 @@ def _case(rng, ties: bool):
         tgt[1::7] = tgt[0::7][: len(tgt[1::7])]
         tgt[TN * 3 : TN * 4] = tgt[TN * 2 : TN * 3]
     tgt = jmo.sort_points_numpy(tgt)
-    src = tgt[rng.choice(len(tgt), 4 * TM, replace=False)]
+    src = tgt[rng.choice(len(tgt), n_src_tiles * TM, replace=False)]
     src = src + rng.normal(0, 0.05, src.shape).astype(np.float32)
     if ties:
         src[::5] = tgt[rng.choice(len(tgt), len(src[::5]))]  # zero distances
@@ -49,9 +49,14 @@ def _case(rng, ties: bool):
     return sp, tp, visits, counts
 
 
-@pytest.mark.parametrize("ties", [False, True])
-def test_pair_nn_plain_matches_jax_kernel(rng, ties):
-    sp, tp, visits, counts = _case(rng, ties)
+@pytest.mark.parametrize(
+    "ties, n_src_tiles, tile_src", [(False, 4, 256), (True, 4, 256), (False, 2, 2048)],
+    ids=["False", "True", "2x2048"],
+)
+def test_pair_nn_plain_matches_jax_kernel(rng, ties, n_src_tiles, tile_src):
+    """The rescue's tiles, and 2 source tiles of 2048 rows: wider than a
+    block of the port's kernel."""
+    sp, tp, visits, counts = _case(rng, ties, n_src_tiles, tile_src)
     max_pairs = 4 * 32
     pair_src, pair_tgt, n_pairs = _build_pair_list(visits, counts, max_pairs)
     d2a, idxa, xyza = j_pair_nn(sp, tp, pair_src, pair_tgt, n_pairs, interpret=True)

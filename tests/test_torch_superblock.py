@@ -1,6 +1,8 @@
 """K1 (the whole-superblock fine loop, ops/superblock_fused.superblock_fine)
 of the PyTorch port against the JAX Pallas kernel in interpret mode, in
-parity (lazy ICP) and fast (fresh ICP) modes, with one invalid frame.
+parity (lazy ICP) and fast (fresh ICP) modes, with one invalid frame, and
+at source tilings the JAX package's configurations use past 8 tiles of at
+most 1024 rows (more tiles; one tile wider than 1024 rows).
 
 Both get the same inputs: one real superblock of the small test world,
 staged by the port's prologue. Poses, priors, odometry predictions and the
@@ -15,15 +17,22 @@ import pytest
 from slam_sensor_fusion_tpu.ops.superblock_fused import superblock_fine as j_superblock_fine
 from slam_sensor_fusion_tpu_torch.ops.superblock_fused import superblock_fine
 from torch_parity import jax_config
-from torch_world import compare_superblock, mode_config, superblock_args
+from torch_world import compare_superblock, superblock_args
 
 
-@pytest.mark.parametrize("mode", ["parity", "fast"])
-def test_superblock_plain_matches_jax_kernel(mode):
-    cfg, args = superblock_args(mode)
+@pytest.mark.parametrize(
+    "mode, src_tiles",
+    [("parity", None), ("fast", None), ("parity", (16, 128)), ("parity", (1, 2048))],
+    ids=["parity", "fast", "parity-16x128", "parity-1x2048"],
+)
+def test_superblock_plain_matches_jax_kernel(mode, src_tiles):
+    """The test world's 2048-point cropped scan in 8 source tiles of 256,
+    and re-tiled past the register layout of the port's kernel: 16 tiles
+    of 128, and one tile of 2048 rows."""
+    cfg, args = superblock_args(mode, src_tiles=src_tiles)
     got = superblock_fine(*args, cfg)  # CPU tensors -> the plain version
     want = j_superblock_fine(
-        *[jnp.asarray(x.numpy()) for x in args], jax_config(mode_config(mode)), interpret=True
+        *[jnp.asarray(x.numpy()) for x in args], jax_config(cfg), interpret=True
     )
     valid = args[4].numpy()
     compare_superblock([np.asarray(x) for x in want], [x.numpy() for x in got], valid)

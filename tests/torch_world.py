@@ -130,18 +130,34 @@ K1_SCENES = {
 }
 
 
-def k1_digest(device) -> str:
+#: K1 scenes past the kernel's register layout (up to 8 source tiles of
+#: at most 1024 rows), the same world re-tiled: 16 source tiles of 128, 64
+#: tiles of one warp (32 rows; a round then holds far more items than the
+#: grid has workers) and one tile of 2048 rows
+K1_WIDE_SCENES = {
+    "16x128": dict(mode="parity", src_tiles=(16, 128)),
+    "64x32": dict(mode="fast", src_tiles=(64, 32)),
+    "1x2048": dict(mode="parity", src_tiles=(1, 2048)),
+}
+
+
+def k1_digest(device, global_layout: bool = False) -> str:
     """SHA-256 of `superblock_fine`'s outputs on the K1_SCENES: a kernel
     that rounds one bit differently, or takes another tile on a tie,
-    changes it."""
+    changes it. `global_layout` runs the kernel with its leader's points
+    in the global buffer (the layout of more or wider source tiles)."""
     import hashlib
 
-    from slam_sensor_fusion_tpu_torch.ops.superblock_fused import superblock_fine
+    from slam_sensor_fusion_tpu_torch.ops import superblock_fused as tsf
 
     h = hashlib.sha256()
     for scene in K1_SCENES.values():
         cfg, args = superblock_args(device=device, **scene)
-        for x in superblock_fine(*args, cfg):
+        if global_layout:
+            out = tsf._superblock_fine(*args, cfg, global_layout=True)
+        else:
+            out = tsf.superblock_fine(*args, cfg)
+        for x in out:
             h.update(x.detach().cpu().numpy().tobytes())
     return h.hexdigest()
 
@@ -223,3 +239,46 @@ def k3_inputs(cfg, scene, device="cpu"):
     T0_rebased)."""
     src, smask, tgt, tmask, T0 = (torch.from_numpy(a).to(device) for a in scene)
     return tif.fused_inputs(src, smask, tgt, tmask, T0, cfg)[0]
+
+
+#: the card tests' K3 scenes (k3_case keywords): the online session's
+#: source shape (8 tiles of 512) and the default scan capacity's (128
+#: tiles of 256) against 32 target tiles of 512, every tile minimum an
+#: exact tie of two rows, and one source tile with an empty pair list
+K3_SCENES = {
+    "session": dict(n_tiles=8, tile_src=512),
+    "default_scan": dict(n_tiles=128, tile_src=256),
+    "ties": dict(n_tiles=8, tile_src=512, ties=True),
+    "empty_tile": dict(n_tiles=8, tile_src=512, empty_tile=3),
+}
+
+
+def k3_case(device, n_tiles, tile_src, ties=False, empty_tile=None):
+    """(K3_CONFIG at `tile_src`, K3's arguments) for k3_scene(1) with
+    n_tiles x tile_src source points (100 of them padding) against 16384
+    target points. `ties` copies each even target row over the odd row
+    after it; `empty_tile` empties that source tile's pair list."""
+    cfg = dataclasses.replace(K3_CONFIG, tile_src=tile_src)
+    M = n_tiles * tile_src
+    args = list(k3_inputs(cfg, k3_scene(1, n_src=M - 100, M=M, N=16384), device))
+    if ties:
+        args[1] = args[1].clone()
+        args[1][..., 1::2] = args[1][..., 0::2]
+    if empty_tile is not None:
+        args[3] = args[3].clone()
+        args[3][empty_tile] = 0
+    return cfg, args
+
+
+def k3_digest(device) -> str:
+    """SHA-256 of `_fused_core`'s outputs (T_out and stats), fresh and lazy,
+    on the K3_SCENES."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for scene in K3_SCENES.values():
+        cfg, args = k3_case(device, **scene)
+        for lazy in (False, True):
+            for x in tif._fused_core(*args, cfg, lazy):
+                h.update(x.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
