@@ -12,8 +12,9 @@ check exits non-zero:
   1. build: compiles the CUDA kernels from the checkout's sources
      (slam_sensor_fusion_tpu_torch/csrc) and reports the seconds, ptxas's
      registers and spills of each kernel, and the cooperative grids of K1,
-     K3 and K4 at the main paths' tiles, and of K1 and K3 at the JAX
-     package's default and stress tiles (blocks, threads, blocks a
+     K3, K4 and K7 at the main paths' tiles, of K1 and K3 at the JAX
+     package's default and stress tiles, and K2's scan grid at the
+     rescue's and the stress tiles (blocks, threads, blocks a
      multiprocessor holds; at least 16 blocks);
   2. kernel against plain PyTorch at the main path's shapes, on inputs
      taken from the smoke world: K2 (pair-list NN) at the startup rescue's
@@ -95,8 +96,8 @@ The line before the last is the kernels' JSON record (time, plain time,
 error against plain, launches on the main paths, and the least time the
 card could take for the same work; K1 also its steady-state time and its
 times at the JAX package's tile shapes, K2 at the stress tiles, K3 its
-lazy times and at 4 x 4096, K4 its fresh-correspondence times; K1, K3 and
-K4 their grids); the last line is
+lazy times and at 4 x 4096, K4 its fresh-correspondence times; K1-K4 and
+K7 their grids); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -144,6 +145,8 @@ FLOP_PER_EKF_PRODUCT = 2 * 16**3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 FLOP_PER_DISTANCE = 8  # 3 differences, 3 products, 2 sums
+#: K2's two launches a call, by their names in the profiler
+K2_KERNELS = ("pair_nn_scan_kernel", "pair_nn_combine_kernel")
 #: K1 and K4 must spread each association over at least this many SMs
 MIN_GRID_BLOCKS = 16
 
@@ -304,7 +307,7 @@ def rescue_start(coarse_T: torch.Tensor) -> torch.Tensor:
 #: ptxas's mangled kernel names -> the kernels' labels (K1's register
 #: layout is built for 1-8 source tiles: `Points<n>`)
 KERNEL_SYMBOLS = [
-    ("pair_nn_kernel", "K2"), ("pair_nn_wide_kernel", "K2 wide tiles"),
+    ("pair_nn_scan_kernel", "K2 scan"), ("pair_nn_combine_kernel", "K2 combine"),
     ("icp_fused_kernel", "K3"), ("lio_superblock_kernel", "K7"),
     ("GlobalPoints", "K1 global layout"), ("superblock_kernel", "K1 register layout"),
     ("p2p_fused_kernel", "K4"), ("p2p_associate_kernel", "K5"), ("p2p_gn_corr_kernel", "K6"),
@@ -355,6 +358,25 @@ def time_ms(fn, reps: int) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def device_ms(fn, reps: int, names) -> float | None:
+    """Mean device milliseconds a call spends in the kernels whose names
+    hold one of `names`, under torch.profiler over `reps` calls after a
+    warm-up (a call's time on the card alone, where `time_ms` of
+    back-to-back calls may be its host's); None where the profiler
+    records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and any(n in e.key for n in names))
+    return us / 1e3 / reps if us > 0 else None
 
 
 def check_k2(inputs, dev_name):
@@ -693,6 +715,8 @@ def main() -> None:
     )
     from slam_sensor_fusion_tpu_torch.ops.superblock_fused import kernel_grid as sb_grid
     from slam_sensor_fusion_tpu_torch.ops.icp_fused import kernel_grid as icp_grid
+    from slam_sensor_fusion_tpu_torch.ops.lio_superblock_fused import kernel_grid as lio_grid
+    from slam_sensor_fusion_tpu_torch.ops.nn_pallas import kernel_grid as nn_grid
     from torch.profiler import ProfilerActivity, profile
 
     kernels = (superblock_fine, pair_nn, _fused_core,
@@ -705,12 +729,16 @@ def main() -> None:
     print(f"phase 1 build: {time.perf_counter() - t0:.1f} s (nvcc {cuda_lib.build_seconds:.1f} s) [{tag}]", flush=True)
     for line in ptxas_lines(cuda_lib.build_log):
         print(f"  ptxas: {line}")
-    # K1, K3 and K4 are cooperative grids: their launch shape at the main
-    # paths' tiles (bench_loc's 4 x 1024 source, 512-row target tiles;
-    # the session's 8 x 512 source tiles; bench_lio's 16 x 512 source
-    # tiles), and K1's and K3's at the JAX package's default and stress tiles
+    # K1, K3, K4 and K7 are cooperative grids: their launch shape at the
+    # main paths' tiles (bench_loc's 4 x 1024 source, 512-row target tiles;
+    # the session's 8 x 512 source tiles; bench_lio's 16 x 512 source tiles
+    # a frame, 4 x 512 in the block loop), and K1's and K3's at the JAX
+    # package's default and stress tiles; K2's scan is an ordinary launch
+    # spread over every SM (the rescue's tiles and the stress tiles)
     config, lcfg, scfg = bench_config(), lio_config(), session_config()
     dcfg, xcfg = default_tiles_config(), stress_config()
+    rcfg = config.rescue_icp
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def tiles(c):
         return c.capacity.cropped_scan // c.icp.tile_src, c.icp.tile_src
@@ -722,10 +750,15 @@ def main() -> None:
         "K3": icp_grid(*tiles(scfg)),
         "K3 4x4096": icp_grid(4, xcfg.icp.tile_src),
         "K4": p2p.kernel_grid(lcfg.scan_capacity // lcfg.p2p.tile_src, lcfg.p2p.tile_src),
+        "K7": lio_grid(lcfg.scan_capacity // lcfg.reg_subsample // lcfg.p2p.tile_src,
+                       lcfg.p2p.tile_src),
+        "K2 scan": nn_grid(rcfg.tile_src,
+                           config.capacity.bf_source // rcfg.tile_src * rcfg.max_pairs_factor),
+        "K2 scan 16x4096": nn_grid(xcfg.icp.tile_src, tiles(xcfg)[0] * xcfg.icp.max_pairs_factor),
     }
     for label, g in grids.items():
-        print(f"  grid: {label} {g['blocks']} blocks of {g['threads']} threads, one on each "
-              f"multiprocessor (a multiprocessor could hold {g['per_sm']}) [{tag}]", flush=True)
+        print(f"  grid: {label} {g['blocks']} blocks of {g['threads']} threads on {sms} "
+              f"multiprocessors (a multiprocessor could hold {g['per_sm']}) [{tag}]", flush=True)
         if g["blocks"] < MIN_GRID_BLOCKS:
             fail(f"{label}: a grid of {g['blocks']} blocks spans fewer than {MIN_GRID_BLOCKS} SMs")
 
@@ -844,6 +877,7 @@ def main() -> None:
         )
         w["k2_err"] = check_k2(k2x_in, name)
         w["k2_ms"] = time_ms(lambda: pair_nn(*k2x_in), 5)
+        w["k2_device_ms"] = device_ms(lambda: pair_nn(*k2x_in), 5, K2_KERNELS)
         w["k2_plain_ms"] = time_ms(lambda: pair_nn_plain(*k2x_in), 1)
         w["k2_bound"] = bound(
             int(k2x_in[3].sum()) * k2x_in[0].shape[-1] * k2x_in[1].shape[-1] * FLOP_PER_DISTANCE,
@@ -869,7 +903,8 @@ def main() -> None:
                 pairs3 * k3x_in[0].shape[-1] * k3x_in[1].shape[-1] * FLOP_PER_DISTANCE,
                 nbytes(*k3x_in) + nbytes(*_fused_core(*k3x_in, x3cfg, lazy)),
             )
-        print(f"K2 at 16 x 4096: {w['k2_ms']:.3f} ms (plain {w['k2_plain_ms']:.3f}), bound "
+        print(f"K2 at 16 x 4096: {w['k2_ms']:.3f} ms (on the card alone {w['k2_device_ms']}; "
+              f"plain {w['k2_plain_ms']:.3f}), bound "
               f"{w['k2_bound'][0]:.4f} ms; K3 at 4 x 4096: fresh {w['k3_fresh_ms']:.3f} ms (plain "
               f"{w['k3_fresh_plain_ms']:.3f}, bound {w['k3_fresh_bound'][0]:.4f}), lazy "
               f"{w['k3_lazy_ms']:.3f} ms (plain {w['k3_lazy_plain_ms']:.3f}, bound "
@@ -978,6 +1013,7 @@ def main() -> None:
           f"pairs; bound {k7_bound[0]:.4f} ms ({k7_bound[1]}) [{tag}]", flush=True)
 
     k2_ms = time_ms(lambda: pair_nn(*k2_in), 20)
+    k2_device_ms = device_ms(lambda: pair_nn(*k2_in), 20, K2_KERNELS)
     k2_plain_ms = time_ms(lambda: pair_nn_plain(*k2_in), 5)
     k1_ms = time_ms(lambda: superblock_fine(*k1_args), 5)
     k1_plain_ms = time_ms(lambda: superblock_fine_plain(*k1_args), 2)
@@ -986,6 +1022,7 @@ def main() -> None:
     k3l_ms = time_ms(lambda: _fused_core(*k3_in, scfg.icp, True), 10)
     k3l_plain_ms = time_ms(lambda: _fused_core_plain(*k3_in, scfg.icp, True), 3)
     print(f"K1 {k1_ms:.3f} ms/superblock (plain {k1_plain_ms:.3f}); K2 {k2_ms:.3f} ms/call "
+          f"(on the card alone {k2_device_ms} ms) "
           f"(plain {k2_plain_ms:.3f}); K3 fresh {k3_ms:.3f} ms/ICP (plain {k3_plain_ms:.3f}), "
           f"lazy {k3l_ms:.3f} (plain {k3l_plain_ms:.3f}) [{tag}]", flush=True)
     # the host's share of a K3 call (a session push makes one): the call as
@@ -1531,7 +1568,9 @@ def main() -> None:
         row(pair_nn, "K2 pair_nn", "slam_sensor_fusion_tpu_torch/csrc/nn_pallas.cu",
             "slam_sensor_fusion_tpu/ops/nn_pallas.py:105", max(k2_err, x["k2_err"]), k2_ms,
             k2_plain_ms, k2_bound, ms_16x4096=x["k2_ms"], plain_ms_16x4096=x["k2_plain_ms"],
-            bound_ms_16x4096=x["k2_bound"][0]),
+            bound_ms_16x4096=x["k2_bound"][0], device_ms=k2_device_ms,
+            device_ms_16x4096=x["k2_device_ms"], grid=grids["K2 scan"],
+            grid_16x4096=grids["K2 scan 16x4096"]),
         row(_fused_core, "K3 icp_fused", "slam_sensor_fusion_tpu_torch/csrc/icp_fused.cu",
             "slam_sensor_fusion_tpu/ops/icp_fused.py:131",
             max(k3_err, k3l_err, x["k3_fresh_err"], x["k3_lazy_err"]), k3_ms, k3_plain_ms, k3_bound,
@@ -1552,7 +1591,7 @@ def main() -> None:
         row(lio_superblock, "K7 lio_superblock",
             "slam_sensor_fusion_tpu_torch/csrc/lio_superblock_fused.cu",
             "slam_sensor_fusion_tpu/ops/lio_superblock_fused.py:196", k7_err, k7_ms, k7_plain_ms,
-            k7_bound),
+            k7_bound, grid=grids["K7"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

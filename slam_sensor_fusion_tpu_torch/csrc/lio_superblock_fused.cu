@@ -25,23 +25,35 @@
 // What bounds it on an H100: the association's instruction issue, as K4's
 // (8 float operations a distance over the tile pairs each frame admits; at
 // the LIO bench's width 4 source tiles of 512 against up to 32 target tiles
-// of 1024, two GN iterations on fixed correspondences: ~6 x 10^7 distances
-// a frame). The EKF's 16x16 products (2 a sample, 4 more a frame) are
-// ~10^5 operations a frame, and its scalar chain is latency.
+// of 1024, two GN iterations on fixed correspondences: ~5 x 10^7 distances
+// a frame), spread over the card; then the serial chain of a frame: the
+// EKF's scalar chain, its 16x16 products (2 a sample, 4 more a frame:
+// ~10^5 operations) and the GN and Kalman solves, all latency.
 //
-// Design: one block a launch (1 of 132 SMs) and the frame loop on the
-// device, since every frame starts from the previous frame's posterior.
-// The block has TM x G threads (G = min(nSt, 1024 / TM)), as K4's: the GN
-// passes are K4's device functions on the frame's slice of the pages and
-// pair lists, with the matched set in a global buffer in L2. The 16x16
-// products run one thread an output in shared memory, each a sum over
-// k = 0, 1, ... in order; the scalar chain (mean propagation, assembling F,
-// the Kalman gains, the state updates) runs on thread 0. The library builds
-// with -fmad=false, so the plain version (`lio_superblock_plain`), which
-// takes the same sums in the same order, rounds alike.
+// Design: a persistent cooperative grid, one block on each SM, as K4's
+// (grid_assoc.cuh). The frame loop runs on the device, since every frame
+// starts from the previous frame's posterior. Block 0, the leader, keeps
+// the one-block layout: TM x G threads (G = min(nSt, 1024 / TM)), group g
+// owning source tiles g, g + G, ... of the frame; the GN passes are K4's
+// device functions on the frame's slice of the pages and pair lists, with
+// the matched set in a global buffer in L2. Each association is a round
+// over the grid for the frame it publishes (`grid_gn`, K4's GN loop):
+// every other block scans (source tile, pair slot) items of that frame's
+// pair list into per-slot scratch, reused frame after frame, and the
+// leader combines each point's slots in order under a strict `<`, which
+// gives the one-block walk's winners bit for bit. An invalid frame
+// publishes no round. The 16x16 products run one thread an output in
+// shared memory, each a sum over k = 0, 1, ... in order; the scalar chain
+// (mean propagation, assembling F, the Kalman gains, the state updates)
+// runs on thread 0. The library builds with -fmad=false, so the plain
+// version (`lio_superblock_plain`), which takes the same sums in the same
+// order, rounds alike.
 #include <cuda_runtime.h>
 
+#include "grid_assoc.cuh"
 #include "p2p_fused.cuh"
+
+namespace cg = cooperative_groups;
 
 // Mirrors ctypes struct `_LIOParams` in ops/lio_superblock_fused.py.
 struct LioParams {
@@ -307,11 +319,27 @@ __global__ void __launch_bounds__(1024, 1) lio_superblock_kernel(
     float* __restrict__ state_vec,        // (128,)
     float* __restrict__ best_d2,          // (nSt, 1, TM) scratch
     float* __restrict__ best_qn,          // (nSt, 6, TM) scratch
+    float* slot_d2,                       // (max_pairs, TM) rounds' winners by slot
+    int* slot_row,                        // (max_pairs, TM)
+    sfk::grid::Ctl* ctl,                  // the leader's published round
     int K, int Ki, int nSt, int TM, int TN, int max_pairs, LioParams prm) {
+  const cg::grid_group g = cg::this_grid();
+  // frame k's round: its source pages and pair list
+  auto round_of = [&](int k) {
+    return sfk::grid::FirstRound{src_pages + (size_t)k * nSt * 3 * TM, tgt_pages,
+                                 pair_start + (size_t)k * nSt, pair_cnt + (size_t)k * nSt,
+                                 pair_tgt + (size_t)k * max_pairs, slot_d2, slot_row,
+                                 nSt, TM, TN};
+  };
+  if (blockIdx.x != 0) {  // a worker: serve the leader's association rounds
+    sfk::grid::serve(g, ctl, [&] {
+      sfk::grid::scan_first<6>(round_of(sfk::grid::read_frame(ctl)), ctl);
+    });
+    return;
+  }
   __shared__ float red[sfk::p2p::kNMom * 32];
   __shared__ LioShared S;
   const int tid = threadIdx.x;
-  const int G = blockDim.x / TM;
   float cx[3] = {center[0], center[1], center[2]};
 
   for (int m = tid; m < 256; m += blockDim.x) S.P[m] = P0[m];
@@ -371,11 +399,9 @@ __global__ void __launch_bounds__(1024, 1) lio_superblock_kernel(
       for (int a = 0; a < 3; ++a) S.g.t[a] = S.pw[a] - cx[a];
     }
     __syncthreads();
-    const sfk::p2p::Tiles T{src_pages + (size_t)k * nSt * 3 * TM, tgt_pages,
-                            pair_start + (size_t)k * nSt, pair_cnt + (size_t)k * nSt,
-                            pair_tgt + (size_t)k * max_pairs, best_d2, best_qn, nSt, TM, TN};
-    if (prm.p2p.fixed) sfk::p2p::associate(S.g.R, S.g.t, T, tid / TM, G);
-    sfk::p2p::gn_passes(S.g, T, prm.p2p, !prm.p2p.fixed, red);
+    const sfk::grid::FirstRound A = round_of(k);
+    const sfk::p2p::Tiles T{A.src, tgt_pages, A.ps, A.pc, A.pt, best_d2, best_qn, nSt, TM, TN};
+    sfk::p2p::grid_gn(g, ctl, k, S.g, T, A, prm.p2p, red);
 
     // 3) the pose update: gain and mean on thread 0, Joseph form by all
     if (tid == 0) pose_update(S, prm, cx, st);
@@ -422,6 +448,7 @@ __global__ void __launch_bounds__(1024, 1) lio_superblock_kernel(
     }
     __syncthreads();
   }
+  sfk::grid::dismiss(g, ctl);
 
   for (int m = tid; m < 256; m += blockDim.x) state_P[m] = S.P[m];
   for (int m = 9 + tid; m < 128; m += blockDim.x) state_vec[m] = 0.0f;
@@ -435,9 +462,14 @@ __global__ void __launch_bounds__(1024, 1) lio_superblock_kernel(
   }
 }
 
+inline bool bad_shape(int nSt, int TM, int K, int Ki) {
+  return TM < 32 || TM > 1024 || TM % 32 || nSt < 1 || K < 1 || Ki < 0;
+}
+
 }  // namespace
 
-// Enqueues K7 on `stream`; returns cudaGetLastError() (0 on success), or
+// Enqueues K7 on `stream` as a cooperative grid; returns cudaGetLastError()
+// (0 on success), the launch's error if the card refuses it, or
 // cudaErrorInvalidValue for a tile width it does not take.
 extern "C" int sfk_lio_superblock(
     const int* pair_start, const int* pair_cnt, const int* pair_tgt, const int* valid,
@@ -445,14 +477,32 @@ extern "C" int sfk_lio_superblock(
     const float* gps_var, const int* gps_valid, const float* pred_t, const float* vec0,
     const float* center, const float* pose0, const float* P0, const float* src_pages,
     const float* tgt_pages, float* poses, float* stats, float* state_pose, float* state_P,
-    float* state_vec, float* best_d2, float* best_qn, int K, int Ki, int nSt, int TM, int TN,
-    int max_pairs, const LioParams* prm, cudaStream_t stream) {
-  if (TM < 32 || TM > 1024 || TM % 32 || nSt < 1 || K < 1 || Ki < 0)
-    return (int)cudaErrorInvalidValue;
-  const int G = nSt < 1024 / TM ? nSt : 1024 / TM;
-  lio_superblock_kernel<<<1, TM * G, 0, stream>>>(
-      pair_start, pair_cnt, pair_tgt, valid, gyro, accel, dts, gps, gps_var, gps_valid,
-      pred_t, vec0, center, pose0, P0, src_pages, tgt_pages, poses, stats, state_pose,
-      state_P, state_vec, best_d2, best_qn, K, Ki, nSt, TM, TN, max_pairs, *prm);
+    float* state_vec, float* best_d2, float* best_qn, float* slot_d2, int* slot_row, void* ctl,
+    int K, int Ki, int nSt, int TM, int TN, int max_pairs, const LioParams* prm,
+    cudaStream_t stream) {
+  if (bad_shape(nSt, TM, K, Ki)) return (int)cudaErrorInvalidValue;
+  const int threads = sfk::grid::first_threads(nSt, TM);
+  int blocks, per_sm;
+  cudaError_t e = sfk::grid::grid_size((const void*)lio_superblock_kernel, threads, 0, &blocks,
+                                       &per_sm);
+  if (e != cudaSuccess) return (int)e;
+  sfk::grid::Ctl* c = static_cast<sfk::grid::Ctl*>(ctl);
+  LioParams p = *prm;
+  void* args[] = {&pair_start, &pair_cnt, &pair_tgt, &valid, &gyro, &accel, &dts, &gps,
+                  &gps_var, &gps_valid, &pred_t, &vec0, &center, &pose0, &P0, &src_pages,
+                  &tgt_pages, &poses, &stats, &state_pose, &state_P, &state_vec, &best_d2,
+                  &best_qn, &slot_d2, &slot_row, &c, &K, &Ki, &nSt, &TM, &TN, &max_pairs, &p};
+  e = cudaLaunchCooperativeKernel((const void*)lio_superblock_kernel, dim3(blocks),
+                                  dim3(threads), args, 0, stream);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// K7's cooperative grid for these tiles: blocks, threads a block and the
+// blocks a multiprocessor could hold.
+extern "C" int sfk_lio_grid(int nSt, int TM, int* blocks, int* threads, int* per_sm) {
+  if (bad_shape(nSt, TM, 1, 0)) return (int)cudaErrorInvalidValue;
+  *threads = sfk::grid::first_threads(nSt, TM);
+  return (int)sfk::grid::grid_size((const void*)lio_superblock_kernel, *threads, 0, blocks,
+                                   per_sm);
 }

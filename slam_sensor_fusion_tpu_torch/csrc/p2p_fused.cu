@@ -10,12 +10,12 @@
 //      alone at the prior; its winners are the outputs;
 //   K6 `_make_gn_corr_kernel` (`p2p_gn_from_correspondences`): K4's GN on a
 //      matched set given as input.
-// Two device functions of p2p_fused.cuh (shared with K7) carry all three:
-// `associate` writes each source point's best d2 and matched (x, y, z, nx,
-// ny, nz) to a per-point buffer, `gn_passes` runs the iterations and the
-// stats pass from that buffer. K4 = associate (once at the prior with fixed
-// correspondences, else in every pass) + gn_passes; K5 = associate with the
-// buffer as its output; K6 = gn_passes with the buffer as its input.
+// Device functions of p2p_fused.cuh carry all three: `associate` writes
+// each source point's best d2 and matched (x, y, z, nx, ny, nz) to a
+// per-point buffer (K5, with the buffer as its output), `gn_passes` runs
+// the iterations and the stats pass from that buffer (K6, with the buffer
+// as its input), and `grid_gn` (shared with K7) runs K4's whole GN on a
+// cooperative grid, each association a round that fills the same buffer.
 // Outputs of K4 and K6: T_out (4, 4) in the rebased frame and stats (128) =
 // [rmse, W, iterations, 21 damped JtJ entries (row-major lower triangle),
 // wr2, 0...], as the JAX kernels.
@@ -47,8 +47,8 @@
 // earlier tile across tiles, as the one-block walk) into the matched set
 // (`combine_first<6>`).
 // With fixed correspondences that is one round at the prior followed by
-// p2p_fused.cuh's `gn_passes`; with fresh ones K4 runs gn_passes' order
-// itself with a round in every pass. The 29 moment sums go through the
+// p2p_fused.cuh's `gn_passes`; with fresh ones gn_passes' order with a
+// round in every pass (`grid_gn`, K7's GN too). The 29 moment sums go through the
 // fixed-order block reduction (no atomics: deterministic); the scalar tail
 // (damping, Cholesky, starve guard, Taylor exp, polish, composition) runs
 // on thread 0 in the JAX kernel's operation order, and the library builds
@@ -114,30 +114,7 @@ __global__ void __launch_bounds__(1024, 1) p2p_fused_kernel(
   __shared__ Shared S;
   if (threadIdx.x == 0) sfk::read44(T0, S.R, S.t);
   __syncthreads();
-  // the combine writes the matched set in the layout `moments` reads
-  // (group g: tiles g, g + G, ...; thread r: point r), so no barrier follows
-  auto associate = [&] {
-    sfk::grid::lead_round(g, ctl, 0, S.R, S.t);
-    sfk::grid::combine_first<6>(A, [&](int i, int r, float best, const float* win) {
-      T.d2[(size_t)i * TM + r] = best;
-      float* o = T.qn + (size_t)i * 6 * TM + r;
-#pragma unroll
-      for (int k = 0; k < 6; ++k) o[k * TM] = win ? win[k * TN] : 0.0f;
-    });
-  };
-  if (prm.fixed) {
-    associate();
-    sfk::p2p::gn_passes(S, T, prm, false, red);
-  } else {  // gn_passes' order (p2p_fused.cuh) with a round in every pass
-    for (int it = 0; it <= prm.num_iterations; ++it) {
-      associate();
-      sfk::p2p::moments(S, T, prm, red);
-      if (it < prm.num_iterations) {
-        if (threadIdx.x == 0) sfk::p2p::gn_step(S, prm.damping);
-        __syncthreads();
-      }
-    }
-  }
+  sfk::p2p::grid_gn(g, ctl, 0, S, T, A, prm, red);
   sfk::grid::dismiss(g, ctl);
   if (threadIdx.x == 0) pack_outputs(S, prm, T_out, stats);
 }
@@ -171,7 +148,7 @@ __global__ void __launch_bounds__(1024, 1) p2p_gn_corr_kernel(
                 const_cast<float*>(best_d2), const_cast<float*>(best_qn), nSt, TM, 0};
   if (threadIdx.x == 0) sfk::read44(T0, S.R, S.t);
   __syncthreads();
-  sfk::p2p::gn_passes(S, T, prm, false, red);
+  sfk::p2p::gn_passes(S, T, prm, red);
   if (threadIdx.x == 0) pack_outputs(S, prm, T_out, stats);
 }
 

@@ -10,6 +10,8 @@
 // runs the GN iterations and the trailing stats pass and leaves the stats
 // pass's UNDAMPED moments in S.mom: K4 and K6 add the damping to the JtJ
 // they export, K7 feeds the undamped moments to its measurement covariance.
+// `grid_gn` is the whole GN of the cooperative grids K4 and K7: each
+// association a round of grid_assoc.cuh, then gn_passes' order.
 // The scalar tail (damped Cholesky solve, starve guard, Taylor SE(3) step,
 // polar polish, composition) runs on thread 0 in the JAX kernel's operation
 // order; the library builds with -fmad=false, so it rounds op by op as the
@@ -18,6 +20,7 @@
 
 #include <cuda_runtime.h>
 
+#include "grid_assoc.cuh"
 #include "icp_fused.cuh"
 
 // Mirrors ctypes struct `_P2PParams` in ops/p2p_fused.py.
@@ -189,15 +192,47 @@ __device__ inline void gn_step(Shared& S, float damping) {
   for (int a = 0; a < 3; ++a) S.t[a] = v[a] + t_step[a];
 }
 
-// The GN iterations and the stats pass from (S.R, S.t) (every thread must
-// call it): p2p_fused.py:325-374. With `fresh`, every pass associates first
-// under the current transform. On return S.R, S.t hold the final transform
-// and S.mom the stats pass's undamped moments, visible to every thread.
-__device__ inline void gn_passes(Shared& S, const Tiles& T, const P2PParams& prm, bool fresh,
-                                 float* red) {
-  const int G = blockDim.x / T.TM;
+// The GN iterations and the stats pass from (S.R, S.t) on the matched set
+// in T (every thread must call it): p2p_fused.py:325-374 with fixed
+// correspondences. On return S.R, S.t hold the final transform and S.mom
+// the stats pass's undamped moments, visible to every thread.
+__device__ inline void gn_passes(Shared& S, const Tiles& T, const P2PParams& prm, float* red) {
   for (int it = 0; it <= prm.num_iterations; ++it) {
-    if (fresh) associate(S.R, S.t, T, threadIdx.x / T.TM, G);
+    moments(S, T, prm, red);
+    if (it < prm.num_iterations) {
+      if (threadIdx.x == 0) gn_step(S, prm.damping);
+      __syncthreads();
+    }
+  }
+}
+
+// The leader's whole GN on a cooperative grid (K4, K7; every thread of the
+// leader block calls it, from (S.R, S.t)): each association is a first-row
+// round (grid_assoc.cuh: `scan_first<6>` on the workers for the published
+// `frame`, whose pair list and pages A and T hold), combined into T's
+// matched set in the layout `moments` reads (group g: tiles g, g + G, ...;
+// thread r: point r), so no barrier follows the combine. With fixed
+// correspondences one round at the prior, then gn_passes; with fresh ones
+// gn_passes' order with a round in every pass. Leaves S as gn_passes does.
+__device__ inline void grid_gn(const cooperative_groups::grid_group& g, grid::Ctl* ctl,
+                               int frame, Shared& S, const Tiles& T,
+                               const grid::FirstRound& A, const P2PParams& prm, float* red) {
+  auto associate = [&] {
+    grid::lead_round(g, ctl, frame, S.R, S.t);
+    grid::combine_first<6>(A, [&](int i, int r, float best, const float* win) {
+      T.d2[(size_t)i * T.TM + r] = best;
+      float* o = T.qn + (size_t)i * 6 * T.TM + r;
+#pragma unroll
+      for (int k = 0; k < 6; ++k) o[k * T.TM] = win ? win[k * T.TN] : 0.0f;
+    });
+  };
+  if (prm.fixed) {
+    associate();
+    gn_passes(S, T, prm, red);
+    return;
+  }
+  for (int it = 0; it <= prm.num_iterations; ++it) {
+    associate();
     moments(S, T, prm, red);
     if (it < prm.num_iterations) {
       if (threadIdx.x == 0) gn_step(S, prm.damping);

@@ -108,8 +108,10 @@ def lib() -> ctypes.CDLL:
 
 def _declare(so: ctypes.CDLL) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
-    so.sfk_pair_nn.argtypes = [P, P, P, P, P, I, I, I, P, P, P, P]
+    so.sfk_pair_nn.argtypes = [P] * 5 + [I] * 4 + [P] * 6
     so.sfk_pair_nn.restype = I
+    so.sfk_pair_nn_grid.argtypes = [I] * 2 + [P] * 3
+    so.sfk_pair_nn_grid.restype = I
     so.sfk_superblock_fine.argtypes = [P] * 25 + [I] * 6 + [P, P]
     so.sfk_superblock_fine.restype = I
     so.sfk_superblock_grid.argtypes = [I] * 3 + [P] * 3
@@ -126,8 +128,10 @@ def _declare(so: ctypes.CDLL) -> None:
     so.sfk_p2p_associate.restype = I
     so.sfk_p2p_gn_corr.argtypes = [P] * 6 + [I] * 2 + [P, P]
     so.sfk_p2p_gn_corr.restype = I
-    so.sfk_lio_superblock.argtypes = [P] * 24 + [I] * 6 + [P, P]
+    so.sfk_lio_superblock.argtypes = [P] * 27 + [I] * 6 + [P, P]
     so.sfk_lio_superblock.restype = I
+    so.sfk_lio_grid.argtypes = [I] * 2 + [P] * 3
+    so.sfk_lio_grid.restype = I
 
 
 def check(err: int, what: str) -> None:

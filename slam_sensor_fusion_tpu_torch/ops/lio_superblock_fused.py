@@ -443,11 +443,17 @@ def lio_superblock(
     # the matched set (7 floats a point) in a global buffer, as K4's
     best_d2 = torch.empty((nSt, 1, TM), dtype=f32, device=dev)
     best_qn = torch.empty((nSt, 6, TM), dtype=f32, device=dev)
+    # an association round's per-slot winners from the grid's workers,
+    # reused frame after frame (the rounds are serial)
+    slot_d2 = torch.empty((max_pairs, TM), dtype=f32, device=dev)
+    slot_row = torch.empty((max_pairs, TM), dtype=i32, device=dev)
+    ctl = cuda_lib.control_block(dev)
     prm = _lio_params(params)
     err = cuda_lib.lib().sfk_lio_superblock(
         *[t.data_ptr() for t, *_ in args],
         poses.data_ptr(), stats.data_ptr(), pose_n.data_ptr(), P_n.data_ptr(),
-        vec_n.data_ptr(), best_d2.data_ptr(), best_qn.data_ptr(),
+        vec_n.data_ptr(), best_d2.data_ptr(), best_qn.data_ptr(), slot_d2.data_ptr(),
+        slot_row.data_ptr(), ctl.data_ptr(),
         K, Ki, nSt, TM, TN, max_pairs, ctypes.addressof(prm), cuda_lib.stream_ptr(src_pages),
     )
     cuda_lib.check(err, "lio_superblock")
@@ -457,3 +463,9 @@ def lio_superblock(
 
 #: kernel launches made by `lio_superblock` (CUDA tensors only)
 lio_superblock.launches = 0
+
+
+def kernel_grid(n_src_tiles: int, tile_src: int) -> dict:
+    """K7's cooperative grid on the current card for these tiles: blocks,
+    threads a block and the blocks a multiprocessor could hold."""
+    return cuda_lib.grid_shape(cuda_lib.lib().sfk_lio_grid, n_src_tiles, tile_src)

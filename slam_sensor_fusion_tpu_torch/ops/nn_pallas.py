@@ -8,8 +8,10 @@ both K1 and K2 walk. The JAX package fed K2 a pair-major list instead; the
 two visit each source tile's targets in the same order, so K2's outputs do
 not change (tests/test_torch_nn.py holds them equal).
 
-`pair_nn` launches the CUDA kernel (csrc/nn_pallas.cu) for tensors on the
-card and runs `pair_nn_plain` for tensors on the CPU.
+`pair_nn` launches the CUDA kernel (csrc/nn_pallas.cu: a scan of (source
+tile, pair slot) items over the whole card, then a combine of each row's
+slots in order) for tensors on the card and runs `pair_nn_plain` for
+tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -155,20 +157,32 @@ def pair_nn(
         raise ValueError(f"pair_nn: unsupported device {dev}")
     if TM > MAX_TILE_SRC:
         raise ValueError(f"pair_nn: tile_src {TM} > {MAX_TILE_SRC}")
-    if TN * 16 > 227 * 1024:
-        raise ValueError(f"pair_nn: tile_tgt {TN} exceeds shared memory")
     d2 = torch.empty((nSt, 1, TM), dtype=f32, device=dev)
     idx = torch.empty((nSt, 1, TM), dtype=i32, device=dev)
     xyz = torch.empty((nSt, 3, TM), dtype=f32, device=dev)
+    # each admitted pair slot's tile minimum and first winning row, from
+    # the scan spread over the card, combined per source row in slot order
+    max_pairs = pair_tgt.shape[0]
+    slot_d2 = torch.empty((max_pairs, TM), dtype=f32, device=dev)
+    slot_row = torch.empty((max_pairs, TM), dtype=i32, device=dev)
     err = cuda_lib.lib().sfk_pair_nn(
         src_pages.data_ptr(), tgt_pages.data_ptr(), pair_start.data_ptr(),
-        pair_cnt.data_ptr(), pair_tgt.data_ptr(), nSt, TM, TN,
-        d2.data_ptr(), idx.data_ptr(), xyz.data_ptr(), cuda_lib.stream_ptr(src_pages),
+        pair_cnt.data_ptr(), pair_tgt.data_ptr(), nSt, TM, TN, max_pairs,
+        d2.data_ptr(), idx.data_ptr(), xyz.data_ptr(), slot_d2.data_ptr(), slot_row.data_ptr(),
+        cuda_lib.stream_ptr(src_pages),
     )
     cuda_lib.check(err, "pair_nn")
     pair_nn.launches += 1
     return d2, idx, xyz
 
 
-#: kernel launches made by `pair_nn` (CUDA tensors only)
+#: calls of `pair_nn` that launched K2 (CUDA tensors only): one a call,
+#: though K2 is two launches (the scan and the combine)
 pair_nn.launches = 0
+
+
+def kernel_grid(tile_src: int, max_pairs: int) -> dict:
+    """K2's scan grid on the current card for source tiles of `tile_src`
+    rows and a pair list of `max_pairs` slots: blocks, threads a block and
+    the blocks a multiprocessor could hold."""
+    return cuda_lib.grid_shape(cuda_lib.lib().sfk_pair_nn_grid, tile_src, max_pairs)

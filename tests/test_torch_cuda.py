@@ -12,39 +12,34 @@ are reduced in another order). K4 and K6 agree to 3e-4 on T and 1e-4
 relative on rmse, wr2 and the JtJ lanes with EQUAL n_correspondences; K5's
 d2 to 1e-6 relative with EQUAL matched pages. K4, K5 and K6 give the same
 bits as before their device functions moved into csrc/p2p_fused.cuh, and
-K1, K3 and K4 as cooperative grids the same bits as their one-block
-predecessors (SHA-256 digests of their outputs), and K1 with its leader's
-points in a global buffer the same bits as with them in registers. K7 to
-3e-4 on poses and state, 1e-4 of max|P| on P, 1e-4 relative on the stats
-lanes with EQUAL n_correspondences, GPS acceptance and slack flags."""
+K1, K3, K4 and K7 as cooperative grids the same bits as their one-block
+predecessors, and K2 with its scan spread over the card the same bits as
+its kernel of one block a source tile (SHA-256 digests of their outputs),
+and K1 with its leader's points in a global buffer the same bits as with
+them in registers. K7 to 3e-4 on poses and state, 1e-4 of max|P| on P,
+1e-4 relative on the stats lanes with EQUAL n_correspondences, GPS
+acceptance and slack flags."""
 
 import dataclasses
-import math
 
-import numpy as np
 import pytest
 import torch
 
 from slam_sensor_fusion_tpu_torch.ops import lio_superblock_fused as tsb
+from slam_sensor_fusion_tpu_torch.ops import nn_pallas as tnn
 from slam_sensor_fusion_tpu_torch.ops import p2p_fused as tpf
 from slam_sensor_fusion_tpu_torch.ops.icp_fused import _fused_core, _fused_core_plain
-from slam_sensor_fusion_tpu_torch.ops.morton import sort_points_numpy, tile_bboxes
-from slam_sensor_fusion_tpu_torch.ops.nn_gated import pair_tiles
 from slam_sensor_fusion_tpu_torch.ops.point_to_plane import PointToPlaneConfig
-from slam_sensor_fusion_tpu_torch.ops.nn_pallas import (
-    _build_tile_pair_list,
-    make_pages,
-    pair_nn,
-    pair_nn_plain,
-)
+from slam_sensor_fusion_tpu_torch.ops.nn_pallas import pair_nn, pair_nn_plain
 from slam_sensor_fusion_tpu_torch.ops.superblock_fused import (
     superblock_fine,
     superblock_fine_plain,
 )
 from torch_lio_world import (
-    BENCH_LIO,
+    K7_SHAPES,
     ODD_LIO,
     k7_case,
+    k7_digest,
     p2p_core_inputs,
     p2p_digest,
     p2p_scene,
@@ -52,11 +47,15 @@ from torch_lio_world import (
 from torch_world import (  # noqa: F401
     K1_SCENES,
     K1_WIDE_SCENES,
+    K2_CASES,
     K3_CONFIG,
     build_world,
     compare_superblock,
     cuda_device,
     k1_digest,
+    k2_case,
+    k2_digest,
+    k2_empty_tile_case,
     k3_digest,
     k3_inputs,
     k3_scene,
@@ -67,38 +66,11 @@ from torch_world import (  # noqa: F401
 pytestmark = pytest.mark.cuda
 
 
-def _k2_case(seed, ties, device, n_tiles=4, TM=256):
-    """Rescue-sized K2 inputs: 4 source tiles of 256 (or n_tiles of TM), 16
-    target tiles of 512."""
-    rng = np.random.default_rng(seed)
-    TN = 512
-    tgt = rng.uniform(-8, 8, (16 * TN, 3)).astype(np.float32)
-    if ties:
-        tgt[1::7] = tgt[0::7][: len(tgt[1::7])]
-    tgt = sort_points_numpy(tgt)
-    src = tgt[rng.choice(len(tgt), n_tiles * TM, replace=False)]
-    src = sort_points_numpy(src + rng.normal(0, 0.05, src.shape).astype(np.float32))
-    s, tg = torch.from_numpy(src).to(device), torch.from_numpy(tgt).to(device)
-    sm = torch.ones(len(src), dtype=torch.bool, device=device)
-    tm = torch.ones(len(tgt), dtype=torch.bool, device=device)
-    r2 = (math.sqrt(5.0) + 0.5) ** 2
-    lo_t, hi_t, _ = tile_bboxes(tg, tm, TN)
-    lo_s, hi_s, cnt_s = tile_bboxes(s, sm, TM)
-    visits, counts, _ = pair_tiles(lo_s, hi_s, cnt_s, lo_t, hi_t, r2, 64)
-    center = s.mean(0)
-    return (make_pages(s, sm, center, TM), make_pages(tg, tm, center, TN),
-            *_build_tile_pair_list(visits, counts, 4 * 32))
-
-
-@pytest.mark.parametrize(
-    "ties, n_tiles, tile_src",
-    [(False, 4, 256), (True, 4, 256), (False, 2, 2048), (True, 1, 4096)],
-    ids=["False", "True", "2x2048", "1x4096-ties"],
-)
+@pytest.mark.parametrize("ties, n_tiles, tile_src", list(K2_CASES.values()), ids=list(K2_CASES))
 def test_pair_nn_kernel_matches_plain(cuda_device, ties, n_tiles, tile_src):
     """The rescue's tiles, and tiles wider than a block (the stress
     configuration's 4096 rows)."""
-    args = _k2_case(0, ties, cuda_device, n_tiles, tile_src)
+    args = k2_case(0, ties, cuda_device, n_tiles, tile_src)
     before = pair_nn.launches
     d2k, idxk, xyzk = pair_nn(*args)
     d2p, idxp, xyzp = pair_nn_plain(*args)
@@ -107,6 +79,29 @@ def test_pair_nn_kernel_matches_plain(cuda_device, ties, n_tiles, tile_src):
     torch.testing.assert_close(d2k, d2p, rtol=1e-5, atol=1e-6)
     assert torch.equal(idxk, idxp)
     assert torch.equal(xyzk, xyzp)
+
+
+def test_pair_nn_empty_source_tile(cuda_device):
+    """A source tile with no admitted target tile, among sentinel rows:
+    d2 3e38, idx 0 and xyz 0 there, as the plain version."""
+    args = k2_empty_tile_case(cuda_device)
+    got = pair_nn(*args)
+    want = pair_nn_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    d2, idx, xyz = got
+    assert (d2[1] == 3.0e38).all() and (idx[1] == 0).all() and (xyz[1] == 0).all()
+    assert (d2[0] < 3.0e38).any()
+
+
+#: `k2_digest` of K2 as the kernel of one block a source tile computed it,
+#: before its scan spread over the card (NVIDIA H100 80GB HBM3)
+K2_DIGEST = "aeb056bf45518aff97d6aea1cd2b86e76ce01f93a1123430940768f0bce77c5e"
+
+
+def test_pair_nn_bits_equal_the_per_tile_kernel(cuda_device):
+    assert k2_digest(cuda_device) == K2_DIGEST
 
 
 @pytest.mark.parametrize("scene", list(K1_SCENES) + list(K1_WIDE_SCENES))
@@ -157,6 +152,19 @@ def test_grid_kernels_span_the_card(cuda_device):
     ]
     for grid, threads in grids:
         assert grid["blocks"] == sms and grid["threads"] == threads and grid["per_sm"] >= 1
+
+
+def test_k7_and_k2_grids_span_the_card(cuda_device):
+    """K7 launches one block on every multiprocessor at the LIO bench's
+    block tiles (4 x 512) and the odd test shape's (4 x 96); K2's scan at
+    least one block on each at the rescue's tiles and the stress
+    configuration's (16 x 4096 with 16 slots a tile)."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for grid, threads in [(tsb.kernel_grid(4, 512), 1024), (tsb.kernel_grid(4, 96), 384)]:
+        assert grid["blocks"] == sms and grid["threads"] == threads and grid["per_sm"] >= 1
+    for tile_src, max_pairs in [(256, 128), (4096, 256)]:
+        grid = tnn.kernel_grid(tile_src, max_pairs)
+        assert grid["blocks"] >= sms and grid["per_sm"] >= 1, grid
 
 
 def test_slice_on_card_matches_cpu(cuda_device):
@@ -301,9 +309,6 @@ def test_p2p_kernels_unchanged_by_the_header_move(cuda_device):
     assert p2p_digest(cuda_device) == P2P_DIGEST
 
 
-K7_SHAPES = {"bench": (BENCH_LIO, 10, 1000), "odd": (ODD_LIO, 7, 50)}
-
-
 @pytest.mark.parametrize("shape", ["bench", "odd"])
 def test_lio_superblock_kernel_matches_plain(cuda_device, shape):
     """K7 against its plain version on one block: 16 frames of 10 IMU
@@ -343,3 +348,12 @@ def test_lio_superblock_skips_padding_frames(cuda_device):
     assert torch.equal(got[2], got[0][0])
     assert (got[1][1:] == 0).all() and (want[1][1:] == 0).all()
     torch.testing.assert_close(got[6], want[6], rtol=0, atol=1e-4 * want[6].abs().max().item())
+
+
+#: `k7_digest` of K7 as the one-block kernel computed it, before its
+#: association spread over a cooperative grid (NVIDIA H100 80GB HBM3)
+K7_DIGEST = "eab418046232a8a8fe7e96ac5f09dca7cf34684bc4749467bb8727e3b91bfe02"
+
+
+def test_lio_superblock_bits_equal_the_one_block_kernel(cuda_device):
+    assert k7_digest(cuda_device) == K7_DIGEST

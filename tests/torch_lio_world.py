@@ -176,6 +176,36 @@ def k7_case(config, device, imu_rate: int = 10, seed: int = 0):
     return args, tl._superblock_params(config)
 
 
+#: K7's card scenes: (configuration, IMU samples a frame, the least
+#: correspondences a frame must have for the comparison not to be vacuous)
+K7_SHAPES = {"bench": (BENCH_LIO, 10, 1000), "odd": (ODD_LIO, 7, 50)}
+
+
+def k7_digest(device) -> str:
+    """SHA-256 of `lio_superblock`'s outputs on the K7_SHAPES blocks, the
+    bench block with frames 0, 7 and 15 invalid, and the odd block with
+    every frame invalid: a kernel that rounds one bit differently, or takes
+    another tile on a tie, changes it."""
+    import hashlib
+
+    from slam_sensor_fusion_tpu_torch.ops import lio_superblock_fused as tsb
+
+    h = hashlib.sha256()
+    for name, (config, imu_rate, _) in K7_SHAPES.items():
+        args, params = k7_case(config, device, imu_rate=imu_rate)
+        valid = args[3]
+        blocks = [valid.clone()]
+        if name == "bench":
+            blocks.append(valid.clone())
+            blocks[-1][[0, 7, valid.shape[0] - 1]] = False
+        else:
+            blocks.append(torch.zeros_like(valid))
+        for vld in blocks:
+            for x in tsb.lio_superblock(*args[:3], vld, *args[4:], params):
+                h.update(x.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def p2p_digest(device) -> str:
     """SHA-256 of K4 (fixed and fresh correspondences), K5 and K6's outputs
     on the scenes of tests/test_torch_cuda.py's K4 tests (the LIO bench's

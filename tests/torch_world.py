@@ -5,6 +5,7 @@ tests, importing nothing of JAX, so the tests of the CUDA kernels
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -14,7 +15,9 @@ from slam_sensor_fusion_tpu_torch.models import localization as tl
 from slam_sensor_fusion_tpu_torch.models import pipeline_fast as tpf
 from slam_sensor_fusion_tpu_torch.models.mapping import build_map_data
 from slam_sensor_fusion_tpu_torch.ops import icp_fused as tif
-from slam_sensor_fusion_tpu_torch.ops.morton import sort_points_numpy
+from slam_sensor_fusion_tpu_torch.ops.morton import sort_points_numpy, tile_bboxes
+from slam_sensor_fusion_tpu_torch.ops.nn_gated import pair_tiles
+from slam_sensor_fusion_tpu_torch.ops.nn_pallas import _build_tile_pair_list, make_pages
 from slam_sensor_fusion_tpu_torch.utils import synthetic as syn
 from slam_sensor_fusion_tpu_torch.utils.config import (
     BruteForceConfig,
@@ -158,6 +161,66 @@ def k1_digest(device, global_layout: bool = False) -> str:
         else:
             out = tsf.superblock_fine(*args, cfg)
         for x in out:
+            h.update(x.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+#: K2's card scenes: (exact ties, source tiles, rows a source tile) against
+#: 16 target tiles of 512: the rescue's tiles, and tiles wider than a block
+#: (the stress configuration's 4096 rows)
+K2_CASES = {"False": (False, 4, 256), "True": (True, 4, 256), "2x2048": (False, 2, 2048),
+            "1x4096-ties": (True, 1, 4096)}
+
+
+def k2_case(seed, ties, device, n_tiles=4, TM=256, masked=False):
+    """K2's inputs as the rescue ICP builds them (both page sets at the +1e7
+    sentinel): `n_tiles` source tiles of TM rows near 16 target tiles of
+    512, Morton-sorted; `ties` duplicates every 7th target point, `masked`
+    drops every 8th source and every 9th target point to the sentinel."""
+    rng = np.random.default_rng(seed)
+    TN = 512
+    tgt = rng.uniform(-8, 8, (16 * TN, 3)).astype(np.float32)
+    if ties:
+        tgt[1::7] = tgt[0::7][: len(tgt[1::7])]
+    tgt = sort_points_numpy(tgt)
+    src = tgt[rng.choice(len(tgt), n_tiles * TM, replace=False)]
+    src = sort_points_numpy(src + rng.normal(0, 0.05, src.shape).astype(np.float32))
+    s, tg = torch.from_numpy(src).to(device), torch.from_numpy(tgt).to(device)
+    sm = torch.ones(len(src), dtype=torch.bool, device=device)
+    tm = torch.ones(len(tgt), dtype=torch.bool, device=device)
+    if masked:
+        sm[::8] = False
+        tm[::9] = False
+    r2 = (math.sqrt(5.0) + 0.5) ** 2
+    lo_t, hi_t, _ = tile_bboxes(tg, tm, TN)
+    lo_s, hi_s, cnt_s = tile_bboxes(s, sm, TM)
+    visits, counts, _ = pair_tiles(lo_s, hi_s, cnt_s, lo_t, hi_t, r2, 64)
+    center = s.mean(0)
+    return (make_pages(s, sm, center, TM), make_pages(tg, tm, center, TN),
+            *_build_tile_pair_list(visits, counts, 4 * 32))
+
+
+def k2_empty_tile_case(device):
+    """The rescue's tiles with sentinel rows on both sides and source tile 1
+    given no admitted target tile."""
+    args = list(k2_case(1, True, device, masked=True))
+    args[3] = args[3].clone()
+    args[3][1] = 0  # pair_cnt
+    return args
+
+
+def k2_digest(device) -> str:
+    """SHA-256 of `pair_nn`'s outputs (d2, idx, xyz) on the K2_CASES and the
+    empty-tile case."""
+    import hashlib
+
+    from slam_sensor_fusion_tpu_torch.ops.nn_pallas import pair_nn
+
+    h = hashlib.sha256()
+    cases = [k2_case(0, ties, device, n_tiles, TM) for ties, n_tiles, TM in K2_CASES.values()]
+    cases.append(k2_empty_tile_case(device))
+    for args in cases:
+        for x in pair_nn(*args):
             h.update(x.detach().cpu().numpy().tobytes())
     return h.hexdigest()
 
