@@ -13,9 +13,11 @@ check exits non-zero:
      (slam_sensor_fusion_tpu_torch/csrc) and reports the seconds, ptxas's
      registers and spills of each kernel, and the cooperative grids of K1,
      K3, K4 and K7 at the main paths' tiles, of K1 and K3 at the JAX
-     package's default and stress tiles, and K2's scan grid at the
-     rescue's and the stress tiles (blocks, threads, blocks a
-     multiprocessor holds; at least 16 blocks);
+     package's default and stress tiles, K2's scan grid at the
+     rescue's and the stress tiles and K5's at the LIO bench's (blocks,
+     threads, blocks a multiprocessor holds; at least 16 blocks), and K6's
+     thread-block cluster at the LIO bench's tiles (CTAs, threads, the
+     bytes of the matched set each stages);
   2. kernel against plain PyTorch at the main path's shapes, on inputs
      taken from the smoke world: K2 (pair-list NN) at the startup rescue's
      size, K1 (whole-superblock fine loop) on the first real superblock;
@@ -55,11 +57,17 @@ check exits non-zero:
      on fixed correspondences, cell normals, the GN covariance, GPS every
      frame), cut to 129 frames: run_lio_blocks twice from the same state,
      LIOSession.push over the same frames, run_lio_chunk over the first 33,
-     and 8 frames through the split registration (associate_p2p_fused ->
-     p2p_gn_from_correspondences, K5 then K6). Requires ATE-RMSE < 0.3 m,
-     finite outputs, exactly one K4 launch a frame, the session's first 33
-     poses equal to the chunk's within 1e-5, and the split registration
-     equal to the whole one. Prints scans/s, push p50/p99, the frame's split
+     8 frames through the split registration (associate_p2p_fused ->
+     p2p_gn_from_correspondences, K5 then K6), and the map-sharded
+     registration (parallel/map_shard.sp_p2p_align) over phase 2's
+     steady-state anchor map split into 1 and 4 shards, 8 frames each.
+     Requires ATE-RMSE < 0.3 m, finite outputs, exactly one K4 launch a
+     frame, the session's first 33 poses equal to the chunk's within 1e-5,
+     the split registration equal to the whole one, and sp_p2p_align's
+     n_corr equal to K4's with fixed correspondences on the whole map, T
+     within 1e-4, K5 launched once a shard and K6 once a frame. Prints
+     K5's and K6's device ms a frame of sp_p2p_align, scans/s, push
+     p50/p99, the frame's split
      into host-issued work and K4 (and one block under torch.profiler:
      device busy and idle share, K4's share, device operations a frame), the
      anchor refresh, pair demand against the list's capacity and the GPS
@@ -87,7 +95,8 @@ Phase 2 also holds K3 against its plain version (fresh and lazy, at the
 session's shapes), the per-frame superblock branch (K3 lazy) against K1 on
 the first superblock, and K4 (fixed and fresh correspondences), K5, K6 and
 K6(K5(x)) against K4 on a steady-state frame of the LIO world (frame 33,
-the ring full) against the anchor its block starts with, and K7 against
+the ring full) against the anchor its block starts with (with K5's scan
+and combine and K6's device time under the profiler), and K7 against
 its plain version on the block of frames 33-48 from the same state.
 Every kernel's launch count is set to 0 before each path of phases 3-8
 and read after it.
@@ -96,8 +105,9 @@ The line before the last is the kernels' JSON record (time, plain time,
 error against plain, launches on the main paths, and the least time the
 card could take for the same work; K1 also its steady-state time and its
 times at the JAX package's tile shapes, K2 at the stress tiles, K3 its
-lazy times and at 4 x 4096, K4 its fresh-correspondence times; K1-K4 and
-K7 their grids); the last line is
+lazy times and at 4 x 4096, K4 its fresh-correspondence times, K5 and K6
+their device times alone and a frame of sp_p2p_align at 1 and 4 shards;
+K1-K5 and K7 their grids, K6 its cluster); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -145,8 +155,15 @@ FLOP_PER_EKF_PRODUCT = 2 * 16**3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 FLOP_PER_DISTANCE = 8  # 3 differences, 3 products, 2 sums
-#: K2's two launches a call, by their names in the profiler
+#: K2's and K5's two launches a call and K6's one, by their names in the profiler
 K2_KERNELS = ("pair_nn_scan_kernel", "pair_nn_combine_kernel")
+K5_KERNELS = ("p2p_assoc_scan_kernel", "p2p_assoc_combine_kernel")
+K6_KERNELS = ("p2p_gn_cluster_kernel",)
+#: phase 6's map-sharded registration: shard counts, and its bound on T
+#: against K4 with fixed correspondences on the whole map (the JAX
+#: package's test of sp_p2p_align, tests/test_parallel.py)
+SP_SHARDS = (1, 4)
+SP_TOL = 1e-4
 #: K1 and K4 must spread each association over at least this many SMs
 MIN_GRID_BLOCKS = 16
 
@@ -310,7 +327,9 @@ KERNEL_SYMBOLS = [
     ("pair_nn_scan_kernel", "K2 scan"), ("pair_nn_combine_kernel", "K2 combine"),
     ("icp_fused_kernel", "K3"), ("lio_superblock_kernel", "K7"),
     ("GlobalPoints", "K1 global layout"), ("superblock_kernel", "K1 register layout"),
-    ("p2p_fused_kernel", "K4"), ("p2p_associate_kernel", "K5"), ("p2p_gn_corr_kernel", "K6"),
+    ("p2p_fused_kernel", "K4"), ("p2p_assoc_scan_kernel", "K5 scan"),
+    ("p2p_assoc_combine_kernel", "K5 combine"), ("p2p_gn_cluster_kernelILb1", "K6 staged"),
+    ("p2p_gn_cluster_kernelILb0", "K6 global"),
 ]
 
 
@@ -360,12 +379,11 @@ def time_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def device_ms(fn, reps: int, names) -> float | None:
-    """Mean device milliseconds a call spends in the kernels whose names
-    hold one of `names`, under torch.profiler over `reps` calls after a
-    warm-up (a call's time on the card alone, where `time_ms` of
-    back-to-back calls may be its host's); None where the profiler
-    records no device time."""
+def device_ms_by_kernel(fn, reps: int, names) -> dict:
+    """Mean device milliseconds a call spends in each kernel whose name holds
+    one of `names` (keyed by that name), under torch.profiler over `reps`
+    calls after a warm-up; None for a name the profiler records no device
+    time for."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -374,9 +392,21 @@ def device_ms(fn, reps: int, names) -> float | None:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA and any(n in e.key for n in names))
-    return us / 1e3 / reps if us > 0 else None
+    out = {}
+    for n in names:
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and n in e.key)
+        out[n] = us / 1e3 / reps if us > 0 else None
+    return out
+
+
+def device_ms(fn, reps: int, names) -> float | None:
+    """Mean device milliseconds a call spends in the kernels whose names
+    hold one of `names` (a call's time on the card alone, where `time_ms`
+    of back-to-back calls may be its host's); None where the profiler
+    records no device time."""
+    found = [ms for ms in device_ms_by_kernel(fn, reps, names).values() if ms is not None]
+    return sum(found) if found else None
 
 
 def check_k2(inputs, dev_name):
@@ -707,7 +737,7 @@ def main() -> None:
         lio_superblock,
         lio_superblock_plain,
     )
-    from slam_sensor_fusion_tpu_torch.parallel import lio_fleet
+    from slam_sensor_fusion_tpu_torch.parallel import lio_fleet, map_shard
     from slam_sensor_fusion_tpu_torch.ops.nn_pallas import pair_nn, pair_nn_plain
     from slam_sensor_fusion_tpu_torch.ops.superblock_fused import (
         superblock_fine,
@@ -755,12 +785,19 @@ def main() -> None:
         "K2 scan": nn_grid(rcfg.tile_src,
                            config.capacity.bf_source // rcfg.tile_src * rcfg.max_pairs_factor),
         "K2 scan 16x4096": nn_grid(xcfg.icp.tile_src, tiles(xcfg)[0] * xcfg.icp.max_pairs_factor),
+        "K5 scan": p2p.assoc_grid(lcfg.p2p.tile_src, lcfg.scan_capacity // lcfg.p2p.tile_src
+                                  * lcfg.p2p.max_pairs_factor),
     }
     for label, g in grids.items():
         print(f"  grid: {label} {g['blocks']} blocks of {g['threads']} threads on {sms} "
               f"multiprocessors (a multiprocessor could hold {g['per_sm']}) [{tag}]", flush=True)
         if g["blocks"] < MIN_GRID_BLOCKS:
             fail(f"{label}: a grid of {g['blocks']} blocks spans fewer than {MIN_GRID_BLOCKS} SMs")
+    # K6 is a thread-block cluster: its CTAs and what each stages at the LIO
+    # bench's 16 x 512 source tiles
+    k6_cluster = p2p.gn_cluster(lcfg.scan_capacity // lcfg.p2p.tile_src, lcfg.p2p.tile_src)
+    print(f"  cluster: K6 {k6_cluster['ctas']} CTAs of {k6_cluster['threads']} threads, "
+          f"{k6_cluster['smem_bytes']} bytes of the matched set staged a CTA [{tag}]", flush=True)
 
     # ---- worlds (host set-up: phases 2-3 and phases 2, 4-5) ----
     t0 = time.perf_counter()
@@ -975,6 +1012,15 @@ def main() -> None:
     print(f"K4 fixed {k4_ms:.3f} ms/registration (plain {k4_plain_ms:.3f}), fresh {k4f_ms:.3f} "
           f"(plain {k4f_plain_ms:.3f}); K5 {k5_ms:.3f} ms (plain {k5_plain_ms:.3f}); K6 {k6_ms:.3f} ms "
           f"(plain {k6_plain_ms:.3f}) [{tag}]", flush=True)
+    # on the card alone (the profiler's device time a call): K5's scan and
+    # combine, K6's cluster
+    k5_split = device_ms_by_kernel(lambda: p2p._p2p_associate(*k4_in), 20, K5_KERNELS)
+    k6_device_ms = device_ms_by_kernel(
+        lambda: p2p._p2p_gn_corr(*k6_in, lcfg.p2p), 20, K6_KERNELS)[K6_KERNELS[0]]
+    k5_device_ms = (None if None in k5_split.values() else sum(k5_split.values()))
+    print(f"on the card alone: K5 {k5_device_ms} ms (scan {k5_split[K5_KERNELS[0]]}, combine "
+          f"{k5_split[K5_KERNELS[1]]}), K6 {k6_device_ms} ms (a cluster of {k6_cluster['ctas']} "
+          f"x {k6_cluster['threads']} threads) [{tag}]", flush=True)
     TM4, TN4 = k4_in[0].shape[-1], k4_in[1].shape[-1]
     n_pass = lcfg.p2p.num_iterations + 1
     gn_flops = n_pass * k4_in[0].shape[0] * TM4 * FLOP_PER_GN_POINT
@@ -1376,6 +1422,65 @@ def main() -> None:
         fail(f"split registration differs from K4 by {worst}")
     if p2p._p2p_associate.launches != LIO_SPLIT_FRAMES or p2p._p2p_gn_corr.launches != LIO_SPLIT_FRAMES:
         fail("split registration: K5 / K6 did not launch once a frame")
+
+    # the map-sharded registration (parallel/map_shard.sp_p2p_align: K5 a
+    # shard, the first argmin over shards, K6 once) over the steady-state
+    # anchor map of phase 2 (the ring after 32 frames, split into 1 and 4
+    # Morton-contiguous shards), frames 33-40 from nudged priors, against K4
+    # with fixed correspondences on the whole map; the pair lists hold every
+    # tile pair, so both see every admissible target tile
+    sp_cfg = lcfg.p2p._replace(max_pairs_factor=lstate_w.anchor_cache.pages.shape[0])
+    # the registration map is every anchor_subsample-th anchor point
+    asub = lcfg.anchor_subsample
+    keep = lstate_w.anchor_mask[::asub]
+    a_pts, a_nrm, a_nv = (x[::asub][keep].cpu().numpy() for x in (
+        lstate_w.anchor_points, lstate_w.anchor_normals, lstate_w.anchor_normals_valid))
+    sp_frames = []
+    for k in range(LIO_SPLIT_FRAMES):
+        prior_k = nudge(up(lposes[w + k + 1]), 0.05, -0.03, 0.3)
+        args = (larrays[0][w + k], larrays[1][w + k])
+        sp_frames.append((args, prior_k, p2p.point_to_plane_align_fused(
+            *args, lstate_w.anchor_cache, prior_k, sp_cfg)))
+    sp = {}
+    for n_sh in SP_SHARDS:
+        target = map_shard.shard_p2p_target(
+            a_pts, a_nrm, a_nv, n_sh, sp_cfg.tile_tgt,
+            center=lstate_w.anchor_cache.center.cpu().numpy(), device=dev)
+        zero_counts(*kernels)
+        worst, n_corr = 0.0, []
+        for args, prior_k, whole in sp_frames:
+            got = map_shard.sp_p2p_align(*args, target, prior_k, sp_cfg)
+            worst = max(worst, (got.transformation - whole.transformation).abs().max().item())
+            n_corr.append(int(got.n_correspondences))
+            if n_corr[-1] != int(whole.n_correspondences):
+                fail(f"sp_p2p_align at {n_sh} shards: n_corr {n_corr[-1]} vs "
+                     f"{int(whole.n_correspondences)} on the whole map")
+        record(f"lio_sp{n_sh}")
+        launched = (p2p._p2p_associate.launches, p2p._p2p_gn_corr.launches)
+        if launched != (n_sh * LIO_SPLIT_FRAMES, LIO_SPLIT_FRAMES):
+            fail(f"sp_p2p_align at {n_sh} shards: K5 / K6 launched {launched} times over "
+                 f"{LIO_SPLIT_FRAMES} frames")
+        if not worst <= SP_TOL:
+            fail(f"sp_p2p_align at {n_sh} shards: T differs from K4 on the whole map by {worst}")
+        if not min(n_corr) >= 1000:
+            fail(f"sp_p2p_align at {n_sh} shards: a frame with under 1000 correspondences")
+
+        def run_sp():
+            for args, prior_k, _ in sp_frames:
+                map_shard.sp_p2p_align(*args, target, prior_k, sp_cfg)
+
+        dev_ms = device_ms_by_kernel(run_sp, 2, K5_KERNELS + K6_KERNELS)
+        k5_frame = (None if dev_ms[K5_KERNELS[0]] is None
+                    else (dev_ms[K5_KERNELS[0]] + dev_ms[K5_KERNELS[1]]) / LIO_SPLIT_FRAMES)
+        k6_frame = (None if dev_ms[K6_KERNELS[0]] is None
+                    else dev_ms[K6_KERNELS[0]] / LIO_SPLIT_FRAMES)
+        frame_ms = time_ms(run_sp, 3) / LIO_SPLIT_FRAMES
+        sp[n_sh] = {"k5_ms_a_frame": k5_frame, "k6_ms_a_frame": k6_frame, "ms_a_frame": frame_ms}
+        print(f"sp_p2p_align at {n_sh} shards ({target.pages.shape[0]} target tiles of "
+              f"{sp_cfg.tile_tgt}) over {LIO_SPLIT_FRAMES} frames: max |T| diff to K4 on the whole "
+              f"map {worst:.3e}, n_corr {n_corr} equal; K5 {k5_frame} ms a frame ({n_sh} launches) "
+              f"and K6 {k6_frame} ms a frame on the card alone, {frame_ms:.3f} ms a frame as "
+              f"called [{tag}]", flush=True)
     print(f"phase 6 LIO path: {time.perf_counter() - t0:.1f} s; scans/s (pass 1) {lrate:.1f} "
           f"[{tag}]", flush=True)
     # ---- 7. the LIO path under the block loop: run_lio_superblocks twice
@@ -1585,9 +1690,15 @@ def main() -> None:
             bound_ms_fresh=k4f_bound[0], grid=grids["K4"]),
         row(p2p._p2p_associate, "K5 p2p_associate",
             "slam_sensor_fusion_tpu_torch/csrc/p2p_fused.cu",
-            "slam_sensor_fusion_tpu/ops/p2p_fused.py:510", k5_err, k5_ms, k5_plain_ms, k5_bound),
+            "slam_sensor_fusion_tpu/ops/p2p_fused.py:510", k5_err, k5_ms, k5_plain_ms, k5_bound,
+            device_ms=k5_device_ms, device_ms_scan=k5_split[K5_KERNELS[0]],
+            device_ms_combine=k5_split[K5_KERNELS[1]], grid=grids["K5 scan"],
+            **{f"sp{n}_device_ms_a_frame": v["k5_ms_a_frame"] for n, v in sp.items()}),
         row(p2p._p2p_gn_corr, "K6 p2p_gn_corr", "slam_sensor_fusion_tpu_torch/csrc/p2p_fused.cu",
-            "slam_sensor_fusion_tpu/ops/p2p_fused.py:536", k6_err, k6_ms, k6_plain_ms, k6_bound),
+            "slam_sensor_fusion_tpu/ops/p2p_fused.py:536", k6_err, k6_ms, k6_plain_ms, k6_bound,
+            device_ms=k6_device_ms, cluster=k6_cluster,
+            **{f"sp{n}_device_ms_a_frame": v["k6_ms_a_frame"] for n, v in sp.items()},
+            **{f"sp{n}_ms_a_frame": v["ms_a_frame"] for n, v in sp.items()}),
         row(lio_superblock, "K7 lio_superblock",
             "slam_sensor_fusion_tpu_torch/csrc/lio_superblock_fused.cu",
             "slam_sensor_fusion_tpu/ops/lio_superblock_fused.py:196", k7_err, k7_ms, k7_plain_ms,

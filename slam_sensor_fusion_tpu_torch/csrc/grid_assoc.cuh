@@ -226,10 +226,28 @@ struct FirstRound {
   int nSt, TM, TN;
 };
 
+// One row of a first-row item under (R, t): point r of source tile i,
+// transformed, scanned against slot s's one target tile pt[s] with
+// icp_fused.cuh's `nearest_first`; the tile's best d2 and first winning
+// row (-1 for none) go to the per-slot scratch.
+template <int ROWS>
+__device__ __forceinline__ void scan_first_row(const FirstRound& A, const Pose& X, int i, int s,
+                                               int r) {
+  const int TM = A.TM;
+  const float* sp = A.src + (size_t)i * 3 * TM;
+  const float px = sp[r], py = sp[TM + r], pz = sp[2 * TM + r];
+  const float sx = X.R[0] * px + X.R[1] * py + X.R[2] * pz + X.t[0];
+  const float sy = X.R[3] * px + X.R[4] * py + X.R[5] * pz + X.t[1];
+  const float sz = X.R[6] * px + X.R[7] * py + X.R[8] * pz + X.t[2];
+  const float* win;
+  A.slot_d2[(size_t)s * TM + r] = nearest_first<ROWS>(A.tgt, A.pt, s, 1, A.TN, sx, sy, sz, &win);
+  A.slot_row[(size_t)s * TM + r] =
+      win ? (int)(win - (A.tgt + (size_t)A.pt[s] * ROWS * A.TN)) : -1;
+}
+
 // A worker's chunks of the round under the published (R, t): for item
-// (tile i, slot s), thread r of the chunk transforms its point r of tile i
-// and scans target tile pt[s] with icp_fused.cuh's `nearest_first`. No
-// page is staged, so a block holds a group for each warp at most.
+// (tile i, slot s), thread r of the chunk scans its row (`scan_first_row`).
+// No page is staged, so a block holds a group for each warp at most.
 template <int ROWS>
 __device__ void scan_first(const FirstRound& A, const Ctl* ctl) {
   const Pose X = read_pose(ctl);
@@ -245,16 +263,22 @@ __device__ void scan_first(const FirstRound& A, const Ctl* ctl) {
     if (r >= TM) continue;
     int s;
     const int i = item_at(c / C.P, A.ps, A.pc, &s);
-    const float* sp = A.src + (size_t)i * 3 * TM;
-    const float px = sp[r], py = sp[TM + r], pz = sp[2 * TM + r];
-    const float sx = X.R[0] * px + X.R[1] * py + X.R[2] * pz + X.t[0];
-    const float sy = X.R[3] * px + X.R[4] * py + X.R[5] * pz + X.t[1];
-    const float sz = X.R[6] * px + X.R[7] * py + X.R[8] * pz + X.t[2];
-    const float* win;
-    A.slot_d2[(size_t)s * TM + r] = nearest_first<ROWS>(A.tgt, A.pt, s, 1, A.TN, sx, sy, sz, &win);
-    A.slot_row[(size_t)s * TM + r] =
-        win ? (int)(win - (A.tgt + (size_t)A.pt[s] * ROWS * A.TN)) : -1;
+    scan_first_row<ROWS>(A, X, i, s, r);
   }
+}
+
+// The ordered combine of point r of source tile i over its slots: returns
+// the best d2 and sets *win to the address of the winner's row 0 (row k at
+// win[k * TN]), or nullptr.
+template <int ROWS>
+__device__ __forceinline__ float combine_first_row(const FirstRound& A, int i, int r,
+                                                   const float** win) {
+  const int TM = A.TM;
+  int w;
+  const float best = combine(A.slot_d2 + r, TM, A.ps[i], A.pc[i], &w);
+  *win = w < 0 ? nullptr
+               : A.tgt + (size_t)A.pt[w] * ROWS * A.TN + __ldcg(A.slot_row + (size_t)w * TM + r);
+  return best;
 }
 
 // The leader's combine of a first-row round: thread x takes the points
@@ -268,11 +292,8 @@ __device__ void combine_first(const FirstRound& A, Sink&& sink) {
   for (int p = threadIdx.x; p < A.nSt * TM; p += blockDim.x) {
     const int i = p / TM;
     const int r = p - i * TM;
-    int w;
-    const float best = combine(A.slot_d2 + r, TM, A.ps[i], A.pc[i], &w);
-    const float* win =
-        w < 0 ? nullptr
-              : A.tgt + (size_t)A.pt[w] * ROWS * A.TN + __ldcg(A.slot_row + (size_t)w * TM + r);
+    const float* win;
+    const float best = combine_first_row<ROWS>(A, i, r, &win);
     sink(i, r, best, win);
   }
 }
@@ -292,6 +313,27 @@ inline cudaError_t grid_size(const void* kernel, int threads, size_t smem, int* 
   if (e != cudaSuccess) return e;
   if (*per_sm < 1 || sms < 2) return cudaErrorCooperativeLaunchTooLarge;
   *blocks = sms;
+  return cudaSuccess;
+}
+
+// Host: the grid of an item-warp scan (K2, K5: ordinary launches, no grid
+// barrier): one full wave of `threads`-thread blocks on every
+// multiprocessor, fewer where the list's max_pairs x ceil(TM / 32)
+// item-warps cannot fill it. *per_sm is how many blocks a multiprocessor
+// could hold.
+inline cudaError_t item_warp_grid(const void* kernel, int threads, int TM, int max_pairs,
+                                  int* blocks, int* per_sm) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, threads, 0);
+  if (e != cudaSuccess) return e;
+  const long long warps = (long long)max_pairs * ((TM + 31) / 32);
+  const long long need = (warps + threads / 32 - 1) / (threads / 32);
+  const long long full = (long long)sms * *per_sm;
+  *blocks = (int)(need < full ? need : full);
   return cudaSuccess;
 }
 

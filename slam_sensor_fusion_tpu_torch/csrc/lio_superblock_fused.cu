@@ -400,7 +400,7 @@ __global__ void __launch_bounds__(1024, 1) lio_superblock_kernel(
     }
     __syncthreads();
     const sfk::grid::FirstRound A = round_of(k);
-    const sfk::p2p::Tiles T{A.src, tgt_pages, A.ps, A.pc, A.pt, best_d2, best_qn, nSt, TM, TN};
+    const sfk::p2p::Tiles T{A.src, best_d2, best_qn, nSt, TM, TN};
     sfk::p2p::grid_gn(g, ctl, k, S.g, T, A, prm.p2p, red);
 
     // 3) the pose update: gain and mean on thread 0, Joseph form by all

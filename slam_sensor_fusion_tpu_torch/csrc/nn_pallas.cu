@@ -162,21 +162,10 @@ __global__ void __launch_bounds__(kCombineThreads) pair_nn_combine_kernel(
 }
 
 // The scan's grid: one full wave of blocks on every multiprocessor, fewer
-// where the list's max_pairs x ceil(TM / 32) item-warps cannot fill it.
+// where the list's item-warps cannot fill it.
 cudaError_t scan_grid(int TM, int max_pairs, int* blocks, int* per_sm) {
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, pair_nn_scan_kernel, kScanThreads,
-                                                    0);
-  if (e != cudaSuccess) return e;
-  const long long warps = (long long)max_pairs * ((TM + 31) / 32);
-  const long long need = (warps + kScanThreads / 32 - 1) / (kScanThreads / 32);
-  const long long full = (long long)sms * *per_sm;
-  *blocks = (int)(need < full ? need : full);
-  return cudaSuccess;
+  return sfk::grid::item_warp_grid((const void*)pair_nn_scan_kernel, kScanThreads, TM, max_pairs,
+                                   blocks, per_sm);
 }
 
 }  // namespace

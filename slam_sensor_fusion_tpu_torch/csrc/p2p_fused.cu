@@ -6,16 +6,12 @@
 //      + normal), the 29 Huber-weighted moments, an unrolled 6x6 Cholesky
 //      solve, a Taylor SE(3) step with one polar polish, a FIXED number of
 //      iterations and a trailing stats pass;
-//   K5 `_make_assoc_kernel` (`associate_p2p_fused`): K4's association pass
-//      alone at the prior; its winners are the outputs;
-//   K6 `_make_gn_corr_kernel` (`p2p_gn_from_correspondences`): K4's GN on a
+//   K5 `_make_assoc_kernel` (`associate_p2p_fused`, once a map shard in
+//      parallel/map_shard.sp_p2p_align): K4's association pass alone at the
+//      prior; its winners are the outputs;
+//   K6 `_make_gn_corr_kernel` (`p2p_gn_from_correspondences`, once a
+//      sp_p2p_align call on the shards' combined winners): K4's GN on a
 //      matched set given as input.
-// Device functions of p2p_fused.cuh carry all three: `associate` writes
-// each source point's best d2 and matched (x, y, z, nx, ny, nz) to a
-// per-point buffer (K5, with the buffer as its output), `gn_passes` runs
-// the iterations and the stats pass from that buffer (K6, with the buffer
-// as its input), and `grid_gn` (shared with K7) runs K4's whole GN on a
-// cooperative grid, each association a round that fills the same buffer.
 // Outputs of K4 and K6: T_out (4, 4) in the rebased frame and stats (128) =
 // [rmse, W, iterations, 21 damped JtJ entries (row-major lower triangle),
 // wr2, 0...], as the JAX kernels.
@@ -26,12 +22,14 @@
 // each); at the LIO bench's shapes (16 source tiles of 512, target tiles of
 // 1024, up to 256 pairs) that is ~10^8 distances a pass. GN around it is a
 // serial chain of passes around block-wide sums. K6 has no distances: it
-// reads 10 floats a point a pass and is bound by its bytes and the latency
-// of its serial scalar tail. Bytes never limit K4/K5: the target pages
+// reads 10 floats a point once and is bound by the latency of its passes
+// (about 110 float operations a point a pass, a reduction of 29 sums, a
+// scalar tail on one thread). Bytes never limit K4/K5: the target pages
 // (32 x 24 KiB) stay in L2 and a warp reads one target row at a time as a
 // broadcast.
 //
-// Design. K4 is a persistent cooperative grid, one block on each SM
+// Design.
+// K4 is a persistent cooperative grid, one block on each SM
 // (grid_assoc.cuh). Block 0, the leader, keeps the one-block layout of the
 // first port: TM x G threads, G = min(nSt, 1024 / TM); group g owns source
 // tiles g, g + G, ... and thread r of a group owns point r of each of them.
@@ -48,15 +46,42 @@
 // (`combine_first<6>`).
 // With fixed correspondences that is one round at the prior followed by
 // p2p_fused.cuh's `gn_passes`; with fresh ones gn_passes' order with a
-// round in every pass (`grid_gn`, K7's GN too). The 29 moment sums go through the
-// fixed-order block reduction (no atomics: deterministic); the scalar tail
-// (damping, Cholesky, starve guard, Taylor exp, polish, composition) runs
-// on thread 0 in the JAX kernel's operation order, and the library builds
-// with -fmad=false, so products and sums round op by op as in the plain
-// versions (`_p2p_core_plain`, `_p2p_associate_plain`,
+// round in every pass (`grid_gn`, K7's GN too). The 29 moment sums go
+// through the fixed-order block reduction (no atomics: deterministic); the
+// scalar tail (damping, Cholesky, starve guard, Taylor exp, polish,
+// composition) runs on thread 0 in the JAX kernel's operation order, and
+// the library builds with -fmad=false, so products and sums round op by op
+// as in the plain versions (`_p2p_core_plain`, `_p2p_associate_plain`,
 // `_p2p_gn_corr_plain`) and K4's outputs equal the one-block kernel's bit
-// for bit. K5 has no sums: its launcher spreads the source tiles over
-// blocks with `associate`. K6 is `gn_passes` on one block.
+// for bit.
+// K5 is that round without the grid barrier (it has no serial chain), as
+// K2 (nn_pallas.cu): two ordinary launches. The scan numbers the (source
+// tile, pair slot) items, cuts each into warps of 32 source rows and deals
+// the item-warps round-robin to the blocks of one wave over every SM, so
+// the 256 slots of the bench, or the few a map shard admits, spread over
+// the card; each row runs `scan_first_row<6>` under the prior T0 into
+// per-slot scratch (max_pairs, TM). The combine gives each source row its
+// slots in slot order from kBig under a strict `<` (`combine_first_row<6>`)
+// and writes d2 and the winner's six rows, or zeros where no row beat kBig:
+// the one-block walk's outputs bit for bit.
+// K6 is a thread-block cluster of C CTAs (C <= 8, a power of two, CTAs of
+// whole warps; grid and cluster are the same C CTAs on neighbouring SMs)
+// that takes over the one-block layout's TM x G threads: virtual thread
+// v = rank x blockDim + tid keeps point v % TM of tiles v / TM, v / TM + G,
+// ... . Each CTA copies its virtual threads' matched set (source xyz, d2,
+// matched xyz and normal: 10 floats a point, ~40 KiB a CTA at 16 x 512
+// and C = 8) into its shared memory once with cp.async; the three passes
+// then read shared memory (where the set does not fit, the same kernel
+// reads it from global memory each pass). A pass: every CTA adds up its
+// virtual threads' moments in the one-block order (`add_moments`), runs
+// block_sum's warp shuffle tree and writes each warp's partial to
+// red[m * 32 + warp] in CTA 0's shared memory (distributed shared memory);
+// after a cluster barrier CTA 0's threads < 29 add the warp partials in
+// warp order and thread 0 runs the scalar tail; after a second barrier the
+// other CTAs read the new (R, t) from CTA 0. Same operations in the same
+// order as the one-block `gn_passes`: K6 keeps its bits, and K6(K5(x))
+// equals K4 with fixed correspondences.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "grid_assoc.cuh"
@@ -69,6 +94,11 @@ namespace {
 using sfk::p2p::kNMom;
 using sfk::p2p::Shared;
 using sfk::p2p::Tiles;
+
+constexpr int kScanThreads = 128;     // K5's scan: 4 warps a block
+constexpr int kCombineThreads = 256;  // K5's combine: one source row a thread
+constexpr int kMaxCluster = 8;        // K6: the portable cluster size
+constexpr int kPointFloats = 10;      // K6's staged point: src xyz, d2, qn (6)
 
 // K4's and K6's outputs from the state gn_passes leaves (thread 0): T_out and
 // stats = [rmse, W, iterations, 21 damped JtJ entries, wr2, 0...].
@@ -102,8 +132,7 @@ __global__ void __launch_bounds__(1024, 1) p2p_fused_kernel(
     sfk::grid::Ctl* ctl,                  // the leader's published round
     int nSt, int TM, int TN, P2PParams prm) {
   const cg::grid_group g = cg::this_grid();
-  const Tiles T{src_pages, tgt_pages, pair_start, pair_cnt, pair_tgt,
-                best_d2, best_qn, nSt, TM, TN};
+  const Tiles T{src_pages, best_d2, best_qn, nSt, TM, TN};
   const sfk::grid::FirstRound A{src_pages, tgt_pages, pair_start, pair_cnt, pair_tgt,
                                 slot_d2, slot_row, nSt, TM, TN};
   if (blockIdx.x != 0) {  // a worker: serve the leader's association rounds
@@ -119,37 +148,149 @@ __global__ void __launch_bounds__(1024, 1) p2p_fused_kernel(
   if (threadIdx.x == 0) pack_outputs(S, prm, T_out, stats);
 }
 
-__global__ void __launch_bounds__(1024, 1) p2p_associate_kernel(
-    const float* __restrict__ src_pages, const float* __restrict__ tgt_pages,
-    const int* __restrict__ pair_start, const int* __restrict__ pair_cnt,
-    const int* __restrict__ pair_tgt, const float* __restrict__ T0,
-    float* __restrict__ best_d2,  // (nSt, 1, TM) out
-    float* __restrict__ best_qn,  // (nSt, 6, TM) out
-    int nSt, int TM, int TN) {
-  const Tiles T{src_pages, tgt_pages, pair_start, pair_cnt, pair_tgt,
-                best_d2, best_qn, nSt, TM, TN};
-  float R[9], t[3];
-  sfk::read44(T0, R, t);
-  // no sums follow, so the source tiles spread over the grid's blocks
-  const int G = blockDim.x / TM;
-  sfk::p2p::associate(R, t, T, blockIdx.x * G + threadIdx.x / TM, gridDim.x * G);
+// K5's scan: warp w of the launch takes the item-warps w, w + W, ...,
+// numbered so that neighbouring item-warps land in different blocks; each
+// thread scans its row of the item under T0 into the per-slot scratch.
+__global__ void __launch_bounds__(kScanThreads) p2p_assoc_scan_kernel(
+    const sfk::grid::FirstRound A, const float* __restrict__ T0) {
+  sfk::grid::Pose X;
+  sfk::read44(T0, X.R, X.t);
+  const int n = sfk::grid::n_items(A.pc, A.nSt);
+  const int wpi = (A.TM + 31) / 32;  // warps an item
+  const int lane = threadIdx.x % 32;
+  const int W = gridDim.x * (blockDim.x / 32);
+  for (int tw = (threadIdx.x / 32) * gridDim.x + blockIdx.x; tw < n * wpi; tw += W) {
+    const int r = (tw % wpi) * 32 + lane;
+    if (r >= A.TM) continue;
+    int s;
+    const int i = sfk::grid::item_at(tw / wpi, A.ps, A.pc, &s);
+    sfk::grid::scan_first_row<6>(A, X, i, s, r);
+  }
 }
 
-__global__ void __launch_bounds__(1024, 1) p2p_gn_corr_kernel(
+// K5's combine: source row p = i x TM + r takes its slots in order.
+__global__ void __launch_bounds__(kCombineThreads) p2p_assoc_combine_kernel(
+    const sfk::grid::FirstRound A,
+    float* __restrict__ best_d2,  // (nSt, 1, TM) out
+    float* __restrict__ best_qn)  // (nSt, 6, TM) out
+{
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= A.nSt * A.TM) return;
+  const int i = p / A.TM;
+  const int r = p - i * A.TM;
+  const float* win;
+  best_d2[p] = sfk::grid::combine_first_row<6>(A, i, r, &win);
+  float* o = best_qn + (size_t)i * 6 * A.TM + r;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) o[k * A.TM] = win ? win[k * A.TN] : 0.0f;
+}
+
+// One float from global to shared memory without passing through registers.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// K6 on a cluster of gridDim.x CTAs (see the file's head). kStaged: the
+// matched set is copied into shared memory once, `staged` holding a CTA's
+// points as (tile k of the thread, field, thread). kThreads: the most
+// threads a CTA has; at 256 a thread may hold two points' terms at once
+// (a thread's points are a serial chain of sums, so only the overlap of
+// their terms shortens a pass).
+template <bool kStaged, int kThreads>
+__global__ void __launch_bounds__(kThreads, 1) p2p_gn_cluster_kernel(
     const float* __restrict__ T0,         // (4, 4) rebased prior
     const float* __restrict__ src_pages,  // (nSt, 3, TM)
     const float* __restrict__ best_d2,    // (nSt, 1, TM) in
     const float* __restrict__ best_qn,    // (nSt, 6, TM) in
-    float* __restrict__ T_out, float* __restrict__ stats, int nSt, int TM,
-    P2PParams prm) {
-  __shared__ float red[kNMom * 32];
-  __shared__ Shared S;
-  const Tiles T{src_pages, nullptr, nullptr, nullptr, nullptr,
-                const_cast<float*>(best_d2), const_cast<float*>(best_qn), nSt, TM, 0};
-  if (threadIdx.x == 0) sfk::read44(T0, S.R, S.t);
-  __syncthreads();
-  sfk::p2p::gn_passes(S, T, prm, red);
-  if (threadIdx.x == 0) pack_outputs(S, prm, T_out, stats);
+    float* __restrict__ T_out, float* __restrict__ stats, int nSt, int TM, P2PParams prm) {
+  extern __shared__ float staged[];
+  __shared__ float red[kNMom * 32];  // CTA 0's: every warp's partials
+  __shared__ Shared S;               // CTA 0's: (R, t) and the moments
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank();
+  const int B = blockDim.x;
+  const int v = rank * B + threadIdx.x;  // virtual thread of the one-block layout
+  const int G = (int)cl.num_blocks() * B / TM;
+  const int g = v / TM;
+  const int r = v - g * TM;
+  if constexpr (kStaged) {
+    float* dst = staged + threadIdx.x;
+    for (int i = g; i < nSt; i += G, dst += kPointFloats * B) {
+      const float* s = src_pages + (size_t)i * 3 * TM + r;
+      const float* q = best_qn + (size_t)i * 6 * TM + r;
+      cp_async4(dst, s);
+      cp_async4(dst + B, s + TM);
+      cp_async4(dst + 2 * B, s + 2 * TM);
+      cp_async4(dst + 3 * B, best_d2 + (size_t)i * TM + r);
+#pragma unroll
+      for (int k = 0; k < 6; ++k) cp_async4(dst + (4 + k) * B, q + k * TM);
+    }
+  }
+  float R[9], t[3];
+  sfk::read44(T0, R, t);
+  if (rank == 0 && threadIdx.x == 0) sfk::read44(T0, S.R, S.t);
+  float* red0 = cl.map_shared_rank(red, 0);
+  const Shared* S0 = cl.map_shared_rank(&S, 0);
+  const int lane = threadIdx.x & 31;
+  const int warp = v >> 5;  // the warp's index in the one-block layout
+  const int nwarps = (int)cl.num_blocks() * B >> 5;
+  if constexpr (kStaged) cp_async_wait_all();  // each thread reads only what it copied
+  cl.sync();                         // every CTA runs before DSMEM is touched
+  for (int it = 0;; ++it) {
+    float acc[kNMom];
+#pragma unroll
+    for (int m = 0; m < kNMom; ++m) acc[m] = 0.0f;
+    const float* p = staged + threadIdx.x;
+#pragma unroll 2
+    for (int i = g; i < nSt; i += G) {
+      if constexpr (kStaged) {
+        sfk::p2p::add_moments(acc, R, t, prm, p[0], p[B], p[2 * B], p[4 * B], p[5 * B],
+                              p[6 * B], p[7 * B], p[8 * B], p[9 * B], p[3 * B]);
+        p += kPointFloats * B;
+      } else {
+        const float* s = src_pages + (size_t)i * 3 * TM + r;
+        const float* q = best_qn + (size_t)i * 6 * TM + r;
+        sfk::p2p::add_moments(acc, R, t, prm, s[0], s[TM], s[2 * TM], q[0], q[TM], q[2 * TM],
+                              q[3 * TM], q[4 * TM], q[5 * TM], best_d2[(size_t)i * TM + r]);
+      }
+    }
+    // block_sum's warp tree; each warp's partial into CTA 0's red
+#pragma unroll
+    for (int m = 0; m < kNMom; ++m) {
+      float x = acc[m];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
+      if (lane == 0) red0[m * 32 + warp] = x;
+    }
+    cl.sync();
+    const bool last = it == prm.num_iterations;
+    if (rank == 0) {
+      if (threadIdx.x < kNMom) {  // the warp partials in warp order
+        float s = 0.0f;
+        for (int w = 0; w < nwarps; ++w) s += red[threadIdx.x * 32 + w];
+        S.mom[threadIdx.x] = s;
+      }
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        if (last) {
+          pack_outputs(S, prm, T_out, stats);
+        } else {
+          sfk::p2p::gn_step(S, prm.damping);
+        }
+      }
+    }
+    if (last) return;
+    cl.sync();  // CTA 0's new (R, t) to the cluster
+#pragma unroll
+    for (int m = 0; m < 9; ++m) R[m] = S0->R[m];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) t[a] = S0->t[a];
+  }
 }
 
 // Threads of one block: TM a source tile, as many tiles side by side as fit.
@@ -159,9 +300,94 @@ inline bool bad_tiles(int nSt, int TM) {
   return TM < 32 || TM > 1024 || TM % 32 || nSt < 1;
 }
 
+constexpr int kNarrow = 256;  // K6's CTAs of at most this many threads take more registers
+
+// K6's launch for these tiles: C CTAs of `threads` (the one-block layout's
+// TM x G threads cut into whole warps: C the largest power of two <= 8
+// that divides its warps), the dynamic shared memory a CTA stages and
+// whether the matched set fits it.
+struct GnCluster {
+  int dev, ctas, threads;
+  size_t smem;
+  bool staged;
+};
+
+cudaError_t gn_cluster(int nSt, int TM, GnCluster* c) {
+  const int G = groups(nSt, TM);
+  const int warps = TM * G / 32;
+  int C = kMaxCluster;
+  while (warps % C) C /= 2;
+  c->ctas = C;
+  c->threads = TM * G / C;
+  const int per_thread = (nSt + G - 1) / G;  // tiles a virtual thread owns at most
+  c->smem = (size_t)per_thread * kPointFloats * c->threads * sizeof(float);
+  // the card's shared memory a block may opt into, less the kernel's own:
+  // asked once a device in a host thread (a launch should not pay for it)
+  struct Room {
+    int dev;
+    size_t bytes;
+  };
+  thread_local Room room = {-1, 0};
+  cudaError_t e = cudaGetDevice(&c->dev);
+  if (e != cudaSuccess) return e;
+  if (room.dev != c->dev) {
+    int optin = 0;
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, c->dev);
+    if (e != cudaSuccess) return e;
+    cudaFuncAttributes fa;
+    e = cudaFuncGetAttributes(&fa, p2p_gn_cluster_kernel<true, 1024>);
+    if (e != cudaSuccess) return e;
+    room = {c->dev, (size_t)optin - fa.sharedSizeBytes};
+  }
+  c->staged = c->smem <= room.bytes;
+  if (!c->staged) c->smem = 0;
+  return cudaSuccess;
+}
+
+// Launch K6's cluster; the card's acceptance of a cluster shape is asked
+// once a (device, kernel, shape) in a host thread.
+template <bool kStaged, int kThreads>
+cudaError_t launch_gn(const GnCluster& c, cudaStream_t stream, const float* T0,
+                      const float* src_pages, const float* best_d2, const float* best_qn,
+                      float* T_out, float* stats, int nSt, int TM, const P2PParams& prm) {
+  auto kernel = p2p_gn_cluster_kernel<kStaged, kThreads>;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(c.ctas);
+  cfg.blockDim = dim3(c.threads);
+  cfg.dynamicSmemBytes = c.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = c.ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  struct Checked {
+    int dev, ctas, threads;
+    size_t smem;
+  };
+  thread_local Checked checked = {-1, 0, 0, 0};  // one a kernel instance
+  cudaError_t e;
+  if (checked.dev != c.dev || checked.ctas != c.ctas || checked.threads != c.threads ||
+      checked.smem != c.smem) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)c.smem);
+    if (e != cudaSuccess) return e;
+    int clusters = 0;
+    e = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &cfg);
+    if (e != cudaSuccess) return e;
+    if (clusters < 1) return cudaErrorLaunchOutOfResources;
+    checked = {c.dev, c.ctas, c.threads, c.smem};
+  }
+  e = cudaLaunchKernelEx(&cfg, kernel, T0, src_pages, best_d2, best_qn, T_out, stats, nSt, TM,
+                         prm);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Each launcher enqueues its kernel on `stream` and returns
+// Each launcher enqueues its kernels on `stream` and returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a tile
 // width it does not take.
 
@@ -194,17 +420,38 @@ extern "C" int sfk_p2p_grid(int nSt, int TM, int* blocks, int* threads, int* per
   return (int)sfk::grid::grid_size((const void*)p2p_fused_kernel, *threads, 0, blocks, per_sm);
 }
 
+// K5: the scan, then the combine. slot_d2 / slot_row are the wrapper's
+// (max_pairs, TM) scratch.
 extern "C" int sfk_p2p_associate(const float* src_pages, const float* tgt_pages,
                                  const int* pair_start, const int* pair_cnt,
                                  const int* pair_tgt, const float* T0, float* best_d2,
-                                 float* best_qn, int nSt, int TM, int TN,
-                                 cudaStream_t stream) {
-  if (bad_tiles(nSt, TM)) return (int)cudaErrorInvalidValue;
-  const int G = groups(nSt, TM);
-  p2p_associate_kernel<<<(nSt + G - 1) / G, TM * G, 0, stream>>>(
-      src_pages, tgt_pages, pair_start, pair_cnt, pair_tgt, T0, best_d2, best_qn, nSt, TM,
-      TN);
+                                 float* best_qn, float* slot_d2, int* slot_row, int nSt, int TM,
+                                 int TN, int max_pairs, cudaStream_t stream) {
+  if (bad_tiles(nSt, TM) || TN < 1 || max_pairs < 0) return (int)cudaErrorInvalidValue;
+  const sfk::grid::FirstRound A{src_pages, tgt_pages, pair_start, pair_cnt, pair_tgt,
+                                slot_d2, slot_row, nSt, TM, TN};
+  if (max_pairs > 0) {  // an empty list has no item to scan
+    int blocks, per_sm;
+    cudaError_t e = sfk::grid::item_warp_grid((const void*)p2p_assoc_scan_kernel, kScanThreads,
+                                              TM, max_pairs, &blocks, &per_sm);
+    if (e != cudaSuccess) return (int)e;
+    p2p_assoc_scan_kernel<<<blocks, kScanThreads, 0, stream>>>(A, T0);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  p2p_assoc_combine_kernel<<<(nSt * TM + kCombineThreads - 1) / kCombineThreads,
+                             kCombineThreads, 0, stream>>>(A, best_d2, best_qn);
   return (int)cudaGetLastError();
+}
+
+// K5's scan grid for these tiles: blocks, threads a block and the blocks a
+// multiprocessor could hold.
+extern "C" int sfk_p2p_assoc_grid(int TM, int max_pairs, int* blocks, int* threads,
+                                  int* per_sm) {
+  if (TM < 1 || max_pairs < 1) return (int)cudaErrorInvalidValue;
+  *threads = kScanThreads;
+  return (int)sfk::grid::item_warp_grid((const void*)p2p_assoc_scan_kernel, kScanThreads, TM,
+                                        max_pairs, blocks, per_sm);
 }
 
 extern "C" int sfk_p2p_gn_corr(const float* T0, const float* src_pages,
@@ -212,7 +459,26 @@ extern "C" int sfk_p2p_gn_corr(const float* T0, const float* src_pages,
                                float* stats, int nSt, int TM, const P2PParams* prm,
                                cudaStream_t stream) {
   if (bad_tiles(nSt, TM)) return (int)cudaErrorInvalidValue;
-  p2p_gn_corr_kernel<<<1, TM * groups(nSt, TM), 0, stream>>>(
-      T0, src_pages, best_d2, best_qn, T_out, stats, nSt, TM, *prm);
-  return (int)cudaGetLastError();
+  GnCluster c;
+  cudaError_t e = gn_cluster(nSt, TM, &c);
+  if (e != cudaSuccess) return (int)e;
+  using Launch = cudaError_t (*)(const GnCluster&, cudaStream_t, const float*, const float*,
+                                 const float*, const float*, float*, float*, int, int,
+                                 const P2PParams&);
+  const Launch launch = c.threads <= kNarrow
+                            ? (c.staged ? &launch_gn<true, kNarrow> : &launch_gn<false, kNarrow>)
+                            : (c.staged ? &launch_gn<true, 1024> : &launch_gn<false, 1024>);
+  return (int)launch(c, stream, T0, src_pages, best_d2, best_qn, T_out, stats, nSt, TM, *prm);
+}
+
+// K6's cluster for these tiles: CTAs, threads a CTA and the dynamic shared
+// memory a CTA stages (0: the matched set is read from global memory).
+extern "C" int sfk_p2p_gn_cluster(int nSt, int TM, int* ctas, int* threads, int* smem) {
+  if (bad_tiles(nSt, TM)) return (int)cudaErrorInvalidValue;
+  GnCluster c;
+  cudaError_t e = gn_cluster(nSt, TM, &c);
+  *ctas = c.ctas;
+  *threads = c.threads;
+  *smem = (int)c.smem;
+  return (int)e;
 }

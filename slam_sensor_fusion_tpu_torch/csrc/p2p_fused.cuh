@@ -4,9 +4,10 @@
 // p2p_fused.py:64-374 (and its repetition in ops/lio_superblock_fused.py:
 // 276-401).
 //
-// `associate` writes each source point's best d2 and matched (x, y, z, nx,
-// ny, nz) into a per-point buffer in K5's output layout; `moments` reduces
-// the 29 Huber-weighted moments of one GN pass from that buffer; `gn_passes`
+// A matched set is each source point's best d2 and matched (x, y, z, nx,
+// ny, nz) in K5's output layout; `add_moments` is one point's terms of the
+// 29 Huber-weighted moments of a GN pass (K4, K6, K7), `moments` their
+// block-wide sum over a matched set in global memory; `gn_passes`
 // runs the GN iterations and the trailing stats pass and leaves the stats
 // pass's UNDAMPED moments in S.mom: K4 and K6 add the damping to the JtJ
 // they export, K7 feeds the undamped moments to its measurement covariance.
@@ -44,39 +45,45 @@ struct Shared {
   float mom[kNMom];
 };
 
+// A matched set and its source pages; TN is the target pages' width (the
+// stride of a winner's rows where a round's combine fills the set).
 struct Tiles {
   const float* src;  // (nSt, 3, TM) sensor-frame source pages
-  const float* tgt;  // (nTt, 6, TN) rebased target pages: xyz + normal
-  const int* ps;     // (nSt,) pair_start
-  const int* pc;     // (nSt,) pair_cnt
-  const int* pt;     // (max_pairs,) pair_tgt
   float* d2;         // (nSt, 1, TM) best squared distance
   float* qn;         // (nSt, 6, TM) matched point + normal
   int nSt, TM, TN;
 };
 
-// Associate under (R, t) the points of source tiles first, first + stride,
-// ...; thread r of a tile's group owns its point r.
-__device__ inline void associate(const float* R, const float* t, const Tiles& T, int first,
-                                 int stride) {
-  const int r = threadIdx.x % T.TM;
-  for (int i = first; i < T.nSt; i += stride) {
-    const float* s = T.src + (size_t)i * 3 * T.TM;
-    const float px = s[r], py = s[T.TM + r], pz = s[2 * T.TM + r];
-    const float sx = R[0] * px + R[1] * py + R[2] * pz + t[0];
-    const float sy = R[3] * px + R[4] * py + R[5] * pz + t[1];
-    const float sz = R[6] * px + R[7] * py + R[8] * pz + t[2];
-    const float* win;
-    T.d2[(size_t)i * T.TM + r] =
-        sfk::nearest_first<6>(T.tgt, T.pt, T.ps[i], T.pc[i], T.TN, sx, sy, sz, &win);
-    float* o = T.qn + (size_t)i * 6 * T.TM + r;
+// One matched point's terms of the 29 moments under (R, t), added to v:
+// source point s (sensor frame), matched point q and normal n, best d2
+// (p2p_fused.py:254-303 without the damping).
+__device__ __forceinline__ void add_moments(float (&v)[kNMom], const float* R, const float* t,
+                                            const P2PParams& prm, float sx, float sy, float sz,
+                                            float qx, float qy, float qz, float nx, float ny,
+                                            float nz, float d2) {
+  const float px = R[0] * sx + R[1] * sy + R[2] * sz + t[0];
+  const float py = R[3] * sx + R[4] * sy + R[5] * sz + t[1];
+  const float pz = R[6] * sx + R[7] * sy + R[8] * sz + t[2];
+  // invalid normals are stored as 0-vectors -> |n|^2 < 0.5
+  const float w_in = (d2 < prm.gate && nx * nx + ny * ny + nz * nz > 0.5f) ? 1.0f : 0.0f;
+  const float res = nx * (px - qx) + ny * (py - qy) + nz * (pz - qz);
+  const float w = w_in * sfk::jmin(1.0f, prm.huber_delta / sfk::jmax(fabsf(res), 1e-12f));
+  // J = [n, p' x n]
+  const float J[6] = {nx, ny, nz, py * nz - pz * ny, pz * nx - px * nz, px * ny - py * nx};
 #pragma unroll
-    for (int k = 0; k < 6; ++k) o[k * T.TM] = win ? win[k * T.TN] : 0.0f;
+  for (int a = 0; a < 6; ++a) {
+    const float wJ = w * J[a];
+#pragma unroll
+    for (int b = 0; b <= a; ++b) v[a * (a + 1) / 2 + b] += wJ * J[b];
+    v[21 + a] += wJ * res;
   }
+  v[27] += w_in;
+  v[28] += w_in * res * res;
 }
 
 // The 29 moments under (S.R, S.t) on the matched set, into S.mom (every
-// thread must call it): p2p_fused.py:254-303 without the damping.
+// thread must call it): thread x of group g = x / TM adds up point x % TM
+// of tiles g, g + G, ..., then the fixed-order block sum.
 __device__ inline void moments(Shared& S, const Tiles& T, const P2PParams& prm, float* red) {
   float R[9], t[3];
 #pragma unroll
@@ -89,30 +96,9 @@ __device__ inline void moments(Shared& S, const Tiles& T, const P2PParams& prm, 
   const int r = threadIdx.x % T.TM;
   for (int i = threadIdx.x / T.TM; i < T.nSt; i += G) {
     const float* s = T.src + (size_t)i * 3 * T.TM;
-    const float sx = s[r], sy = s[T.TM + r], sz = s[2 * T.TM + r];
-    const float px = R[0] * sx + R[1] * sy + R[2] * sz + t[0];
-    const float py = R[3] * sx + R[4] * sy + R[5] * sz + t[1];
-    const float pz = R[6] * sx + R[7] * sy + R[8] * sz + t[2];
     const float* q = T.qn + (size_t)i * 6 * T.TM + r;
-    const float qx = q[0], qy = q[T.TM], qz = q[2 * T.TM];
-    const float nx = q[3 * T.TM], ny = q[4 * T.TM], nz = q[5 * T.TM];
-    const float d2 = T.d2[(size_t)i * T.TM + r];
-    // invalid normals are stored as 0-vectors -> |n|^2 < 0.5
-    const float w_in =
-        (d2 < prm.gate && nx * nx + ny * ny + nz * nz > 0.5f) ? 1.0f : 0.0f;
-    const float res = nx * (px - qx) + ny * (py - qy) + nz * (pz - qz);
-    const float w = w_in * sfk::jmin(1.0f, prm.huber_delta / sfk::jmax(fabsf(res), 1e-12f));
-    // J = [n, p' x n]
-    const float J[6] = {nx, ny, nz, py * nz - pz * ny, pz * nx - px * nz, px * ny - py * nx};
-#pragma unroll
-    for (int a = 0; a < 6; ++a) {
-      const float wJ = w * J[a];
-#pragma unroll
-      for (int b = 0; b <= a; ++b) v[a * (a + 1) / 2 + b] += wJ * J[b];
-      v[21 + a] += wJ * res;
-    }
-    v[27] += w_in;
-    v[28] += w_in * res * res;
+    add_moments(v, R, t, prm, s[r], s[T.TM + r], s[2 * T.TM + r], q[0], q[T.TM], q[2 * T.TM],
+                q[3 * T.TM], q[4 * T.TM], q[5 * T.TM], T.d2[(size_t)i * T.TM + r]);
   }
   sfk::block_sum<kNMom>(v, red, S.mom);
 }

@@ -124,8 +124,12 @@ def _declare(so: ctypes.CDLL) -> None:
     so.sfk_p2p_fused.restype = I
     so.sfk_p2p_grid.argtypes = [I] * 2 + [P] * 3
     so.sfk_p2p_grid.restype = I
-    so.sfk_p2p_associate.argtypes = [P] * 8 + [I] * 3 + [P]
+    so.sfk_p2p_associate.argtypes = [P] * 10 + [I] * 4 + [P]
     so.sfk_p2p_associate.restype = I
+    so.sfk_p2p_assoc_grid.argtypes = [I] * 2 + [P] * 3
+    so.sfk_p2p_assoc_grid.restype = I
+    so.sfk_p2p_gn_cluster.argtypes = [I] * 2 + [P] * 3
+    so.sfk_p2p_gn_cluster.restype = I
     so.sfk_p2p_gn_corr.argtypes = [P] * 6 + [I] * 2 + [P, P]
     so.sfk_p2p_gn_corr.restype = I
     so.sfk_lio_superblock.argtypes = [P] * 27 + [I] * 6 + [P, P]
@@ -150,12 +154,13 @@ def control_block(device: torch.device) -> torch.Tensor:
     return torch.empty(CTL_WORDS, dtype=torch.int32, device=device)
 
 
-def grid_shape(fn, *shape: int) -> dict:
-    """Ask a `sfk_*_grid` launcher for the cooperative grid it launches:
-    blocks, threads a block and the blocks a multiprocessor could hold."""
+def grid_shape(fn, *shape: int, keys=("blocks", "threads", "per_sm")) -> dict:
+    """Ask a `sfk_*_grid` launcher for the grid it launches: blocks, threads
+    a block and the blocks a multiprocessor could hold (or the three values
+    named by `keys`)."""
     out = [ctypes.c_int(0) for _ in range(3)]
     check(fn(*shape, *[ctypes.byref(o) for o in out]), fn.__name__)
-    return dict(zip(("blocks", "threads", "per_sm"), (o.value for o in out)))
+    return dict(zip(keys, (o.value for o in out)))
 
 
 def stream_ptr(t: torch.Tensor) -> int:

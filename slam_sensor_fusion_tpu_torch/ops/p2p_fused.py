@@ -26,10 +26,12 @@ excluded from the correspondence count by the |n|^2 > 0.5 test. With
 
 K5 is K4's association alone (its winners are the outputs), K6 is K4's GN
 on a given matched set; K6(K5(x)) equals K4 with fixed correspondences,
-which is how a map-sharded registration combines per-shard winners.
+which is how the map-sharded registration (parallel/map_shard.sp_p2p_align)
+combines per-shard winners.
 
 `_p2p_core`, `_p2p_associate` and `_p2p_gn_corr` launch the CUDA kernels
-(csrc/p2p_fused.cu; K4 a cooperative grid of one block on each SM) for
+(csrc/p2p_fused.cu; K4 a cooperative grid of one block on each SM, K5 a
+scan over every SM and a combine, K6 a thread-block cluster) for
 tensors on the card and run the plain versions
 (`_p2p_core_plain`, `_p2p_associate_plain`, `_p2p_gn_corr_plain`) for CPU
 tensors. The plain versions follow the kernels' arithmetic (direct
@@ -367,10 +369,15 @@ def _p2p_associate(
         )
     best_d2 = torch.empty((nSt, 1, TM), dtype=torch.float32, device=dev)
     best_qn = torch.empty((nSt, 6, TM), dtype=torch.float32, device=dev)
+    # the scan's per-slot winners (best d2, first winning row), combined in
+    # slot order into best_d2 / best_qn by the second launch
+    max_pairs = pair_tgt.shape[0]
+    slot_d2 = torch.empty((max_pairs, TM), dtype=torch.float32, device=dev)
+    slot_row = torch.empty((max_pairs, TM), dtype=torch.int32, device=dev)
     err = cuda_lib.lib().sfk_p2p_associate(
         *[x.data_ptr() for x, *_ in specs],
-        best_d2.data_ptr(), best_qn.data_ptr(),
-        nSt, TM, TN, cuda_lib.stream_ptr(src_pages),
+        best_d2.data_ptr(), best_qn.data_ptr(), slot_d2.data_ptr(), slot_row.data_ptr(),
+        nSt, TM, TN, max_pairs, cuda_lib.stream_ptr(src_pages),
     )
     cuda_lib.check(err, "_p2p_associate")
     _p2p_associate.launches += 1
@@ -420,6 +427,20 @@ def kernel_grid(n_src_tiles: int, tile_src: int) -> dict:
     """K4's cooperative grid on the current card for these tiles: blocks,
     threads a block and the blocks a multiprocessor could hold."""
     return cuda_lib.grid_shape(cuda_lib.lib().sfk_p2p_grid, n_src_tiles, tile_src)
+
+
+def assoc_grid(tile_src: int, max_pairs: int) -> dict:
+    """K5's scan grid on the current card for a list of `max_pairs` slots:
+    blocks, threads a block and the blocks a multiprocessor could hold."""
+    return cuda_lib.grid_shape(cuda_lib.lib().sfk_p2p_assoc_grid, tile_src, max_pairs)
+
+
+def gn_cluster(n_src_tiles: int, tile_src: int) -> dict:
+    """K6's thread-block cluster on the current card for these tiles: CTAs,
+    threads a CTA and the shared memory (bytes) a CTA stages the matched
+    set in (0: read from global memory each pass)."""
+    return cuda_lib.grid_shape(cuda_lib.lib().sfk_p2p_gn_cluster, n_src_tiles, tile_src,
+                               keys=("ctas", "threads", "smem_bytes"))
 
 
 # ---------------------------------------------------------------------------

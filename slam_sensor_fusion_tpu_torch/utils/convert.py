@@ -25,6 +25,7 @@ from slam_sensor_fusion_tpu_torch.ops.icp_fused import CachedTarget
 from slam_sensor_fusion_tpu_torch.ops.p2p_fused import CachedP2PTarget
 from slam_sensor_fusion_tpu_torch.ops.point_to_plane import PointToPlaneConfig
 from slam_sensor_fusion_tpu_torch.ops.stochastic_filter import FilterState
+from slam_sensor_fusion_tpu_torch.parallel.map_shard import ShardedP2PTarget
 from slam_sensor_fusion_tpu_torch.utils.config import (
     BruteForceConfig,
     CloudCapacity,
@@ -160,6 +161,20 @@ def cached_p2p_target_from_numpy(
             None if getattr(cached, f) is None else _tensor(getattr(cached, f), device)
             for f in CachedP2PTarget._fields
         ]
+    )
+
+
+def sharded_p2p_target_from_numpy(
+    sharded, device: torch.device | str = torch.device("cuda")
+) -> ShardedP2PTarget:
+    """A ShardedP2PTarget (the shards' 6-row pages and tile boxes, their
+    common center) from the JAX one whose array leaves are NumPy arrays."""
+    return ShardedP2PTarget(
+        pages=_tensor(sharded.pages, device),
+        lo=_tensor(sharded.lo, device),
+        hi=_tensor(sharded.hi, device),
+        center=_tensor(sharded.center, device),
+        n_shards=int(sharded.n_shards),
     )
 
 

@@ -10,9 +10,14 @@ same first-min rule), at tiles of up to 4096 rows as well; K1 and K3 to
 ICP error, with EQUAL iteration and correspondence counts (the moment sums
 are reduced in another order). K4 and K6 agree to 3e-4 on T and 1e-4
 relative on rmse, wr2 and the JtJ lanes with EQUAL n_correspondences; K5's
-d2 to 1e-6 relative with EQUAL matched pages. K4, K5 and K6 give the same
+d2 to 1e-6 relative with EQUAL matched pages (also with 32 slots on one
+source tile and a target tile of sentinels only). The map-sharded
+registration (`sp_p2p_align`, K5 a shard and K6 once) equals K4 with fixed
+correspondences on the whole map: EQUAL n_correspondences, T to 1e-4 (the
+JAX package's test of it). K4, K5 and K6 give the same
 bits as before their device functions moved into csrc/p2p_fused.cuh, and
-K1, K3, K4 and K7 as cooperative grids the same bits as their one-block
+K1, K3, K4 and K7 as cooperative grids, K5 as a scan over the card and a
+combine, and K6 as a thread-block cluster the same bits as their one-block
 predecessors, and K2 with its scan spread over the card the same bits as
 its kernel of one block a source tile (SHA-256 digests of their outputs),
 and K1 with its leader's points in a global buffer the same bits as with
@@ -22,6 +27,7 @@ acceptance and slack flags."""
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -31,6 +37,7 @@ from slam_sensor_fusion_tpu_torch.ops import p2p_fused as tpf
 from slam_sensor_fusion_tpu_torch.ops.icp_fused import _fused_core, _fused_core_plain
 from slam_sensor_fusion_tpu_torch.ops.point_to_plane import PointToPlaneConfig
 from slam_sensor_fusion_tpu_torch.ops.nn_pallas import pair_nn, pair_nn_plain
+from slam_sensor_fusion_tpu_torch.parallel import map_shard as tms
 from slam_sensor_fusion_tpu_torch.ops.superblock_fused import (
     superblock_fine,
     superblock_fine_plain,
@@ -298,6 +305,110 @@ def test_p2p_empty_pair_list_returns_prior(cuda_device):
     assert stats[0, 1] == 0 and stats_p[0, 1] == 0
     d2, qn = tpf._p2p_associate(*core)
     assert (d2 > 1e37).all() and (qn == 0).all()
+
+
+def test_p2p_associate_many_slots_and_a_sentinel_tile(cuda_device):
+    """K5 where source tile 0 admits every target tile (32 slots), tile 1
+    only a target tile of -1e7 sentinels (its winners: that tile's first
+    row, normal 0) and the other tiles their own lists."""
+    from slam_sensor_fusion_tpu_torch.ops.icp_fused import TARGET_SENTINEL
+
+    _, core = _p2p_case("bench", cuda_device, fixed_correspondences=True)
+    src, tgt, ps, pc, pt, T0 = core
+    nTt = tgt.shape[0]
+    tgt = tgt.clone()
+    tgt[nTt - 1, :3] = TARGET_SENTINEL
+    tgt[nTt - 1, 3:] = 0.0
+    lists = [list(range(nTt)), [nTt - 1]] + [
+        pt[int(ps[i]):int(ps[i]) + int(pc[i])].tolist() for i in range(2, src.shape[0])]
+    flat = [j for lst in lists for j in lst]
+    cnt = torch.tensor([len(lst) for lst in lists], dtype=torch.int32, device=cuda_device)
+    start = (torch.cumsum(cnt, 0) - cnt).int()
+    slots = torch.tensor(flat, dtype=torch.int32, device=cuda_device)
+    args = (src, tgt, start, cnt, slots, T0)
+    before = tpf._p2p_associate.launches
+    d2_k, qn_k = tpf._p2p_associate(*args)
+    d2_p, qn_p = tpf._p2p_associate_plain(*args)
+    torch.cuda.synchronize()
+    assert tpf._p2p_associate.launches == before + 1
+    torch.testing.assert_close(d2_k, d2_p, rtol=1e-6, atol=0)
+    assert torch.equal(qn_k, qn_p)
+    assert (d2_p[0] < 1.0).any()  # tile 0 found its points
+    assert (qn_k[1, 3:] == 0).all() and (qn_k[1, :3] == TARGET_SENTINEL).all()
+
+
+def test_p2p_halves_launch_shapes(cuda_device):
+    """K5's scan fills the card at the bench's list (16 source tiles of 512,
+    256 slots); K6's cluster is 8 CTAs of 4 warps there, each staging its
+    points (10 floats a point, 8 tiles of 128 rows: 40 KiB), and one CTA of
+    3 warps at the odd shape."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    grid = tpf.assoc_grid(512, 256)
+    assert grid["blocks"] >= sms and grid["threads"] == 128, grid
+    assert tpf.gn_cluster(16, 512) == {"ctas": 8, "threads": 128, "smem_bytes": 40960}
+    assert tpf.gn_cluster(1, 96) == {"ctas": 1, "threads": 96, "smem_bytes": 3840}
+
+
+@pytest.mark.parametrize("n_tiles, tile_src, cluster", [
+    (3, 96, {"ctas": 1, "threads": 288, "smem_bytes": 11520}),
+    (96, 512, {"ctas": 8, "threads": 128, "smem_bytes": 0}),
+], ids=["wide_cta", "unstaged"])
+def test_p2p_gn_corr_cluster_forms_match_plain(cuda_device, n_tiles, tile_src, cluster):
+    """K6 where its CTA is wider than 256 threads (3 source tiles of 96: 9
+    warps, one CTA) and where the matched set does not fit a CTA's shared
+    memory and is read from global memory each pass (96 tiles of 512: 48
+    points a thread, 240 KiB a CTA), on a random matched set."""
+    assert tpf.gn_cluster(n_tiles, tile_src) == cluster
+    rng = np.random.default_rng(4)
+    shape = (n_tiles, tile_src)
+    src = rng.uniform(-6.0, 6.0, (n_tiles, 3, tile_src))
+    nrm = rng.normal(size=(n_tiles, 3, tile_src))
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    nrm[:, :, ::7] = 0.0  # invalid normals
+    q = src + 0.05 * nrm + rng.normal(0.0, 0.01, src.shape)
+    d2 = rng.uniform(0.0, 1.3, shape)[:, None]  # some beyond the gate
+    T0 = np.eye(4)
+    T0[:3, 3] = [0.03, -0.02, 0.01]
+    k6_in = [torch.tensor(a, dtype=torch.float32, device=cuda_device)
+             for a in (T0, src, d2, np.concatenate([q, nrm], axis=1))]
+    config = PointToPlaneConfig(num_iterations=2, tile_src=tile_src)
+    before = tpf._p2p_gn_corr.launches
+    got = tpf._p2p_gn_corr(*k6_in, config)
+    want = tpf._p2p_gn_corr_plain(*k6_in, config)
+    torch.cuda.synchronize()
+    assert tpf._p2p_gn_corr.launches == before + 1
+    _assert_gn_outputs(got, want, n_tiles * tile_src // 2)
+
+
+def _sp_case(device, n_shards):
+    """The bench scene's map (30 000 points, no exact duplicates) split into
+    `n_shards` and whole, and a configuration whose pair lists hold every
+    admissible tile pair in both (so both see the same winners)."""
+    config = PointToPlaneConfig(
+        num_iterations=2, tile_src=512, tile_tgt=1024, max_visits=64, reassoc_margin=0.15,
+        nn_backend="fused", fixed_correspondences=True, max_pairs_factor=32,
+    )
+    src, smask, tgt, tmask, nrm, nvalid, T0 = p2p_scene(7, n_tgt=30000, M=8192, N=32768)
+    n = int(tmask.sum())
+    center = np.asarray([0.5, -0.3, 0.1], np.float32)
+    sharded = tms.shard_p2p_target(tgt[:n], nrm[:n], nvalid[:n], n_shards, 1024, center,
+                                   device=device)
+    whole = tpf.build_cached_p2p_target(
+        *[torch.from_numpy(a).to(device) for a in (tgt, tmask, nrm, nvalid, center)], 1024)
+    return config, [torch.from_numpy(a).to(device) for a in (src, smask, T0)], sharded, whole
+
+
+@pytest.mark.parametrize("n_shards", [1, 4])
+def test_sp_p2p_align_matches_whole_map_k4(cuda_device, n_shards):
+    config, (src, smask, T0), sharded, whole = _sp_case(cuda_device, n_shards)
+    counts = (tpf._p2p_associate.launches, tpf._p2p_gn_corr.launches)
+    got = tms.sp_p2p_align(src, smask, sharded, T0, config)
+    torch.cuda.synchronize()
+    assert (tpf._p2p_associate.launches - counts[0], tpf._p2p_gn_corr.launches - counts[1]) == (
+        n_shards, 1)
+    want = tpf.point_to_plane_align_fused(src, smask, whole, T0, config)
+    assert int(got.n_correspondences) == int(want.n_correspondences) > 3000
+    torch.testing.assert_close(got.transformation, want.transformation, rtol=0, atol=1e-4)
 
 
 #: `p2p_digest` of K4, K5 and K6 as built before their device functions

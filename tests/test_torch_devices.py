@@ -30,6 +30,8 @@ EXPECTED = {
     "ops.cloud.from_numpy",
     "ops.stochastic_filter.init_state",
     "parallel.lio_fleet.fleet_init",
+    "parallel.map_shard.shard_p2p_target",
+    "utils.convert.sharded_p2p_target_from_numpy",
     "utils.convert.paged_frames_from_numpy",
     "utils.convert.state_from_numpy",
 }

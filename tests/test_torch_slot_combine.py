@@ -1,10 +1,11 @@
-"""The decomposition K2 and the grid kernels' association rounds rely on,
+"""The decomposition K2, K5 and the grid kernels' association rounds rely on,
 held on the CPU: each (source tile, pair slot) item's first-row minimum
 over its one target tile, then each source row's slots combined in slot
 order under a strict `<` from kBig, equals the running walk over the
-tile's whole pair list. Both plain versions are that walk: K2's
-`pair_nn_plain` (expanded-form distance) and K3/K4's `_associate_first`
-(direct-difference distance, on 3- and 6-row pages). The inputs are full
+tile's whole pair list. The plain versions are that walk: K2's
+`pair_nn_plain` (expanded-form distance), K3/K4's `_associate_first`
+(direct-difference distance, on 3- and 6-row pages) and K5's
+`_p2p_associate_plain` (6-row pages under a prior). The inputs are full
 of exact ties (duplicated target rows within and across tiles, source
 points on target points, coordinates on a 0.25 grid), sentinel rows on
 both sides, a target tile of sentinels only and a source tile with no
@@ -16,6 +17,7 @@ import torch
 
 from slam_sensor_fusion_tpu_torch.ops.icp_fused import _associate_first
 from slam_sensor_fusion_tpu_torch.ops.nn_pallas import pair_nn_plain
+from slam_sensor_fusion_tpu_torch.ops.p2p_fused import _p2p_associate_plain
 
 BIG = 3.0e38
 FAR = 1.0e7
@@ -78,6 +80,14 @@ def _slot_combine(src, tgt, dist):
     return best, slot, row
 
 
+def _winners(tgt, slot, row):
+    """The winning rows' page values (nSt, rows, TM), zeros where no slot won."""
+    won = slot >= 0
+    j = torch.tensor(PAIR_TGT)[slot.clamp(min=0)]
+    win = tgt[j, :, row.clamp(min=0)].permute(0, 2, 1)
+    return torch.where(won[:, None], win, torch.zeros_like(win)), j
+
+
 def _scene(seed, rows):
     """Source pages (3, 3, TM) and target pages (6, rows, TN)."""
     rng = np.random.default_rng(seed)
@@ -109,9 +119,7 @@ def test_slot_combine_equals_the_running_walk(form, seed):
     won = slot >= 0
     assert not won[1].any() and won[0].any() and won[2].any()
     assert (best[won] == 0).any()  # exact zero distances were taken
-    j = torch.tensor(PAIR_TGT)[slot.clamp(min=0)]
-    win = tgt[j, :, row.clamp(min=0)].permute(0, 2, 1)  # (nSt, rows, TM)
-    win = torch.where(won[:, None], win, torch.zeros_like(win))
+    win, j = _winners(tgt, slot, row)
     start, cnt, pt = (torch.tensor(x, dtype=torch.int32) for x in (PAIR_START, PAIR_CNT, PAIR_TGT))
     if form == "expanded-3":
         d2, idx, xyz = pair_nn_plain(src, tgt, start, cnt, pt)
@@ -123,3 +131,33 @@ def test_slot_combine_equals_the_running_walk(form, seed):
         d2, qn = _associate_first(src, eye, zero, PAIR_START, PAIR_CNT, pt, tgt)
         assert torch.equal(d2, best)
         assert torch.equal(qn, win)
+
+
+#: K5's prior: a quarter turn about z and a dyadic shift, so the transform
+#: is exact and the inputs' ties and zero distances survive it
+K5_T0 = torch.tensor([[0.0, -1.0, 0.0, 0.5], [1.0, 0.0, 0.0, -0.25], [0.0, 0.0, 1.0, 0.75],
+                      [0.0, 0.0, 0.0, 1.0]])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k5_slot_combine_equals_p2p_associate_plain(seed):
+    """K5's scan and combine: per-slot first-row minima of the source under
+    the prior on 6-row pages, combined in slot order, equal
+    `_p2p_associate_plain` (d2 and the winner's point and normal)."""
+    placed, tgt = _scene(seed, 6)
+    R, t = K5_T0[:3, :3], K5_T0[:3, 3]
+    # the source in the sensor frame: R^T (x - t), exact on the 0.25 grid
+    src = torch.einsum("ab,iat->ibt", R, placed - t[None, :, None])
+    px, py, pz = src[:, 0], src[:, 1], src[:, 2]
+    moved = torch.stack([R[a, 0] * px + R[a, 1] * py + R[a, 2] * pz + t[a] for a in range(3)], 1)
+    best, slot, row = _slot_combine(moved, tgt, _direct_d2)
+    won = slot >= 0
+    assert not won[1].any() and won[0].any() and won[2].any()
+    assert (best[won] == 0).any()  # exact zero distances were taken
+    win, _ = _winners(tgt, slot, row)
+    start, cnt, pt = (torch.tensor(x, dtype=torch.int32) for x in (PAIR_START, PAIR_CNT, PAIR_TGT))
+    d2, qn = _p2p_associate_plain(src, tgt, start, cnt, pt, K5_T0)
+    assert d2.shape == (3, 1, TM) and qn.shape == (3, 6, TM)
+    assert torch.equal(d2[:, 0], best)
+    assert torch.equal(qn, win)
+    assert (d2[1] == BIG).all() and (qn[1] == 0).all()  # the tile with no admitted pair
