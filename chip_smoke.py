@@ -90,6 +90,29 @@ check exits non-zero:
      error), then once under torch.profiler. Requires zero
      pair-overflow and slack-violation frames, ATE-RMSE < 0.1 m and one K1
      launch a superblock; prints scans/s and K1's ms a superblock.
+  9. mapping at bench.py bench_map's widths (the 140 m world, skewed scans
+     of 16384 points at 25 m range, 0.2 m voxels on a 1024 x 1024 x 128
+     grid anchored at (-100, -100, -10), 8-frame groups of 131 072 points;
+     128 frames, not 512): deskew and the map-frame transform on the card,
+     then one insert a group, twice through the sorted store (capacity
+     2^18) and the hash store (2^21 slots, 8 probes, 4096 stragglers),
+     unique_capacity sized from sample groups as bench_map does. Requires
+     zero dropped and out-of-grid points, the sorted and hash centroids
+     equal bit for bit, the card's sorted state (keys, moments, counters)
+     equal to a CPU run fed the same deskewed world points, and one
+     voxel_segment_sum launch an insert; prints frames/s, ms an insert
+     (CUDA events) and the device's idle share of a pass (profiler). Then
+     holds voxel_segment_sum against its plain version bit for bit on the
+     first real group and on a tie-heavy one, with `index_add_` timed
+     beside it (and the output elements where it differs). Then records
+     phase 3's map tiles through StreamingMapper on the card (sorted store
+     at 0.1 m, anchored at the tiles' min corner, sized from the data; 257
+     frames, a tile every 4th), finalize(use_device=True), saves and loads
+     the map_data directory (the device map as its cached map.pcd), and
+     localizes 32 frames on the loaded map through phase 3's path (startup,
+     a forced rescue ICP on K2, run_chunk_fast on K1). Requires the loaded
+     map equal to the finalized one, ATE-RMSE < 0.1 m and zero overflow and
+     slack; prints how many cells differ from the host merge's map.
 
 Phase 2 also holds K3 against its plain version (fresh and lazy, at the
 session's shapes), the per-frame superblock branch (K3 lazy) against K1 on
@@ -98,7 +121,7 @@ K6(K5(x)) against K4 on a steady-state frame of the LIO world (frame 33,
 the ring full) against the anchor its block starts with (with K5's scan
 and combine and K6's device time under the profiler), and K7 against
 its plain version on the block of frames 33-48 from the same state.
-Every kernel's launch count is set to 0 before each path of phases 3-8
+Every kernel's launch count is set to 0 before each path of phases 3-9
 and read after it.
 
 The line before the last is the kernels' JSON record (time, plain time,
@@ -107,7 +130,9 @@ card could take for the same work; K1 also its steady-state time and its
 times at the JAX package's tile shapes, K2 at the stress tiles, K3 its
 lazy times and at 4 x 4096, K4 its fresh-correspondence times, K5 and K6
 their device times alone and a frame of sp_p2p_align at 1 and 4 shards;
-K1-K5 and K7 their grids, K6 its cluster); the last line is
+K1-K5 and K7 their grids, K6 its cluster; voxel_segment_sum its tie-heavy
+times, `index_add_`'s time as its library_ms and phase 9's frames/s, ms an
+insert and idle share of each store); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -116,8 +141,10 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -134,6 +161,14 @@ LIO_SPLIT_FRAMES = 8  # frames through the K5 -> K6 split registration
 LIO_WARM_FRAMES = 32  # frames before the kernel checks and the profile (the ring is full)
 FLEET_FRAMES = 33  # phase 7's fleet: 2 blocks of 16 and a padded block of 1
 FLEET_ROBOTS = 2
+MAP_FRAMES = 128  # phase 9: bench.py bench_map's loop, 16 groups (the bench runs 512)
+MAP_SCAN_CAP = 16384  # bench_map's skewed scans (BENCH_MAP_SCAN_CAP)
+MAP_GROUP = 8  # frames an insert (BENCH_MAP_BATCH)
+MAP_VOXEL = 0.2  # m (BENCH_MAP_VOXEL)
+MAP_ORIGIN = (-100.0, -100.0, -10.0)  # bench_map's grid anchor
+RAW_POINTS = 24000  # phase 3's scans and map tiles (bench_loc's BENCH_SCAN_POINTS)
+RECORD_GROUP = 4  # phase 9's recording: frames a StreamingMapper insert (one map tile)
+RECORD_FRAMES = 33  # phase 9: frames localized on the recorded map (1 startup + 4 superblocks)
 ATE_LIMIT = 0.1  # m
 LIO_ATE_LIMIT = 0.3  # m: tests/test_lio.py's bound on the fused LIO backend
 K1_TOL = 3e-4  # poses/priors/state: tests/test_superblock_kernel.py's bound
@@ -273,6 +308,14 @@ def build_world(n_frames: int, raw_points: int = 24000, density: float = 24.0):
     """bench.py bench_loc's synthetic world, sequence and map (:487-505);
     raw_points and density are its BENCH_SCAN_POINTS and BENCH_DENSITY."""
     from slam_sensor_fusion_tpu_torch.models.mapping import build_map_data
+
+    seq, tiles, odom_pos, gps_rows = world_parts(n_frames, raw_points, density)
+    return seq, build_map_data(tiles, odom_pos, gps_rows)
+
+
+def world_parts(n_frames: int, raw_points: int = 24000, density: float = 24.0):
+    """`build_world`'s sequence and the mapping run its map is built from:
+    map-frame tiles (a scan every 4th frame), odometry and GPS rows."""
     from slam_sensor_fusion_tpu_torch.utils import synthetic as syn
 
     rng = np.random.default_rng(0)
@@ -286,7 +329,7 @@ def build_world(n_frames: int, raw_points: int = 24000, density: float = 24.0):
         body = syn.render_scan(world, poses[i], map_rng, max_points=raw_points, noise=0.005)
         tiles.append(body @ poses[i][:3, :3].T + poses[i][:3, 3])
     odom_pos, gps_rows = syn.make_mapping_logs(seq)
-    return seq, build_map_data(tiles, odom_pos, gps_rows)
+    return seq, tiles, odom_pos, gps_rows
 
 
 def startup(loc, seq, gps_T, config, dev):
@@ -330,6 +373,7 @@ KERNEL_SYMBOLS = [
     ("p2p_fused_kernel", "K4"), ("p2p_assoc_scan_kernel", "K5 scan"),
     ("p2p_assoc_combine_kernel", "K5 combine"), ("p2p_gn_cluster_kernelILb1", "K6 staged"),
     ("p2p_gn_cluster_kernelILb0", "K6 global"),
+    ("segment_sum_sorted_kernel", "voxel_segment_sum"),
 ]
 
 
@@ -705,6 +749,104 @@ def zero_counts(*kernels) -> None:
         k.launches = 0
 
 
+def build_map_world(n_frames: int, scan_cap: int):
+    """bench.py bench_map's world, trajectory and skewed scans (:977-994),
+    padded to scan_cap: poses, points (T, S, 3), mask (T, S), tau (T, S)."""
+    from slam_sensor_fusion_tpu_torch.utils import synthetic as syn
+
+    rng = np.random.default_rng(0)
+    world = syn.make_world(rng, extent=140.0, n_buildings=70, n_poles=200, points_per_m2=24.0)
+    poses = syn.make_trajectory(n_frames, speed_per_frame=0.15, radius=30.0)
+    sp = np.zeros((n_frames, scan_cap, 3), np.float32)
+    sm = np.zeros((n_frames, scan_cap), bool)
+    tp = np.ones((n_frames, scan_cap), np.float32)
+    for i in range(n_frames):
+        pts, tau = syn.render_scan_skewed(world, poses[max(i - 1, 0)], poses[i], rng,
+                                          max_points=scan_cap, max_range=25.0)
+        n = min(len(pts), scan_cap)
+        sp[i, :n], sm[i, :n], tp[i, :n] = pts[:n], True, tau[:n]
+    return poses, sp, sm, tp
+
+
+def dedup_capacity(groups, origin, voxel: float, cap: int) -> tuple[int, int]:
+    """bench.py bench_map's sizing of the dedup stage (:1003-1025): the most
+    distinct cells of the sample groups x 1.5, rounded up to 4096, at most
+    `cap`; and that most."""
+    worst = 0
+    for p in groups:
+        ijk = np.floor((p - origin) / voxel).astype(np.int64)
+        worst = max(worst, len(np.unique((ijk[:, 0] << 42) + (ijk[:, 1] << 21) + ijk[:, 2])))
+    return min(cap, -(-int(worst * 1.5) // 4096) * 4096), worst
+
+
+def group_world(groups, g: int) -> torch.Tensor:
+    """Group g's points (points, mask, tau, twists, poses: (G, 8, ...)
+    each), every frame deskewed with its own twist and put in the world
+    frame: (8 x S, 3)."""
+    from slam_sensor_fusion_tpu_torch.ops.deskew import deskew
+
+    P, _, TAU, XI, TT = groups
+    fixed = deskew(P[g], TAU[g], XI[g])
+    return (torch.einsum("bij,bnj->bni", TT[g, :, :3, :3], fixed)
+            + TT[g, :, None, :3, 3]).reshape(-1, 3)
+
+
+def map_pass(insert, cfg, state, groups, flushes=None):
+    """bench_map's loop over every group: `group_world`, then ONE insert
+    for the group. With `flushes`, CUDA events around each insert are
+    appended to it."""
+    for g in range(groups[0].shape[0]):
+        world = group_world(groups, g)
+        if flushes is not None:
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+        state = insert(state, world, groups[1][g].reshape(-1), cfg)
+        if flushes is not None:
+            b.record()
+            flushes.append((a, b))
+    return state
+
+
+def tie_heavy_group(n_rows: int, dev):
+    """A segment-sum group of `n_rows` rows: one run of 10 000 rows, then
+    singletons, then the last fifth aliased to U - 1 with zero payload
+    (half of it -0.0), as the stores clip masked rows."""
+    rng = np.random.default_rng(9)
+    n_alias = n_rows // 5
+    n_single = n_rows - n_alias - 10_000
+    seg = np.concatenate([np.zeros(10_000, np.int32), np.arange(1, n_single + 1, dtype=np.int32)])
+    U = n_single + 2
+    seg = np.concatenate([seg, np.full(n_alias, U - 1, np.int32)])
+    vals = (rng.standard_normal((n_rows, 4)) * 30).astype(np.float32)
+    vals[-n_alias:] = 0.0
+    vals[-n_alias::2] = -0.0
+    return torch.from_numpy(vals).to(dev), torch.from_numpy(seg).to(dev), U
+
+
+def check_segsum(values, seg, U, dev_name):
+    """The segment-sum kernel against its plain version (bits) and against
+    `index_add_` on the same rows: (max |kernel - plain|, ms, plain ms,
+    bound, index_add_ ms, output elements where index_add_ differs)."""
+    from slam_sensor_fusion_tpu_torch.ops.voxel_segsum import (
+        segment_sum_sorted,
+        segment_sum_sorted_plain,
+    )
+
+    got = segment_sum_sorted(values, seg, U)
+    want = segment_sum_sorted_plain(values, seg, U)
+    idx = seg.long()
+    lib = torch.zeros_like(want).index_add_(0, idx, values)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"voxel_segment_sum differs from its plain version on {int((got != want).sum())} "
+             f"of {got.numel()} elements")
+    ms = time_ms(lambda: segment_sum_sorted(values, seg, U), 20)
+    plain_ms = time_ms(lambda: segment_sum_sorted_plain(values, seg, U), 1)
+    lib_ms = time_ms(lambda: torch.zeros_like(want).index_add_(0, idx, values), 20)
+    bnd = bound(values.numel(), nbytes(values, seg, want))
+    return (got - want).abs().max().item(), ms, plain_ms, bnd, lib_ms, int((lib != got).sum())
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # ---- 0. the device ----
@@ -747,10 +889,28 @@ def main() -> None:
     from slam_sensor_fusion_tpu_torch.ops.icp_fused import kernel_grid as icp_grid
     from slam_sensor_fusion_tpu_torch.ops.lio_superblock_fused import kernel_grid as lio_grid
     from slam_sensor_fusion_tpu_torch.ops.nn_pallas import kernel_grid as nn_grid
+    from slam_sensor_fusion_tpu_torch.models.mapping import StreamingMapper, build_map_data
+    from slam_sensor_fusion_tpu_torch.ops.deskew import se3_log
+    from slam_sensor_fusion_tpu_torch.ops.voxel_map import (
+        VoxelMapConfig,
+        voxel_map_centroids_numpy,
+        voxel_map_init,
+        voxel_map_insert,
+    )
+    from slam_sensor_fusion_tpu_torch.ops.voxel_map_sorted import (
+        SortedVoxelMapConfig,
+        _group_rows,
+        sorted_voxel_map_centroids_numpy,
+        sorted_voxel_map_init,
+        sorted_voxel_map_insert,
+    )
+    from slam_sensor_fusion_tpu_torch.ops.voxel_segsum import segment_sum_sorted
+    from slam_sensor_fusion_tpu_torch.utils import mapdata, native
+    from slam_sensor_fusion_tpu_torch.utils.config import MappingConfig
     from torch.profiler import ProfilerActivity, profile
 
-    kernels = (superblock_fine, pair_nn, _fused_core,
-               p2p._p2p_core, p2p._p2p_associate, p2p._p2p_gn_corr, lio_superblock)
+    kernels = (superblock_fine, pair_nn, _fused_core, p2p._p2p_core, p2p._p2p_associate,
+               p2p._p2p_gn_corr, lio_superblock, segment_sum_sorted)
 
     # ---- 1. build ----
     t0 = time.perf_counter()
@@ -799,17 +959,37 @@ def main() -> None:
     print(f"  cluster: K6 {k6_cluster['ctas']} CTAs of {k6_cluster['threads']} threads, "
           f"{k6_cluster['smem_bytes']} bytes of the matched set staged a CTA [{tag}]", flush=True)
 
-    # ---- worlds (host set-up: phases 2-3 and phases 2, 4-5) ----
+    # ---- worlds (host set-up of every phase's world) ----
     t0 = time.perf_counter()
-    seq, map_data = build_world(N_FRAMES)
+    seq, tiles, odom_pos, gps_rows = world_parts(N_FRAMES, RAW_POINTS)
+    map_data = build_map_data(tiles, odom_pos, gps_rows)
     xseq, xmap = build_world(TILES_FRAMES, raw_points=122000, density=48.0)
     sseq, smap = build_session_world(SESSION_FRAMES)
     lposes, lv0, lsp, lsm, ltp, lgyro, laccel, ldts, lgps = build_lio_world(
         LIO_FRAMES, lcfg.scan_capacity)
+    mposes, msp, msm, mtp = build_map_world(MAP_FRAMES, MAP_SCAN_CAP)
+    n_map_groups = MAP_FRAMES // MAP_GROUP
+    map_uniq, map_worst = dedup_capacity(
+        [np.concatenate([msp[i][msm[i]] @ mposes[i][:3, :3].T + mposes[i][:3, 3]
+                         for i in range(g * MAP_GROUP, (g + 1) * MAP_GROUP)])
+         for g in sorted({0, n_map_groups // 2, n_map_groups - 1})],
+        np.asarray(MAP_ORIGIN, np.float32), MAP_VOXEL, MAP_GROUP * MAP_SCAN_CAP)
+    rel = np.stack([np.linalg.inv(mposes[max(i - 1, 0)].astype(np.float64))
+                    @ mposes[i].astype(np.float64) for i in range(MAP_FRAMES)]).astype(np.float32)
+
+    def grouped(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev).reshape(
+            n_map_groups, MAP_GROUP, *a.shape[1:])
+
+    map_groups = (grouped(msp), grouped(msm), grouped(mtp),
+                  se3_log(torch.from_numpy(rel).to(dev)).reshape(n_map_groups, MAP_GROUP, 6),
+                  grouped(mposes))
     print(f"set-up worlds: {time.perf_counter() - t0:.1f} s, map points {map_data.map_points.shape[0]} "
           f"(bench), {xmap.map_points.shape[0]} (stress), {smap.map_points.shape[0]} (session), "
           f"LIO scan points mean "
-          f"{lsm.sum(1).mean():.0f} of {lcfg.scan_capacity}", flush=True)
+          f"{lsm.sum(1).mean():.0f} of {lcfg.scan_capacity}, mapping scan points mean "
+          f"{msm.sum(1).mean():.0f} of {MAP_SCAN_CAP} (unique cells a group <= {map_worst}: "
+          f"unique_capacity {map_uniq})", flush=True)
 
     # ---- 2. kernel against plain at main-path shapes ----
     t0 = time.perf_counter()
@@ -1169,6 +1349,7 @@ def main() -> None:
         if not ate < ATE_LIMIT:
             fail(f"ATE-RMSE {ate} >= {ATE_LIMIT}")
     record("superblocks")
+    ate3_head = ate_rmse(est[: RECORD_FRAMES - 1], gt[: RECORD_FRAMES - 1])
     if pair_nn.launches < 1:
         fail("K2 never launched on the main path")
     k1_steady_ms = profile_pass(
@@ -1645,6 +1826,169 @@ def main() -> None:
     print(f"phase 8 the JAX package's tile shapes: {time.perf_counter() - t0:.1f} s; scans/s (pass 1) "
           + ", ".join(f"{k} {w['rate']:.1f}" for k, w in wide.items()) + f" [{tag}]", flush=True)
 
+    # ---- 9. mapping: bench.py bench_map's loop at its widths (both device
+    # stores, 16 groups of 8 skewed scans), the segment-sum kernel against
+    # its plain version, then record / save / load / localize ----
+    t0 = time.perf_counter()
+    dims = dict(voxel_size=MAP_VOXEL, dim_xy=1024, dim_z=128)
+    scfg = SortedVoxelMapConfig(capacity=1 << 18, unique_capacity=map_uniq, **dims)
+    hcfg = VoxelMapConfig(table_size=1 << 21, max_probes=8,
+                          straggler_capacity=max(1024, MAP_GROUP * 512), unique_capacity=map_uniq,
+                          **dims)
+    stores = {
+        "sorted": (sorted_voxel_map_init, sorted_voxel_map_insert, scfg),
+        "hash": (voxel_map_init, voxel_map_insert, hcfg),
+    }
+    finals, map_ms = {}, {}
+    for label, (init, insert, cfg) in stores.items():
+        zero_counts(*kernels)
+        rate = 0.0
+        for p in range(2):
+            flushes = []
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            st = map_pass(insert, cfg, init(cfg, MAP_ORIGIN, dev), map_groups, flushes)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t1
+            rate = MAP_FRAMES / dt
+            flush_ms = float(np.mean([a.elapsed_time(b) for a, b in flushes]))
+            dropped, oob, cells = torch.stack([st.n_dropped, st.n_oob, st.n_cells()]).tolist()
+            print(f"mapping {label} pass {p}: {MAP_FRAMES} frames {dt:.3f} s = {rate:.1f} frames/s, "
+                  f"{flush_ms:.3f} ms an insert of {MAP_GROUP * MAP_SCAN_CAP} points (CUDA events, "
+                  f"mean of {len(flushes)}), {cells} cells, dropped {dropped}, oob {oob} [{tag}]",
+                  flush=True)
+            if dropped or oob:
+                fail(f"mapping {label}: dropped {dropped}, oob {oob}")
+        record(f"map_{label}")
+        if launches[segment_sum_sorted][f"map_{label}"] != len(flushes) * 2:
+            fail(f"mapping {label}: voxel_segment_sum launched "
+                 f"{launches[segment_sum_sorted][f'map_{label}']} times for {2 * len(flushes)} inserts")
+        # one more pass under the profiler: the device's busy and idle share
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            map_pass(insert, cfg, init(cfg, MAP_ORIGIN, dev), map_groups)
+            torch.cuda.synchronize()
+        on_dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in on_dev) / 1e3
+        seg_dev = sum(e.self_device_time_total for e in on_dev
+                      if "segment_sum_sorted_kernel" in e.key) / 1e3
+        pass_ms = MAP_FRAMES / rate * 1e3
+        idle = f"{100 - 100 * busy / pass_ms:.1f}%" if busy > 0 else "not measured"
+        print(f"mapping {label} profile, one pass: device busy {busy:.3f} ms of the last timed "
+              f"pass's {pass_ms:.3f} ms (idle {idle}), voxel_segment_sum {seg_dev:.3f} ms, "
+              f"{sum(e.count for e in on_dev)} device operations [{tag}]", flush=True)
+        finals[label] = st
+        map_ms[label] = dict(frames_s=rate, flush_ms=flush_ms, idle=idle)
+    got_s = sorted_voxel_map_centroids_numpy(finals["sorted"])
+    got_h = voxel_map_centroids_numpy(finals["hash"])
+    if not np.array_equal(got_s, got_h):
+        fail(f"mapping: sorted and hash centroids differ ({got_s.shape} vs {got_h.shape})")
+    # the sorted store on the card and on the CPU, fed the same deskewed
+    # world points (computed on the card), so only the store is compared
+    worlds = [group_world(map_groups, g) for g in range(n_map_groups)]
+    masks = map_groups[1].reshape(len(worlds), -1)
+    t1 = time.perf_counter()
+    cst = sorted_voxel_map_init(scfg, MAP_ORIGIN, "cpu")
+    gst = sorted_voxel_map_init(scfg, MAP_ORIGIN, dev)
+    for w, m in zip(worlds, masks):
+        gst = sorted_voxel_map_insert(gst, w, m, scfg)
+        cst = sorted_voxel_map_insert(cst, w.cpu(), m.cpu(), scfg)
+    cpu_s = time.perf_counter() - t1
+    for f in ("keys", "moments", "n_dropped", "n_oob"):
+        if not torch.equal(getattr(gst, f).cpu(), getattr(cst, f)):
+            fail(f"mapping: the card's sorted store differs from the CPU run in {f}")
+    print(f"mapping: sorted == hash centroids bit for bit ({got_s.shape[0]} cells); the card's "
+          f"sorted state == the CPU run bit for bit (CPU {cpu_s:.1f} s)", flush=True)
+
+    # the segment-sum kernel on the first real group and on a tie-heavy one
+    _, _, _, payload, seg_c, _ = _group_rows(
+        worlds[0], masks[0], torch.tensor(MAP_ORIGIN, device=dev), scfg)
+    seg_case = {"group": (payload, seg_c, min(scfg.unique_capacity, payload.shape[0])),
+                "ties": tie_heavy_group(payload.shape[0], dev)}
+    segsum = {}
+    for label, (vals, seg, U) in seg_case.items():
+        segsum[label] = check_segsum(vals, seg, U, name)
+        err, ms, pms, bnd, lib_ms, n_diff = segsum[label]
+        print(f"voxel_segment_sum {label} ({vals.shape[0]} rows, {U} segments, "
+              f"longest run {int(torch.bincount(seg.long()).max())}): bits equal the plain "
+              f"version; {ms:.4f} ms, plain {pms:.3f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}); "
+              f"index_add_ {lib_ms:.4f} ms, {n_diff} of {U * 4} elements differ from the kernel "
+              f"[{tag}]", flush=True)
+
+    # record phase 3's map tiles with StreamingMapper (sorted store, the
+    # card), save, load, and localize on the loaded map
+    t1 = time.perf_counter()
+    zero_counts(*kernels)
+    vox = MappingConfig().map_voxel_size
+    allp = np.concatenate(tiles)
+    lo = allp.min(axis=0)
+    ext = np.floor((allp.max(axis=0).astype(np.float64) - lo) / vox) + 2
+    rec_uniq, rec_worst = dedup_capacity(tiles, lo, vox,
+                                         RECORD_GROUP * RAW_POINTS)
+    rcfg = SortedVoxelMapConfig(
+        voxel_size=vox,
+        capacity=1 << int(np.ceil(np.log2(1.25 * map_data.map_points.shape[0]))),
+        unique_capacity=rec_uniq, dim_xy=int(ext[:2].max()), dim_z=int(ext[2]),
+    )
+    mapper = StreamingMapper(MappingConfig(), device_origin=lo, device_config=rcfg,
+                             device_scan_capacity=RAW_POINTS, device_group=RECORD_GROUP, device=dev)
+    empty = np.zeros((0, 3), np.float32)
+    for i in range(N_FRAMES):
+        mapper.add_frame(tiles[i // 4] if i % 4 == 0 else empty, odom_pos[i], *gps_rows[i])
+    recorded = mapper.finalize(use_device=True)
+    t_record = time.perf_counter() - t1
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "map_data")
+        mapdata.save_map_data(path, mapper.tiles, np.stack(mapper.odom_positions),
+                              np.stack(mapper.gps_rows))
+        native.write_pcd(os.path.join(path, "map.pcd"), recorded.map_points)
+        np.save(os.path.join(path, "map_T_global.npy"), recorded.map_T_global)
+        loaded = mapdata.load_map_data(path)
+    if not (np.array_equal(loaded.map_points, recorded.map_points)
+            and np.array_equal(loaded.map_T_global, recorded.map_T_global)):
+        fail("record: the loaded map differs from the finalized one")
+    host_cells = np.floor((map_data.map_points.astype(np.float64) - lo) / vox)
+    dev_cells = np.floor((recorded.map_points.astype(np.float64) - lo) / vox)
+    n_moved = len(set(map(tuple, host_cells.astype(np.int64))) ^ set(map(tuple, dev_cells.astype(np.int64))))
+    print(f"record: {N_FRAMES} frames ({len(tiles)} tiles) through StreamingMapper, {rcfg.capacity} "
+          f"cells of capacity, unique {rec_uniq} (worst tile {rec_worst}), {recorded.map_points.shape[0]} "
+          f"map points against the host merge's {map_data.map_points.shape[0]}, {n_moved} cells in "
+          f"one map and not the other (f32 against f64 binning); saved and loaded equal; altitude "
+          f"table max diff {np.abs(loaded.altitude_table - recorded.altitude_table).max():.2e} "
+          f"(8-decimal text log)", flush=True)
+    rloc = lz.Localizer(loaded, config, dev)
+    r_gps = rloc.gps_poses(seq.gps_lat, seq.gps_lon, seq.compass_yaw)
+    rstate, rcscan, rcoarse = startup(rloc, seq, r_gps, config, dev)
+    if not bool(rcoarse.success):
+        fail("record: coarse alignment failed on the loaded map")
+    rbf_map, rbf_scan = lz.brute_force_clouds(rcscan, rstate.cropped_map, rstate.map_T_ref, config)
+    rres = icp_align(rbf_scan.points, rbf_scan.mask, rbf_map.points, rbf_map.mask,
+                     rescue_start(rcoarse.map_T_sensor), config.rescue_icp)
+    if not bool(rres.has_converged):
+        fail("record: forced rescue ICP did not converge on the loaded map")
+    n = RECORD_FRAMES
+    rframes = pf.build_paged_frames(
+        config, seq.scans[1:n], seq.odom_T_sensor[1:n], r_gps[1:n], seq.odom_cov_trace[1:n],
+        seq.gps_cov_trace[1:n], np.ones(n - 1, bool), dev,
+    )
+    _, rout = pf.run_chunk_fast(rstate, rframes, rloc.map_cloud, config)
+    rest = rout.map_T_sensor.cpu().numpy()
+    r_ate = ate_rmse(rest, seq.true_map_T_sensor[1:n])
+    r_ovf, r_slack = int(rout.pair_overflow.sum()), int(rout.slack_violation.sum())
+    record("record_localize")
+    print(f"record: localized {n - 1} frames on the loaded map: ATE-RMSE {r_ate:.4f} m (phase 3 "
+          f"on the host merge, the same frames: {ate3_head:.4f} m), pair-overflow frames {r_ovf}, "
+          f"slack-violations {r_slack}, K1 launches {launches[superblock_fine]['record_localize']}, "
+          f"voxel_segment_sum launches {launches[segment_sum_sorted]['record_localize']} [{tag}]",
+          flush=True)
+    if r_ovf or r_slack:
+        fail(f"record: pair overflow on {r_ovf} frames, slack violated on {r_slack}")
+    if not (np.isfinite(rest).all() and r_ate < ATE_LIMIT):
+        fail(f"record: ATE-RMSE {r_ate} >= {ATE_LIMIT} on the loaded map")
+    print(f"phase 9 mapping: {time.perf_counter() - t0:.1f} s (record and save {t_record:.1f} s of it); "
+          f"frames/s (pass 1) sorted {map_ms['sorted']['frames_s']:.1f}, hash "
+          f"{map_ms['hash']['frames_s']:.1f}; ms an insert sorted {map_ms['sorted']['flush_ms']:.3f}, "
+          f"hash {map_ms['hash']['flush_ms']:.3f} [{tag}]", flush=True)
+
     for kernel in kernels:
         if not sum(launches[kernel].values()):
             fail(f"{kernel.__name__} never launched on a main path")
@@ -1703,6 +2047,17 @@ def main() -> None:
             "slam_sensor_fusion_tpu_torch/csrc/lio_superblock_fused.cu",
             "slam_sensor_fusion_tpu/ops/lio_superblock_fused.py:196", k7_err, k7_ms, k7_plain_ms,
             k7_bound, grid=grids["K7"]),
+        row(segment_sum_sorted, "voxel_segment_sum",
+            "slam_sensor_fusion_tpu_torch/csrc/voxel_segsum.cu",
+            "none: XLA scatter-add, slam_sensor_fusion_tpu/ops/voxel_map_sorted.py:178 and "
+            "ops/voxel_map.py:203", max(v[0] for v in segsum.values()), *segsum["group"][1:4],
+            library_ms=segsum["group"][4], library_diff_elements=segsum["group"][5],
+            ms_ties=segsum["ties"][1], plain_ms_ties=segsum["ties"][2],
+            bound_ms_ties=segsum["ties"][3][0], library_ms_ties=segsum["ties"][4],
+            library_diff_elements_ties=segsum["ties"][5],
+            map_frames_s={k: v["frames_s"] for k, v in map_ms.items()},
+            map_ms_an_insert={k: v["flush_ms"] for k, v in map_ms.items()},
+            map_idle={k: v["idle"] for k, v in map_ms.items()}),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -8,8 +8,9 @@ the map_T_global datum that rebases all GPS data into f32-safe map-frame
 coordinates — the same centring trick the reference gets implicitly from
 composing map_T_global (global_map_frames_manager.cpp:224-246).
 
-A NumPy copy of the JAX package's host map build (the incremental device
-voxel store and `StreamingMapper` are not ported yet).
+A NumPy copy of the JAX package's host map build, and its online recorder
+`StreamingMapper`, whose device path streams every frame into one of the
+port's device voxel stores (ops/voxel_map, ops/voxel_map_sorted).
 """
 
 from __future__ import annotations
@@ -17,9 +18,22 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from slam_sensor_fusion_tpu_torch.ops.cloud import voxel_downsample_numpy
 from slam_sensor_fusion_tpu_torch.ops.utm import ll_to_utm
+from slam_sensor_fusion_tpu_torch.ops.voxel_map import (
+    VoxelMapConfig,
+    voxel_map_centroids_numpy,
+    voxel_map_init,
+    voxel_map_insert,
+)
+from slam_sensor_fusion_tpu_torch.ops.voxel_map_sorted import (
+    SortedVoxelMapConfig,
+    sorted_voxel_map_centroids_numpy,
+    sorted_voxel_map_init,
+    sorted_voxel_map_insert,
+)
 from slam_sensor_fusion_tpu_torch.utils.config import MappingConfig
 
 
@@ -52,6 +66,15 @@ def build_altitude_table(gps_rows: np.ndarray) -> np.ndarray:
     gps_rows = np.asarray(gps_rows, np.float64).reshape(-1, 4)
     keep = gps_rows[:, 2] > 0
     return gps_rows[keep, :3]
+
+
+def closest_altitude(table: np.ndarray, lat: float, lon: float) -> float:
+    """Nearest-neighbour altitude in raw lat/lon degrees
+    (global_map_frames_manager.cpp:69-91). Empty table -> 0."""
+    if table.shape[0] == 0:
+        return 0.0
+    d = np.hypot(table[:, 0] - lat, table[:, 1] - lon)
+    return float(table[np.argmin(d), 2])
 
 
 def closest_altitude_batch(table: np.ndarray, lat: np.ndarray, lon: np.ndarray) -> np.ndarray:
@@ -233,3 +256,144 @@ def gps_to_map_poses(
     out[:, 2, 3] = alt
     out = np.einsum("ij,tjk->tik", map_data.map_T_global, out)
     return out.astype(np.float32)
+
+
+class StreamingMapper:
+    """Online mapping recorder, the reference's MapDataSaver
+    (map_data_save_node.cpp): accumulate registered scans, cut a tile every
+    ``cloud_save_rate`` frames, log odometry positions and GPS/compass rows.
+    Storage is in memory; utils/mapdata.save_map_data persists it.
+
+    Device path (``device_origin`` given): each frame ALSO streams into a
+    device voxel store on ``device`` (the card unless the caller asks for
+    the CPU), so ``finalize(use_device=True)`` takes the global map from
+    that store with no host re-grid: the map was maintained cell-exactly
+    on the device the whole run. ``device_config`` picks the store: a
+    `VoxelMapConfig` (the default, at ``map_voxel_size``) for the
+    open-addressing hash table, a `SortedVoxelMapConfig` for the
+    sort-merge array. The host tile and log artifacts are written either
+    way: they are the checkpoint format.
+    """
+
+    def __init__(
+        self,
+        config: MappingConfig = MappingConfig(),
+        device_origin: np.ndarray | None = None,
+        device_config=None,
+        device_scan_capacity: int = 65536,
+        device_group: int = 1,
+        device: torch.device | str = torch.device("cuda"),
+    ):
+        self.config = config
+        self._accum: list[np.ndarray] = []
+        self._counter = 0
+        self.tiles: list[np.ndarray] = []
+        self.odom_positions: list[np.ndarray] = []
+        self.gps_rows: list[np.ndarray] = []
+        self._vm_state = None
+        self._vm_config = None
+        if device_origin is not None:
+            self._vm_config = device_config or VoxelMapConfig(
+                voxel_size=config.map_voxel_size
+            )
+            init, self._vm_insert, self._vm_extract = (
+                (sorted_voxel_map_init, sorted_voxel_map_insert, sorted_voxel_map_centroids_numpy)
+                if isinstance(self._vm_config, SortedVoxelMapConfig)
+                else (voxel_map_init, voxel_map_insert, voxel_map_centroids_numpy)
+            )
+            self._vm_device = torch.device(device)
+            self._vm_state = init(self._vm_config, device_origin, self._vm_device)
+            self._vm_scan_cap = device_scan_capacity
+            # frames per device insert: cell sums and counts add up the
+            # same in groups, so grouping is bit-identical to per-frame
+            # inserts (the reference itself persists every 10th frame,
+            # map_data_save_node.h:72). The tail group is padded, so every
+            # flush has the same shapes.
+            self._vm_group = max(int(device_group), 1)
+            self._vm_pending: list[np.ndarray] = []
+
+    def add_frame(
+        self,
+        scan_map_frame: np.ndarray,
+        odom_position: np.ndarray,
+        lat: float,
+        lon: float,
+        alt: float,
+        compass_yaw: float,
+    ) -> None:
+        """Record one registered scan (map frame) and its log rows. On the
+        device path a full frame group is inserted; nothing here waits for
+        the device."""
+        pts = np.asarray(scan_map_frame, np.float32).reshape(-1, 3)
+        self._accum.append(pts)
+        self._counter += 1
+        if self._counter % self.config.cloud_save_rate == 0:
+            self.tiles.append(np.concatenate(self._accum))
+            self._accum = []
+        self.odom_positions.append(np.asarray(odom_position, np.float64))
+        self.gps_rows.append(np.array([lat, lon, alt, compass_yaw], np.float64))
+        if self._vm_state is not None:
+            if len(pts) > self._vm_scan_cap:
+                raise ValueError(
+                    f"scan of {len(pts)} points exceeds device_scan_capacity"
+                    f"={self._vm_scan_cap}; size the mapper to the sensor"
+                )
+            self._vm_pending.append(pts)
+            if len(self._vm_pending) >= self._vm_group:
+                self._vm_flush()
+
+    def _vm_flush(self) -> None:
+        """One device insert for the pending frame group (a fixed
+        group-width buffer: the tail group is padded)."""
+        if not self._vm_pending:
+            return
+        cap = self._vm_scan_cap * self._vm_group
+        pts = np.concatenate(self._vm_pending)
+        self._vm_pending = []
+        buf = np.zeros((cap, 3), np.float32)
+        buf[: len(pts)] = pts
+        msk = np.zeros(cap, bool)
+        msk[: len(pts)] = True
+        # non_blocking: a copy from pageable memory is staged at once and
+        # does not wait for the inserts already queued on the card
+        self._vm_state = self._vm_insert(
+            self._vm_state,
+            torch.from_numpy(buf).to(self._vm_device, non_blocking=True),
+            torch.from_numpy(msk).to(self._vm_device, non_blocking=True),
+            self._vm_config,
+        )
+
+    def finalize(self, use_device: bool = False) -> MapData:
+        """Flush the residual tile (onShutdown, map_data_save_node.cpp:101-113)
+        and build the MapData. ``use_device=True`` takes the map cloud from
+        the device store (cell-identical to the host merge anchored at the
+        same origin) instead of re-gridding on the host; it reads the
+        store's two counters once and raises if either is not 0."""
+        if self._accum:
+            self.tiles.append(np.concatenate(self._accum))
+            self._accum = []
+        data = build_map_data(
+            self.tiles if not use_device else [],
+            np.stack(self.odom_positions) if self.odom_positions else np.zeros((0, 3)),
+            np.stack(self.gps_rows) if self.gps_rows else np.zeros((0, 4)),
+            self.config,
+        )
+        if use_device:
+            if self._vm_state is None:
+                raise ValueError(
+                    "finalize(use_device=True) needs device_origin at init"
+                )
+            self._vm_flush()  # the partial tail group
+            dropped, oob = torch.stack(
+                [self._vm_state.n_dropped, self._vm_state.n_oob]
+            ).tolist()
+            if dropped or oob:
+                raise ValueError(
+                    "device voxel map overflowed: "
+                    f"dropped={dropped} oob={oob}; grow capacity/"
+                    "extents or re-anchor the origin"
+                )
+            data = dataclasses.replace(
+                data, map_points=self._vm_extract(self._vm_state)
+            )
+        return data

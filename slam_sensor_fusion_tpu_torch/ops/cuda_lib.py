@@ -136,6 +136,8 @@ def _declare(so: ctypes.CDLL) -> None:
     so.sfk_lio_superblock.restype = I
     so.sfk_lio_grid.argtypes = [I] * 2 + [P] * 3
     so.sfk_lio_grid.restype = I
+    so.sfk_segment_sum_sorted.argtypes = [P] * 2 + [I] * 3 + [P, P]
+    so.sfk_segment_sum_sorted.restype = I
 
 
 def check(err: int, what: str) -> None:

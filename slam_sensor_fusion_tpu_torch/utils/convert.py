@@ -25,6 +25,8 @@ from slam_sensor_fusion_tpu_torch.ops.icp_fused import CachedTarget
 from slam_sensor_fusion_tpu_torch.ops.p2p_fused import CachedP2PTarget
 from slam_sensor_fusion_tpu_torch.ops.point_to_plane import PointToPlaneConfig
 from slam_sensor_fusion_tpu_torch.ops.stochastic_filter import FilterState
+from slam_sensor_fusion_tpu_torch.ops.voxel_map import VoxelMapState
+from slam_sensor_fusion_tpu_torch.ops.voxel_map_sorted import SortedVoxelMapState
 from slam_sensor_fusion_tpu_torch.parallel.map_shard import ShardedP2PTarget
 from slam_sensor_fusion_tpu_torch.utils.config import (
     BruteForceConfig,
@@ -196,4 +198,23 @@ def lio_state_from_numpy(
         anchor_normals_valid=_tensor(np.asarray(state.anchor_normals_valid, bool), device),
         anchor_cache=cached_p2p_target_from_numpy(state.anchor_cache, device),
         anchor_P6=_tensor(state.anchor_P6, device),
+    )
+
+
+def voxel_map_state_from_numpy(
+    state, device: torch.device | str = torch.device("cuda")
+) -> VoxelMapState:
+    """A hash-store VoxelMapState from the JAX one whose leaves are NumPy
+    arrays, so a map recorded by one package goes on in the other (the
+    same table layout: `_probe_slot` gives the same slots)."""
+    return VoxelMapState(*[_tensor(getattr(state, f), device) for f in VoxelMapState._fields])
+
+
+def sorted_voxel_map_state_from_numpy(
+    state, device: torch.device | str = torch.device("cuda")
+) -> SortedVoxelMapState:
+    """A SortedVoxelMapState (keys, moments, origin, counters) from the JAX
+    one whose leaves are NumPy arrays."""
+    return SortedVoxelMapState(
+        *[_tensor(getattr(state, f), device) for f in SortedVoxelMapState._fields]
     )

@@ -23,7 +23,9 @@ its kernel of one block a source tile (SHA-256 digests of their outputs),
 and K1 with its leader's points in a global buffer the same bits as with
 them in registers. K7 to 3e-4 on poses and state, 1e-4 of max|P| on P,
 1e-4 relative on the stats lanes with EQUAL n_correspondences, GPS
-acceptance and slack flags."""
+acceptance and slack flags. The voxel stores' segment sum equals its plain
+version bit for bit, and the sorted and hash stores on the card equal each
+other and their CPU runs bit for bit."""
 
 import dataclasses
 
@@ -468,3 +470,76 @@ K7_DIGEST = "eab418046232a8a8fe7e96ac5f09dca7cf34684bc4749467bb8727e3b91bfe02"
 
 def test_lio_superblock_bits_equal_the_one_block_kernel(cuda_device):
     assert k7_digest(cuda_device) == K7_DIGEST
+
+
+def _segsum_case(kind, device):
+    """(values, seg, U): a group of 131072 sorted rows in ~30 000 segments
+    of skewed lengths, or a tie-heavy one (one run of 10 000 rows, many
+    singletons, empty segments, rows aliased to U - 1 with zero payload)."""
+    rng = np.random.default_rng(12)
+    if kind == "group":
+        U = 1 << 15
+        lens = np.minimum(rng.geometric(0.25, U), 400)
+        seg = np.repeat(np.arange(U), lens)[: 1 << 17]
+    else:
+        U = 5000
+        lens = rng.integers(0, 2, U)
+        lens[1234] = 10_000
+        seg = np.concatenate([np.repeat(np.arange(U), lens), np.full(777, U - 1)])
+    vals = (rng.standard_normal((len(seg), 4)) * 40).astype(np.float32)
+    if kind == "ties":
+        vals[-777:] = 0.0
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    return to(vals), to(seg.astype(np.int32)), U
+
+
+@pytest.mark.parametrize("kind", ["group", "ties"])
+def test_segment_sum_kernel_matches_plain(cuda_device, kind):
+    """The order-exact segment sum: bits equal the plain version's (each
+    segment's rows added in row order), one launch a call."""
+    from slam_sensor_fusion_tpu_torch.ops import voxel_segsum as vs
+
+    vals, seg, U = _segsum_case(kind, cuda_device)
+    before = vs.segment_sum_sorted.launches
+    got = vs.segment_sum_sorted(vals, seg, U)
+    want = vs.segment_sum_sorted_plain(vals, seg, U)
+    torch.cuda.synchronize()
+    assert vs.segment_sum_sorted.launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), vs.segment_sum_sorted_plain(vals.cpu(), seg.cpu(), U))
+
+
+def test_voxel_stores_on_the_card_equal_each_other_and_the_cpu(cuda_device):
+    """Four groups of 8192 quantized points (cells revisited across
+    groups): the sorted and hash stores on the card give the same
+    centroids bit for bit, and each the same state as its CPU run."""
+    from slam_sensor_fusion_tpu_torch.ops import voxel_map as tvm
+    from slam_sensor_fusion_tpu_torch.ops import voxel_map_sorted as tvs
+
+    rng = np.random.default_rng(13)
+    pts = ((rng.integers(0, 960, (4, 8192, 3)) + 0.5) / 32.0).astype(np.float32)
+    pts[2, :2000] = pts[0, :2000]
+    msk = np.ones((4, 8192), bool)
+    msk[3, 6000:] = False
+    grid = dict(voxel_size=0.25, dim_xy=256, dim_z=128)
+    stores = (
+        (tvm.voxel_map_init, tvm.voxel_map_insert_chunk,
+         tvm.VoxelMapConfig(**grid, table_size=1 << 18, unique_capacity=8192)),
+        (tvs.sorted_voxel_map_init, tvs.sorted_voxel_map_insert_chunk,
+         tvs.SortedVoxelMapConfig(**grid, capacity=1 << 15, unique_capacity=8192)),
+    )
+    runs = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        for init, chunk, cfg in stores:
+            st = chunk(init(cfg, np.zeros(3), dev), torch.from_numpy(pts).to(dev),
+                       torch.from_numpy(msk).to(dev), cfg)
+            runs[dev.type, type(cfg).__name__] = st
+    hs, ss = runs["cuda", "VoxelMapConfig"], runs["cuda", "SortedVoxelMapConfig"]
+    assert int(hs.n_dropped) == int(ss.n_dropped) == int(hs.n_oob) == 0
+    assert int(hs.n_cells()) == int(ss.n_cells()) > 20000
+    np.testing.assert_array_equal(
+        tvs.sorted_voxel_map_centroids_numpy(ss), tvm.voxel_map_centroids_numpy(hs))
+    for name in ("VoxelMapConfig", "SortedVoxelMapConfig"):
+        card, cpu = runs["cuda", name], runs["cpu", name]
+        for f in card._fields:
+            assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), (name, f)

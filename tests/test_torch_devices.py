@@ -22,6 +22,7 @@ EXPECTED = {
     "utils.convert.ekf_state_from_numpy",
     "utils.convert.lio_state_from_numpy",
     "models.localization.Localizer",
+    "models.mapping.StreamingMapper",
     "models.localization.build_frame_batch",
     "models.localization_lite.run_lite",
     "models.pipeline_fast.build_paged_frames",
@@ -29,11 +30,15 @@ EXPECTED = {
     "models.session.LocalizerSession",
     "ops.cloud.from_numpy",
     "ops.stochastic_filter.init_state",
+    "ops.voxel_map.voxel_map_init",
+    "ops.voxel_map_sorted.sorted_voxel_map_init",
     "parallel.lio_fleet.fleet_init",
     "parallel.map_shard.shard_p2p_target",
     "utils.convert.sharded_p2p_target_from_numpy",
     "utils.convert.paged_frames_from_numpy",
     "utils.convert.state_from_numpy",
+    "utils.convert.sorted_voxel_map_state_from_numpy",
+    "utils.convert.voxel_map_state_from_numpy",
 }
 
 
