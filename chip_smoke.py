@@ -113,6 +113,33 @@ check exits non-zero:
      a forced rescue ICP on K2, run_chunk_fast on K1). Requires the loaded
      map equal to the finalized one, ATE-RMSE < 0.1 m and zero overflow and
      slack; prints how many cells differ from the host merge's map.
+ 10. the product's entry points: `python -m slam_sensor_fusion_tpu_torch
+     selftest` in a process of its own (ok, K2 launched there); the CLI's
+     `build-map` and `localize` as processes of their own on .npz streams
+     of the selftest world at the map density LocalizationConfig() assumes
+     (96 points a square metre, 24 000-point map scans; map-frame tiles;
+     body scans with every other stream jittered within the 0.1 s slop;
+     LocalizationConfig() defaults:
+     ATE-RMSE < 0.25 m, every frame valid from the 6th, the trajectory
+     file's four arrays); the KITTI-format path at seq-00 scan density (a
+     129-frame fixture of up to 131 072 points a scan at 96 points a square
+     metre, written and loaded through utils/kitti, deskewed with the
+     ground-truth twist, streams from make_sequence_from_scans, a map of
+     every 4th scan through api.build_map, the config from
+     suggest_localization_config on the first 16 scans and bench_loc's at
+     subsample 2): api.localize from the map_data directory twice
+     (ATE-RMSE < 0.1 m, zero overflow and slack, one K1 launch a
+     superblock; scans/s, host staging ms a frame, per-slot scratch, peak
+     device memory, and a third pass's device idle share under the
+     profiler), K1 against its plain version on its first superblock; the
+     LIO block loop at bench_kitti's configuration with
+     suggest_lio_config's capacity and registration subsample, twice
+     (ATE-RMSE < 0.3 m, zero overflow, one K7 launch a block); an autosized
+     hash store (suggest_voxel_map_config) through StreamingMapper on the
+     card (zero dropped and out-of-grid points, one segment sum an
+     insert); Localizer.run's debug branch on the selftest world (poses
+     equal bit for bit to a run without it, its five files, CALLBACK TOOK
+     logged).
 
 Phase 2 also holds K3 against its plain version (fresh and lazy, at the
 session's shapes), the per-frame superblock branch (K3 lazy) against K1 on
@@ -169,6 +196,18 @@ MAP_ORIGIN = (-100.0, -100.0, -10.0)  # bench_map's grid anchor
 RAW_POINTS = 24000  # phase 3's scans and map tiles (bench_loc's BENCH_SCAN_POINTS)
 RECORD_GROUP = 4  # phase 9's recording: frames a StreamingMapper insert (one map tile)
 RECORD_FRAMES = 33  # phase 9: frames localized on the recorded map (1 startup + 4 superblocks)
+#: phase 10: the KITTI-format fixture at seq-00 scan density (131 072
+#: points a scan at most; 96 points a square metre gives 105k-128k), 1
+#: startup frame + 16 superblocks of 8 (bench_kitti runs 256 frames, seq 00
+#: has 4541)
+KITTI_FRAMES = 129
+KITTI_POINTS = 131072
+KITTI_DENSITY = 96.0
+KITTI_EXTENT = 140.0
+KITTI_SAMPLE = 16  # scans autosize samples
+KITTI_MAP_EVERY = 4  # a map tile every 4th frame (bench_kitti_loc)
+SELFTEST_ATE_LIMIT = 0.25  # m: examples_selftest's pass rule
+STREAM_JITTER = 0.03  # s: timestamp jitter of the CLI's streams, within the 0.1 s slop
 ATE_LIMIT = 0.1  # m
 LIO_ATE_LIMIT = 0.3  # m: tests/test_lio.py's bound on the fused LIO backend
 K1_TOL = 3e-4  # poses/priors/state: tests/test_superblock_kernel.py's bound
@@ -847,6 +886,460 @@ def check_segsum(values, seg, U, dev_name):
     return (got - want).abs().max().item(), ms, plain_ms, bnd, lib_ms, int((lib != got).sum())
 
 
+def run_cli(*args, timeout: int = 600):
+    """`python -m slam_sensor_fusion_tpu_torch <args>` in a process of its
+    own, from the checkout: (its last stdout line as JSON, seconds)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "slam_sensor_fusion_tpu_torch", *args],
+                       capture_output=True, text=True, timeout=timeout,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    dt = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"CLI {args[0]} exited {r.returncode}: {r.stdout[-1000:]} {r.stderr[-3000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1]), dt
+
+
+def cli_streams(seq, tiles, odom_pos, gps_rows):
+    """A world (`selftest_world`) as the CLI's RawStreams: the mapping run (its
+    map-frame tiles every 2nd frame, the odometry positions, GPS rows and
+    compass headings) for `build-map`, and the body scans with every other
+    stream's timestamps jittered within the 0.1 s slop (the compass at or
+    before its scan) for `localize`."""
+    from slam_sensor_fusion_tpu_torch.api import RawStreams
+
+    T = len(seq.scans)
+    t = np.arange(T) * 0.1
+    rng = np.random.default_rng(7)
+    empty = np.zeros((0, 3), np.float32)
+    odom_T = np.tile(np.eye(4, dtype=np.float32), (T, 1, 1))
+    odom_T[:, :3, 3] = odom_pos
+    mapping = RawStreams(
+        scan_t=t, scans=[tiles[i // 2] if i % 2 == 0 else empty for i in range(T)],
+        gps_t=t, gps_lat=gps_rows[:, 0], gps_lon=gps_rows[:, 1], gps_alt=gps_rows[:, 2],
+        gps_cov_trace=seq.gps_cov_trace, odom_t=t, odom_T_sensor=odom_T,
+        odom_cov_trace=seq.odom_cov_trace, compass_t=t,
+        compass_heading_deg=90.0 - np.rad2deg(gps_rows[:, 3]),
+    )
+
+    def jitter():
+        return rng.uniform(-STREAM_JITTER, STREAM_JITTER, T)
+
+    replay = RawStreams(
+        scan_t=t, scans=seq.scans, gps_t=t + jitter(), gps_lat=seq.gps_lat,
+        gps_lon=seq.gps_lon, gps_alt=seq.gps_alt, gps_cov_trace=seq.gps_cov_trace,
+        odom_t=t + jitter(), odom_T_sensor=seq.odom_T_sensor,
+        odom_cov_trace=seq.odom_cov_trace, compass_t=t - np.abs(jitter()),
+        compass_heading_deg=90.0 - np.rad2deg(seq.compass_yaw),
+    )
+    return mapping, replay
+
+
+def kitti_world(root: str):
+    """bench.py bench_kitti_loc's data (:1337-1393) at seq-00 density: the
+    fixture written to `root` and loaded through the port's KITTI loader,
+    each scan deskewed with its ground-truth twist (the upstream LIO's
+    contract) and the localization streams synthesized around the scans.
+    Returns (the loaded KittiSequence, the SensorSequence)."""
+    from slam_sensor_fusion_tpu_torch.ops.deskew import deskew_numpy, se3_log_numpy
+    from slam_sensor_fusion_tpu_torch.utils import kitti
+    from slam_sensor_fusion_tpu_torch.utils import synthetic as syn
+
+    kitti.make_synthetic_kitti(root, n_frames=KITTI_FRAMES, max_points=KITTI_POINTS,
+                               extent=KITTI_EXTENT, points_per_m2=KITTI_DENSITY)
+    kseq = kitti.load_sequence(root, "00")
+    scans = [kseq.scans[0]]
+    for i in range(1, len(kseq.scans)):
+        rel = np.linalg.inv(kseq.poses[i - 1]) @ kseq.poses[i]
+        scans.append(deskew_numpy(kseq.scans[i], kitti.azimuth_taus(kseq.scans[i]),
+                                  se3_log_numpy(rel)))
+    return kseq, syn.make_sequence_from_scans(scans, kseq.poses)
+
+
+def kitti_lio_config(scans):
+    """bench.py bench_kitti's configuration on its fixture (:1195-1227,
+    the block driver), with the scan capacity and registration subsample
+    utils/autosize.suggest_lio_config picks for `scans`."""
+    from slam_sensor_fusion_tpu_torch.models.ekf import EKFConfig
+    from slam_sensor_fusion_tpu_torch.models.lio import LIOConfig
+    from slam_sensor_fusion_tpu_torch.ops.point_to_plane import PointToPlaneConfig
+    from slam_sensor_fusion_tpu_torch.utils.autosize import suggest_lio_config
+
+    return suggest_lio_config(scans, base=LIOConfig(
+        window=16, slot_points=4096, refresh_every=16,
+        p2p=PointToPlaneConfig(
+            nn_backend="fused", num_iterations=2, fixed_correspondences=True,
+            reassoc_margin=0.15, tile_src=512, tile_tgt=1024, max_visits=64, assoc_unroll=1,
+        ),
+        anchor_subsample=2, normal_est="cells", normal_voxel=1.2, icp_cov_mode="gn",
+        icp_pos_std=0.3, superstep_slack=0.05, slack_base=0.1,
+        ekf=EKFConfig(init_pos_std=0.1, init_vel_std=0.1),
+    ))
+
+
+def lio_inputs(kseq, cap: int):
+    """bench_kitti's loader contract (:1229-1262): Morton pre-sorted scans
+    padded to `cap` with their azimuth taus riding along, the synthesized
+    IMU, GPS at 0.5 m noise. Returns (scans, masks, taus, gyro, accel, dts,
+    gps)."""
+    from slam_sensor_fusion_tpu_torch.ops.morton import sort_order_numpy
+    from slam_sensor_fusion_tpu_torch.utils import kitti
+
+    T = len(kseq.scans)
+    sp = np.zeros((T, cap, 3), np.float32)
+    sm = np.zeros((T, cap), bool)
+    tp = np.ones((T, cap), np.float32)
+    for i, s in enumerate(kseq.scans):
+        if len(s) > cap:
+            fail(f"KITTI LIO: a scan of {len(s)} points over the capacity {cap}")
+        order = sort_order_numpy(s, isotropic=True)
+        sp[i, :len(s)], sm[i, :len(s)], tp[i, :len(s)] = s[order], True, kitti.azimuth_taus(s)[order]
+    gyro, accel, dts = kitti.synthesize_imu(kseq.poses)
+    gps = (kseq.poses[1:, :3, 3]
+           + np.random.default_rng(3).normal(0, 0.5, (T - 1, 3))).astype(np.float32)
+    return sp, sm, tp, gyro, accel, dts, gps
+
+
+def phase10(dev, tag, name, kernels, record, launches):
+    """The product's entry points (api, CLI, selftest, the KITTI-format
+    loader, autosize, Localizer.run's debug branch) on the card; returns
+    the numbers phase 10 adds to the kernels' record."""
+    import logging
+
+    from slam_sensor_fusion_tpu_torch import api
+    from slam_sensor_fusion_tpu_torch.__main__ import save_streams
+    from slam_sensor_fusion_tpu_torch.examples_selftest import selftest_config, selftest_world
+    from slam_sensor_fusion_tpu_torch.models import lio
+    from slam_sensor_fusion_tpu_torch.models import localization as lz
+    from slam_sensor_fusion_tpu_torch.models import pipeline_fast as pf
+    from slam_sensor_fusion_tpu_torch.models.mapping import StreamingMapper, build_map_data
+    from slam_sensor_fusion_tpu_torch.ops.icp_fused import _icp_plain
+    from slam_sensor_fusion_tpu_torch.ops.superblock_fused import kernel_grid as sb_grid
+    from slam_sensor_fusion_tpu_torch.ops.superblock_fused import (
+        superblock_fine,
+        superblock_fine_plain,
+    )
+    from slam_sensor_fusion_tpu_torch.utils import autosize, profiling
+    from slam_sensor_fusion_tpu_torch.utils import synthetic as syn
+    from slam_sensor_fusion_tpu_torch.utils.config import MappingConfig
+
+    t_phase = time.perf_counter()
+    by_name = dict(zip(("K1", "K2", "K3", "K4", "K5", "K6", "K7", "voxel_segment_sum"), kernels))
+    pair_nn, lio_superblock = by_name["K2"], by_name["K7"]
+    segment_sum_sorted = by_name["voxel_segment_sum"]
+    out = {}
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    # ---- a. the selftest, as a user runs it ----
+    st, st_s = run_cli("selftest")
+    for k, n in st["launches"].items():
+        launches[by_name[k]]["selftest"] = n
+    print(f"selftest (python -m slam_sensor_fusion_tpu_torch selftest): ATE-RMSE "
+          f"{st['ate_rmse_m']} m, {st['frames']} valid frames, ok {st['ok']}, device {st['device']}, "
+          f"{st_s:.1f} s with the process's start; launches {st['launches']} [{tag}]", flush=True)
+    if not (st["ok"] and st["launches"]["K2"] > 0):
+        fail(f"selftest: ok {st['ok']}, K2 launched {st['launches']['K2']} times")
+
+    # ---- b. the CLI: build-map, then localize on jittered streams, each
+    # in a process of its own, LocalizationConfig() defaults ----
+    # the selftest's world at the map density LocalizationConfig() assumes:
+    # walls at 96 points a square metre, not 24, and map scans of 24 000
+    # points, not 6000. The defaults keep every 3rd map point and every
+    # 15th of those for the brute force; on the selftest's own world that
+    # leaves ~120 brute-force points in a crop and the coarse ladder never
+    # succeeds
+    cseq, ctiles, codom, cgps = selftest_world(points_per_m2=96.0, map_scan_points=24000)
+    mapping, replay = cli_streams(cseq, ctiles, codom, cgps)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {k: os.path.join(tmp, f"{k}.npz") for k in ("mapping", "replay", "trajectory")}
+        save_streams(paths["mapping"], mapping)
+        save_streams(paths["replay"], replay)
+        mdir = os.path.join(tmp, "map_data")
+        _, bm_s = run_cli("build-map", "--map-data-path", mdir, "--streams", paths["mapping"])
+        lo, lo_s = run_cli("localize", "--map-data-path", mdir, "--streams", paths["replay"],
+                           "--output", paths["trajectory"])
+        with np.load(paths["trajectory"]) as z:
+            traj = {k: z[k] for k in z.files}
+    for k, n in lo["launches"].items():
+        launches[by_name[k]]["cli_localize"] = n
+    if sorted(traj) != ["icp_error", "icp_iterations", "map_T_sensor", "valid"]:
+        fail(f"CLI localize: the trajectory file holds {sorted(traj)}")
+    v = traj["valid"]
+    c_ate = ate_rmse(traj["map_T_sensor"][v], cseq.true_map_T_sensor[v])
+    print(f"CLI: build-map {bm_s:.1f} s, localize {lo_s:.1f} s (processes with their start; "
+          f"LocalizationConfig() defaults, the full brute-force grid; the selftest world at 96 "
+          f"points a square metre, 24 000-point map scans), {int(v.sum())} valid frames "
+          f"from frame {lo['first_processed_frame']}, ATE-RMSE {c_ate:.4f} m, device "
+          f"{lo['device']}; launches {lo['launches']} [{tag}]", flush=True)
+    if not (c_ate < SELFTEST_ATE_LIMIT and v[5:].all() and np.isfinite(traj["map_T_sensor"]).all()):
+        fail(f"CLI localize: ATE-RMSE {c_ate} (limit {SELFTEST_ATE_LIMIT}), valid {v.astype(int)}")
+    print(f"phase 10 a-b (selftest, CLI): {time.perf_counter() - t_phase:.1f} s [{tag}]", flush=True)
+
+    # ---- c. KITTI-format localization at seq-00 density: the fixture
+    # through the loader, api.build_map, an autosized config, api.localize
+    # from the map_data directory twice ----
+    t0 = time.perf_counter()
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    kseq, kloc = kitti_world(os.path.join(tmp, "kitti"))
+    gen_s = time.perf_counter() - t0
+    T = len(kseq.scans)
+    sizes = np.array([len(s) for s in kseq.scans])
+    poses = kseq.poses
+    empty = np.zeros((0, 3), np.float32)
+    tiles = [(s @ poses[i][:3, :3].T + poses[i][:3, 3]).astype(np.float32)
+             if i % KITTI_MAP_EVERY == 0 else empty for i, s in enumerate(kloc.scans)]
+    odom_pos, gps_rows = syn.make_mapping_logs(kloc)
+    mdir = os.path.join(tmp, "map_data")
+    t1 = time.perf_counter()
+    md = api.build_map(tiles, odom_pos, *gps_rows.T, map_data_path=mdir)
+    build_s = time.perf_counter() - t1
+    cfg = autosize.suggest_localization_config(
+        kloc.scans[:KITTI_SAMPLE], md.map_points, base=bench_config(subsample=2),
+        poses_xyz=poses[:KITTI_SAMPLE, :3, 3],
+    )
+    TM, TN = cfg.icp.tile_src, cfg.icp.tile_tgt
+    nSt, nTt = cfg.capacity.cropped_scan // TM, cfg.capacity.cropped_map // TN
+    max_pairs = nSt * cfg.icp.max_pairs_factor
+    # what K3's wrapper would allocate at this shape (K3 does not run on
+    # this path; K1's and K2's are read from their wrappers below)
+    k3_scratch = max_pairs * TM * 8 + nSt * TM * 16
+    g = sb_grid(nSt, TM, TN)
+    print(f"KITTI fixture: {T} frames, {sizes.min()}-{sizes.max()} points a scan (mean "
+          f"{sizes.mean():.0f}), generated, written, loaded and deskewed in {gen_s:.1f} s; "
+          f"api.build_map of {len(tiles[::KITTI_MAP_EVERY])} map-frame scans {build_s:.1f} s, "
+          f"{md.map_points.shape[0]} map points; autosized: scan {cfg.capacity.scan} "
+          f"({nSt} source tiles of {TM}), cropped map {cfg.capacity.cropped_map} ({nTt} target "
+          f"tiles of {TN}), map {cfg.capacity.map}, max_pairs {max_pairs} "
+          f"(factor {cfg.icp.max_pairs_factor}); K3's per-slot scratch at this shape "
+          f"{k3_scratch} B (computed; K3 does not run here); K1 grid {g['blocks']} blocks of "
+          f"{g['threads']} threads [{tag}]", flush=True)
+    if g["blocks"] < MIN_GRID_BLOCKS:
+        fail(f"K1 at {nSt} x {TM}: a grid of {g['blocks']} blocks")
+
+    blocks, staging, first_k1 = [], [], []
+    inner = (pf.run_chunk_fast, pf.build_paged_frames, pf.superblock_fine)
+
+    def run_chunk_fast(state, frames, map_cloud, config):
+        st_, outs = inner[0](state, frames, map_cloud, config)
+        blocks.append((frames.valid.shape[0] // config.superstep, outs.pair_overflow.sum(),
+                       outs.slack_violation.sum(), outs.pair_demand.max()))
+        return st_, outs
+
+    def build_paged_frames(*a, **kw):
+        t = time.perf_counter()
+        r = inner[1](*a, **kw)
+        staging.append(time.perf_counter() - t)
+        return r
+
+    def superblock(*a):
+        if not first_k1:
+            first_k1.append(tuple(x.clone() if isinstance(x, torch.Tensor) else x for x in a))
+        return inner[2](*a)
+
+    loc_args = dict(
+        scans=kloc.scans, odom_T_sensor=kloc.odom_T_sensor, gps_lat=kloc.gps_lat,
+        gps_lon=kloc.gps_lon, gps_alt=kloc.gps_alt, compass_yaw=kloc.compass_yaw,
+        odom_cov_trace=kloc.odom_cov_trace, gps_cov_trace=kloc.gps_cov_trace,
+        map_data_path=mdir, config=cfg, device=dev,
+    )
+    zero_counts(*kernels)
+    superblock_fine.scratch_bytes = pair_nn.scratch_bytes = 0
+    torch.cuda.reset_peak_memory_stats()
+    pf.run_chunk_fast, pf.build_paged_frames, pf.superblock_fine = (
+        run_chunk_fast, build_paged_frames, superblock)
+    try:
+        for p in range(2):
+            blocks.clear()
+            staging.clear()
+            before = superblock_fine.launches
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res = api.localize(**loc_args)
+            loc_s = time.perf_counter() - t1
+            launched = superblock_fine.launches - before
+            n_blocks = sum(b[0] for b in blocks)
+            n_ovf = sum(int(b[1]) for b in blocks)
+            n_slack = sum(int(b[2]) for b in blocks)
+            demand = max(int(b[3]) for b in blocks)
+            v = res.valid
+            k_ate = ate_rmse(res.map_T_sensor[v], kloc.true_map_T_sensor[v])
+            host_ms = 1e3 * sum(staging) / (n_blocks * cfg.superstep)
+            print(f"KITTI localize pass {p} (api.localize from map_data): {T} frames {loc_s:.3f} s "
+                  f"= {T / loc_s:.1f} scans/s with the map load and startup, {int(v.sum())} valid "
+                  f"from frame {res.first_processed_frame}, ATE-RMSE {k_ate:.4f} m, pair-overflow "
+                  f"frames {n_ovf}, slack-violations {n_slack}, pair demand max {demand} of "
+                  f"{max_pairs} slots, K1 launches {launched} for {n_blocks} "
+                  f"superblocks, host staging (build_paged_frames) {host_ms:.2f} ms a frame "
+                  f"[{tag}]", flush=True)
+            if launched != n_blocks:
+                fail(f"KITTI localize: K1 launched {launched} times for {n_blocks} superblocks")
+            if n_ovf or n_slack:
+                fail(f"KITTI localize: pair overflow on {n_ovf} frames, slack violated on {n_slack}")
+            if not (np.isfinite(res.map_T_sensor).all() and v[2:].all()):
+                fail(f"KITTI localize: valid {v.astype(int)}, or a non-finite pose")
+            if not k_ate < ATE_LIMIT:
+                fail(f"KITTI localize: ATE-RMSE {k_ate} >= {ATE_LIMIT}")
+        record("kitti_localize")
+        peak = torch.cuda.max_memory_allocated()
+        # the per-slot scratch K1's and K2's wrappers allocated (K2: the
+        # rescue ICP's pair list)
+        scratch = {"K1": superblock_fine.scratch_bytes, "K2": pair_nn.scratch_bytes}
+        # a third pass under the profiler, timed by itself: its device
+        # operations' time against its own wall time
+        trace_dir = os.path.join(tmp, "trace")
+        with profiling.trace(trace_dir):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            api.localize(**loc_args)
+            torch.cuda.synchronize()
+            prof_s = time.perf_counter() - t1
+    finally:
+        pf.run_chunk_fast, pf.build_paged_frames, pf.superblock_fine = inner
+    on_dev = profiling.summarize_trace(trace_dir, top=sys.maxsize)
+    busy = sum(ms for _, ms, _ in on_dev)
+    k1_dev = sum(ms for op, ms, _ in on_dev if "superblock_kernel" in op)
+    idle = f"{100 - 100 * busy / (prof_s * 1e3):.1f}%" if busy > 0 else "not measured"
+    print(f"KITTI localize: peak device memory {peak} B (max_memory_allocated over both passes); "
+          f"per-slot scratch allocated: K1 {scratch['K1']} B, K2 {scratch['K2']} B; a third "
+          f"pass under the profiler (utils/profiling.trace): device busy {busy:.1f} ms of its "
+          f"{prof_s * 1e3:.1f} ms (idle {idle}), K1 {k1_dev:.1f} ms [{tag}]", flush=True)
+    out.update(kitti_scans_s=T / loc_s, kitti_host_ms=host_ms, kitti_idle=idle,
+               kitti_peak_bytes=peak, kitti_scratch=scratch, kitti_tiles=(nSt, TM, nTt, TN),
+               kitti_ate=k_ate)
+
+    # K1 at this shape against its plain version: the first superblock
+    _icp_plain.pairs_visited = 0
+    out["k1_err"] = check_k1(first_k1[0], name)
+    pairs = _icp_plain.pairs_visited
+    out["k1_ms"] = time_ms(lambda: superblock_fine(*first_k1[0]), 3)
+    out["k1_plain_ms"] = time_ms(lambda: superblock_fine_plain(*first_k1[0]), 1)
+    out["k1_bound"] = bound(
+        pairs * TM * TN * FLOP_PER_DISTANCE,
+        nbytes(*[a for a in first_k1[0] if isinstance(a, torch.Tensor)])
+        + nbytes(*superblock_fine(*first_k1[0])),
+    )
+    print(f"K1 at {nSt} x {TM} (KITTI, first superblock): {out['k1_ms']:.3f} ms (plain "
+          f"{out['k1_plain_ms']:.3f}), bound {out['k1_bound'][0]:.4f} ms ({out['k1_bound'][1]}), "
+          f"{pairs} tile pairs visited [{tag}]", flush=True)
+    print(f"phase 10 c (KITTI localization): {time.perf_counter() - t0:.1f} s [{tag}]", flush=True)
+
+    # ---- d. KITTI-format LIO at the same density (bench_kitti's block
+    # driver, autosized capacity and registration subsample) ----
+    t0 = time.perf_counter()
+    kcfg = kitti_lio_config(kseq.scans)
+    sp, sm, tp, gyro, accel, dts, gps = lio_inputs(kseq, kcfg.scan_capacity)
+    Tl = T - 1
+    state0 = lio.init_state(kcfg, up(sp[0]), up(sm[0]), up(poses[0].astype(np.float32)))
+    v0 = ((poses[1, :3, 3] - poses[0, :3, 3]) / 0.1).astype(np.float32)
+    state0 = state0._replace(ekf_state=state0.ekf_state._replace(v=up(v0)))
+    arrays = [up(a) for a in (sp[1:], sm[1:], gyro, accel, dts, gps,
+                              np.full(Tl, 0.5**2, np.float32), np.ones(Tl, bool))]
+    tau = up(tp[1:])
+    prep_s = time.perf_counter() - t0
+    n_blk = -(-Tl // kcfg.refresh_every)
+    zero_counts(*kernels)
+    for p in range(2):
+        before = lio_superblock.launches
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, lout = lio.run_lio_superblocks(state0, *arrays, kcfg, scan_tau=tau)
+        torch.cuda.synchronize()
+        lio_s = time.perf_counter() - t1
+        launched = lio_superblock.launches - before
+        est = lout.world_T_body.cpu().numpy()
+        l_ate = ate_rmse(est, poses[1:])
+        n_ovf = int(lout.pair_overflow.sum())
+        print(f"KITTI LIO pass {p} (run_lio_superblocks): {Tl} frames {lio_s:.3f} s = "
+              f"{Tl / lio_s:.1f} scans/s, ATE-RMSE {l_ate:.4f} m, pair overflow {n_ovf}, n_corr "
+              f"mean {lout.n_correspondences.float().mean().item():.0f}, K7 launches {launched}; "
+              f"scan capacity {kcfg.scan_capacity}, registration subsample {kcfg.reg_subsample} "
+              f"({kcfg.scan_capacity // kcfg.reg_subsample // kcfg.p2p.tile_src} source "
+              f"tiles of {kcfg.p2p.tile_src}) [{tag}]", flush=True)
+        if launched != n_blk:
+            fail(f"KITTI LIO: K7 launched {launched} times for {n_blk} blocks")
+        if n_ovf:
+            fail(f"KITTI LIO: pair overflow on {n_ovf} frames")
+        if not np.isfinite(est).all():
+            fail("KITTI LIO: non-finite pose")
+        if not l_ate < LIO_ATE_LIMIT:
+            fail(f"KITTI LIO: ATE-RMSE {l_ate} >= {LIO_ATE_LIMIT}")
+    record("kitti_lio")
+    out.update(lio_scans_s=Tl / lio_s, lio_ate=l_ate)
+    del arrays, tau
+    print(f"phase 10 d (KITTI LIO): {time.perf_counter() - t0:.1f} s (host inputs {prep_s:.1f} s) "
+          f"[{tag}]", flush=True)
+
+    # ---- e. the autosized device map store over the map-frame scans ----
+    t0 = time.perf_counter()
+    mframes = [i for i, tl_ in enumerate(tiles) if len(tl_)]
+    vox = MappingConfig().map_voxel_size
+    vcfg, origin = autosize.suggest_voxel_map_config([tiles[i] for i in mframes], vox)
+    cap = 1 << int(np.ceil(np.log2(max(len(tiles[i]) for i in mframes))))
+    zero_counts(*kernels)
+    mapper = StreamingMapper(MappingConfig(), device_origin=origin, device_config=vcfg,
+                             device_scan_capacity=cap, device=dev)
+    for i in mframes:
+        mapper.add_frame(tiles[i], odom_pos[i], *gps_rows[i])
+    try:
+        dmd = mapper.finalize(use_device=True)
+    except ValueError as e:  # the store counted dropped or out-of-grid points
+        fail(f"KITTI map store: {e}")
+    torch.cuda.synchronize()
+    record("kitti_map")
+    n_seg = launches[segment_sum_sorted]["kitti_map"]
+    print(f"KITTI map store (autosized hash store: {vcfg.table_size} slots, {vcfg.dim_xy} x "
+          f"{vcfg.dim_xy} x {vcfg.dim_z} cells, unique_capacity {vcfg.unique_capacity}): "
+          f"{len(mframes)} inserts of up to {cap} points, dropped 0, out of grid 0 (finalize reads "
+          f"both), {dmd.map_points.shape[0]} cells against the host merge's "
+          f"{md.map_points.shape[0]}, voxel_segment_sum launches {n_seg}, "
+          f"{time.perf_counter() - t0:.1f} s [{tag}]", flush=True)
+    if n_seg != len(mframes):
+        fail(f"KITTI map store: voxel_segment_sum launched {n_seg} times for {len(mframes)} inserts")
+    tmp_dir.cleanup()
+
+    # ---- f. Localizer.run's debug branch over the selftest world ----
+    t0 = time.perf_counter()
+    sseq, stiles, sodom, sgps = selftest_world()
+    smd = build_map_data(stiles, sodom, sgps)
+    run_args = (sseq.scans, sseq.odom_T_sensor, sseq.gps_lat, sseq.gps_lon, sseq.gps_alt,
+                sseq.compass_yaw, sseq.odom_cov_trace, sseq.gps_cov_trace)
+    zero_counts(*kernels)
+    want = lz.Localizer(smd, selftest_config(), dev).run(*run_args)
+    msgs = []
+    handler = logging.Handler()
+    handler.emit = lambda r: msgs.append(r.getMessage())
+    logger = logging.getLogger("slam_sensor_fusion_tpu_torch")
+    level = logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        with tempfile.TemporaryDirectory() as ddir:
+            got = lz.Localizer(smd, dataclasses.replace(selftest_config(), enable_debug=True),
+                               dev).run(*run_args, debug_dir=ddir)
+            files = {f: os.path.getsize(os.path.join(ddir, f)) for f in os.listdir(ddir)}
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    record("debug")
+    for f in dataclasses.fields(want):
+        if not np.array_equal(getattr(got, f.name), getattr(want, f.name)):
+            fail(f"debug branch: {f.name} differs from the run without debug")
+    need = ("cropped_scan_map_frame.ply", "cropped_map.ply", "map.ply", "trajectory.svg",
+            "viewer.html")
+    if not all(files.get(f, 0) > 0 for f in need):
+        fail(f"debug branch: files {files}")
+    if not any("CALLBACK TOOK" in m for m in msgs):
+        fail(f"debug branch: no CALLBACK TOOK in the log {msgs}")
+    print(f"debug branch (Localizer.run, enable_debug, selftest world): poses and outputs equal bit "
+          f"for bit to the run without debug, files {files}, log "
+          f"{[m.splitlines()[0] for m in msgs]}, {time.perf_counter() - t0:.1f} s [{tag}]",
+          flush=True)
+    print(f"phase 10 entry points: {time.perf_counter() - t_phase:.1f} s [{tag}]", flush=True)
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # ---- 0. the device ----
@@ -1068,7 +1561,9 @@ def main() -> None:
         _icp_plain.pairs_visited = 0
         w = dict(cfg=wcfg, seq=wseq, loc=wloc, gps=wgps, state=wstate, frames=wframes,
                  k1_err=check_k1(wargs, name), k1_pairs=_icp_plain.pairs_visited)
+        superblock_fine.scratch_bytes = 0
         w["k1_ms"] = time_ms(lambda: superblock_fine(*wargs), 3)
+        w["scratch_mib"] = superblock_fine.scratch_bytes / 2**20
         w["k1_plain_ms"] = time_ms(lambda: superblock_fine_plain(*wargs), 1)
         TMw, TNw = wblk.src_pages.shape[-1], wpro.cached_target.pages.shape[-1]
         w["k1_bound"] = bound(
@@ -1077,7 +1572,6 @@ def main() -> None:
             + nbytes(*superblock_fine(*wargs)),
         )
         w["prologue_ms"] = time_ms(lambda: pf.superstep_prologue(wstate, wblk, wloc.map_cloud, wcfg), 3)
-        w["scratch_mib"] = wpro.pair_tgt.shape[1] * 4 * TMw * 4 / 2**20
         print(f"K1 at {label}: {w['k1_ms']:.3f} ms/superblock (plain {w['k1_plain_ms']:.3f}), bound "
               f"{w['k1_bound'][0]:.4f} ms ({w['k1_bound'][1]}), {w['k1_pairs']} tile pairs visited, "
               f"pair demand {wpro.demand.tolist()} of {wpro.pair_tgt.shape[1]} slots, per-slot scratch "
@@ -1989,6 +2483,10 @@ def main() -> None:
           f"{map_ms['hash']['frames_s']:.1f}; ms an insert sorted {map_ms['sorted']['flush_ms']:.3f}, "
           f"hash {map_ms['hash']['flush_ms']:.3f} [{tag}]", flush=True)
 
+    # ---- 10. the product's entry points: selftest, CLI, the KITTI-format
+    # path at seq-00 density (localization, LIO, map store), debug branch ----
+    p10 = phase10(dev, tag, name, kernels, record, launches)
+
     for kernel in kernels:
         if not sum(launches[kernel].values()):
             fail(f"{kernel.__name__} never launched on a main path")
@@ -2007,8 +2505,12 @@ def main() -> None:
         row(superblock_fine, "K1 superblock_fine",
             "slam_sensor_fusion_tpu_torch/csrc/superblock_fused.cu",
             "slam_sensor_fusion_tpu/ops/superblock_fused.py:105",
-            max([k1_err] + [w["k1_err"] for w in wide.values()]), k1_ms, k1_plain_ms, k1_bound,
-            ms_steady_superblock=k1_steady_ms, grid=grids["K1"],
+            max([k1_err, p10["k1_err"]] + [w["k1_err"] for w in wide.values()]), k1_ms,
+            k1_plain_ms, k1_bound, ms_steady_superblock=k1_steady_ms, grid=grids["K1"],
+            ms_kitti=p10["k1_ms"], plain_ms_kitti=p10["k1_plain_ms"],
+            bound_ms_kitti=p10["k1_bound"][0], scratch_bytes_kitti=p10["kitti_scratch"]["K1"],
+            tiles_kitti=p10["kitti_tiles"], kitti_scans_s=p10["kitti_scans_s"],
+            kitti_idle=p10["kitti_idle"],
             **{f"{key}_{label}": val for label, w in wide.items() for key, val in [
                 ("ms", w["k1_ms"]), ("plain_ms", w["k1_plain_ms"]),
                 ("bound_ms", w["k1_bound"][0]), ("ms_steady_superblock", w["k1_steady_ms"]),
@@ -2019,6 +2521,7 @@ def main() -> None:
             k2_plain_ms, k2_bound, ms_16x4096=x["k2_ms"], plain_ms_16x4096=x["k2_plain_ms"],
             bound_ms_16x4096=x["k2_bound"][0], device_ms=k2_device_ms,
             device_ms_16x4096=x["k2_device_ms"], grid=grids["K2 scan"],
+            scratch_bytes_kitti=p10["kitti_scratch"]["K2"],
             grid_16x4096=grids["K2 scan 16x4096"]),
         row(_fused_core, "K3 icp_fused", "slam_sensor_fusion_tpu_torch/csrc/icp_fused.cu",
             "slam_sensor_fusion_tpu/ops/icp_fused.py:131",
@@ -2046,7 +2549,7 @@ def main() -> None:
         row(lio_superblock, "K7 lio_superblock",
             "slam_sensor_fusion_tpu_torch/csrc/lio_superblock_fused.cu",
             "slam_sensor_fusion_tpu/ops/lio_superblock_fused.py:196", k7_err, k7_ms, k7_plain_ms,
-            k7_bound, grid=grids["K7"]),
+            k7_bound, grid=grids["K7"], kitti_lio_scans_s=p10["lio_scans_s"]),
         row(segment_sum_sorted, "voxel_segment_sum",
             "slam_sensor_fusion_tpu_torch/csrc/voxel_segsum.cu",
             "none: XLA scatter-add, slam_sensor_fusion_tpu/ops/voxel_map_sorted.py:178 and "

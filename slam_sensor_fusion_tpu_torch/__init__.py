@@ -8,10 +8,20 @@ C++ for `sm_90a` under `csrc/`, built with `nvcc` at first use
 for CPU tensors and that the tests and `chip_smoke.py` compare against.
 
 Layout mirrors the JAX package, with the same module and function names:
+  api.py    build_map / localize / localize_streams, the product's entry
+            points; __main__.py the CLI (localize, build-map, selftest);
+            examples_selftest.py the synthetic end-to-end selftest
   ops/      geometry, cloud ops, Morton tiles, pair lists, K2 (nn_pallas),
-            K1 (superblock_fused), stochastic filter, brute force, ICP
-  models/   host map build, localization startup, superblock pipeline
-  utils/    config tree, synthetic world, state conversion from the JAX
+            K1 (superblock_fused), K3 (icp_fused), K4-K6 (p2p_fused), K7
+            (lio_superblock_fused), stochastic filter, brute force, ICP,
+            point-to-plane GN, deskew, the device voxel stores and their
+            segment sum (voxel_segsum)
+  models/   host map build and StreamingMapper, localization (startup,
+            per-frame engine, Localizer.run and its debug branch), the
+            superblock pipeline, the EKF and LIO loops, online sessions
+  parallel/ the LIO fleet and the map-sharded registration on one card
+  utils/    config tree, synthetic world, KITTI loader, autosize, map_data
+            I/O, profiling, viz, roofline, state conversion from the JAX
             package's arrays
   csrc/     the CUDA sources of the kernels
 

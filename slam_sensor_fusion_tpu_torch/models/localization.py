@@ -28,7 +28,10 @@ one sync each, where the JAX package used `lax.cond` or a select.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import logging
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -48,6 +51,8 @@ from slam_sensor_fusion_tpu_torch.ops.icp_fused import (
     icp_align_fused,
 )
 from slam_sensor_fusion_tpu_torch.utils.config import LocalizationConfig
+
+_log = logging.getLogger("slam_sensor_fusion_tpu_torch")
 
 
 class FrameBatch(NamedTuple):
@@ -515,6 +520,7 @@ class Localizer:
         odom_cov_trace: np.ndarray,
         gps_cov_trace: np.ndarray,
         chunk: int = 64,
+        debug_dir: str | None = None,
     ) -> LocalizationResult:
         """Replay a full sequence: startup gating and the coarse ladder per
         frame (like the reference's per-callback retries), then the steady
@@ -522,11 +528,22 @@ class Localizer:
         (pipeline_fast.run_chunk_fast) in fast mode or with
         superblock_parity, else per frame (`run_chunk`).
 
-        The JAX package's `enable_debug` branch (callback timing logs and
-        debug cloud export) is not ported yet: it raises."""
+        With ``config.enable_debug`` this mirrors the reference node's
+        debug branch (localization_node.cpp:348-373): wall-clock "CALLBACK
+        TOOK" logs per chunk (StageTimer), and — when ``debug_dir`` is
+        given — per-chunk export of the transformed cropped scan and the
+        current cropped map (the two debug cloud topics, :354-372) plus a
+        refreshed map/trajectory artifact (the Python twin's 5-second map
+        republish, localization_node.py:96,174-183). Debug output reads
+        results back; it changes none of them."""
         cfg = self.config
+        timer = None
         if cfg.enable_debug:
-            raise NotImplementedError("Localizer.run: enable_debug is not ported yet")
+            from slam_sensor_fusion_tpu_torch.utils.profiling import StageTimer
+
+            timer = StageTimer()
+            if debug_dir is not None:
+                os.makedirs(debug_dir, exist_ok=True)
         T = len(scans)
         valid = np.asarray(gps_alt) >= 0
         gps_T = self.gps_poses(gps_lat, gps_lon, compass_yaw)
@@ -597,34 +614,113 @@ class Localizer:
         while i < T:
             j = min(i + chunk, T)
             n = j - i
-            if use_fast:
-                # pad the tail to whole superblocks with invalid no-op frames
-                pad = (-n) % cfg.superstep
+            # the chunk's wall clock: the reads of its outputs end it
+            with timer.stage("chunk") if timer is not None else contextlib.nullcontext():
+                if use_fast:
+                    # pad the tail to whole superblocks with invalid no-op frames
+                    pad = (-n) % cfg.superstep
 
-                def padded(a):
-                    a = np.asarray(a)
-                    return np.concatenate([a[i:j]] + [a[i : i + 1]] * pad)
+                    def padded(a):
+                        a = np.asarray(a)
+                        return np.concatenate([a[i:j]] + [a[i : i + 1]] * pad)
 
-                frames = build_paged_frames(
-                    cfg, scans[i:j] + [scans[i]] * pad, padded(odom_T_sensor),
-                    padded(gps_T), padded(odom_cov_trace), padded(gps_cov_trace),
-                    np.concatenate([valid[i:j], np.zeros(pad, bool)]), self.device,
+                    frames = build_paged_frames(
+                        cfg, scans[i:j] + [scans[i]] * pad, padded(odom_T_sensor),
+                        padded(gps_T), padded(odom_cov_trace), padded(gps_cov_trace),
+                        np.concatenate([valid[i:j], np.zeros(pad, bool)]), self.device,
+                    )
+                    state, outs = run_chunk_fast(state, frames, self.map_cloud, cfg)
+                else:
+                    frames = build_frame_batch(
+                        cfg, scans[i:j], odom_T_sensor[i:j], gps_T[i:j],
+                        odom_cov_trace[i:j], gps_cov_trace[i:j], valid[i:j], self.device,
+                    )
+                    state, outs = run_chunk(state, frames, self.map_cloud, cfg)
+                out_valid[i:j] = frames.valid.cpu().numpy()[:n]
+                out_T[i:j] = outs.map_T_sensor.cpu().numpy()[:n]
+                out_err[i:j] = outs.icp_error.cpu().numpy()[:n]
+                out_iters[i:j] = outs.icp_iterations.cpu().numpy()[:n]
+                out_conv[i:j] = outs.icp_converged.cpu().numpy()[:n]
+                out_ncorr[i:j] = outs.n_correspondences.cpu().numpy()[:n]
+            if timer is not None:
+                # the reference's "CALLBACK TOOK %f seconds" debug log
+                # (localization_node.cpp:350-353), amortized per frame
+                elapsed = timer.last
+                _log.info(
+                    "CALLBACK TOOK %f seconds (chunk of %d frames: %.3fs)",
+                    elapsed / max(n, 1), n, elapsed,
                 )
-                state, outs = run_chunk_fast(state, frames, self.map_cloud, cfg)
-            else:
-                frames = build_frame_batch(
-                    cfg, scans[i:j], odom_T_sensor[i:j], gps_T[i:j],
-                    odom_cov_trace[i:j], gps_cov_trace[i:j], valid[i:j], self.device,
-                )
-                state, outs = run_chunk(state, frames, self.map_cloud, cfg)
-            out_valid[i:j] = frames.valid.cpu().numpy()[:n]
-            out_T[i:j] = outs.map_T_sensor.cpu().numpy()[:n]
-            out_err[i:j] = outs.icp_error.cpu().numpy()[:n]
-            out_iters[i:j] = outs.icp_iterations.cpu().numpy()[:n]
-            out_conv[i:j] = outs.icp_converged.cpu().numpy()[:n]
-            out_ncorr[i:j] = outs.n_correspondences.cpu().numpy()[:n]
+                if outs.icp_error_trace is not None:
+                    # the reference's per-iteration printStepDebug lines
+                    # (icp_point_to_point.cpp:171-183)
+                    for f, tr in enumerate(outs.icp_error_trace.cpu().numpy()[:n]):
+                        for it, e in enumerate(tr):
+                            if np.isnan(e):
+                                break
+                            _log.info(
+                                "[ICP INFO] frame %d iteration %d - Error: %f",
+                                i + f, it, float(e),
+                            )
+                if debug_dir is not None:
+                    self._emit_debug(debug_dir, state, scans, out_T, i, j)
             i = j
+
+        if timer is not None:
+            _log.info("debug timing report:\n%s", timer.report())
         return LocalizationResult(out_T, out_valid, out_err, out_iters, out_conv, out_ncorr, first)
+
+    def _emit_debug(
+        self,
+        debug_dir: str,
+        state: PipelineState,
+        scans: list[np.ndarray],
+        out_T: np.ndarray,
+        i: int,
+        j: int,
+    ) -> None:
+        """Debug cloud republication, offline equivalent of the reference's
+        enable_debug branch: the cropped scan transformed into the map frame
+        and the current cropped map (localization_node.cpp:354-372, the map
+        copied back from the card), plus a refreshed map + trajectory
+        artifact standing in for the Python twin's 5-second map republish
+        timer (localization_node.py:96,174-183)."""
+        from slam_sensor_fusion_tpu_torch.utils import viz
+
+        cfg = self.config
+        k = j - 1  # last frame of the chunk
+        sc = np.asarray(scans[k], np.float32).reshape(-1, 3)
+        if cfg.scan_subsample_step > 1 and len(sc) >= cfg.scan_subsample_step:
+            sc = sc[:: cfg.scan_subsample_step]
+        keep = np.linalg.norm(sc, axis=1) <= cfg.cloud_crop_radius
+        T_k = out_T[k]
+        scan_map = sc[keep] @ T_k[:3, :3].T + T_k[:3, 3]
+        viz.write_ply(
+            os.path.join(debug_dir, "cropped_scan_map_frame.ply"),
+            scan_map,
+            color=(255, 80, 40),
+        )
+        cm_pts = state.cropped_map.points.cpu().numpy()
+        cm_msk = state.cropped_map.mask.cpu().numpy()
+        viz.write_ply(
+            os.path.join(debug_dir, "cropped_map.ply"),
+            cm_pts[cm_msk],
+            color=(120, 160, 255),
+        )
+        map_path = os.path.join(debug_dir, "map.ply")
+        if not os.path.exists(map_path):
+            viz.write_ply(map_path, self.map_data.map_points)
+        viz.plot_topdown(
+            os.path.join(debug_dir, "trajectory.svg"),
+            out_T[:j],
+            map_points=self.map_data.map_points,
+        )
+        # interactive replay viewer (rviz-config equivalent, SURVEY C15)
+        viz.write_html_viewer(
+            os.path.join(debug_dir, "viewer.html"),
+            map_points=self.map_data.map_points,
+            est_poses=out_T[:j],
+            scan_points=scan_map,
+        )
 
     @staticmethod
     def _record(out: StepOutput, i, out_T, out_valid, out_err, out_iters, out_conv, out_ncorr):

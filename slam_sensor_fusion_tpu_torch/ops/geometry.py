@@ -49,6 +49,74 @@ def transform_points(T: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     return torch.einsum("...ij,...nj->...ni", R, points) + t[..., None, :]
 
 
+def quat_to_R(q: torch.Tensor) -> torch.Tensor:
+    """(w, x, y, z) quaternion(s) to rotation matrix, normalizing first.
+
+    Same math Eigen::Quaternionf::toRotationMatrix performs for the
+    odometry messages (localization_node.cpp:94-102).
+    """
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack(
+        [
+            torch.stack(
+                [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], dim=-1
+            ),
+            torch.stack(
+                [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], dim=-1
+            ),
+            torch.stack(
+                [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], dim=-1
+            ),
+        ],
+        dim=-2,
+    )
+
+
+def R_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix to (w, x, y, z) quaternion, branch-free.
+
+    Uses the four-hypothesis construction (one per largest diagonal
+    candidate) and selects the numerically safest; the first of equal
+    scores wins, as in the JAX package.
+    """
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def root(a):
+        return torch.sqrt(torch.clamp(a, min=1e-12)) * 2.0
+
+    s0 = root(tr + 1.0)
+    q0 = torch.stack([0.25 * s0, (m21 - m12) / s0, (m02 - m20) / s0, (m10 - m01) / s0], dim=-1)
+    s1 = root(1.0 + m00 - m11 - m22)
+    q1 = torch.stack([(m21 - m12) / s1, 0.25 * s1, (m01 + m10) / s1, (m02 + m20) / s1], dim=-1)
+    s2 = root(1.0 + m11 - m00 - m22)
+    q2 = torch.stack([(m02 - m20) / s2, (m01 + m10) / s2, 0.25 * s2, (m12 + m21) / s2], dim=-1)
+    s3 = root(1.0 + m22 - m00 - m11)
+    q3 = torch.stack([(m10 - m01) / s3, (m02 + m20) / s3, (m12 + m21) / s3, 0.25 * s3], dim=-1)
+
+    cands = torch.stack([q0, q1, q2, q3], dim=-2)
+    scores = torch.stack([tr, m00 - m11 - m22, m11 - m00 - m22, m22 - m00 - m11], dim=-1)
+    idx = torch.argmax(scores, dim=-1)
+    q = torch.take_along_dim(cands, idx[..., None, None].expand(*idx.shape, 1, 4), dim=-2)[..., 0, :]
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def wrap_pi(angle: torch.Tensor) -> torch.Tensor:
+    """Wrap angle(s) to [-pi, pi)."""
+    return torch.remainder(angle + torch.pi, 2 * torch.pi) - torch.pi
+
+
+def compass_heading_to_yaw(heading_deg: torch.Tensor) -> torch.Tensor:
+    """ArduPilot compass heading (deg, CW positive) -> ENU yaw (rad).
+
+    Mirrors localization_node.cpp:66-77 / map_data_save_node.cpp:38-50.
+    """
+    return wrap_pi(torch.deg2rad(90.0 - heading_deg))
+
+
 def skew(v: torch.Tensor) -> torch.Tensor:
     """Skew-symmetric matrix [v]x of (..., 3) vectors."""
     x, y, z = v[..., 0], v[..., 1], v[..., 2]

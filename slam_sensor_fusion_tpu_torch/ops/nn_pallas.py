@@ -173,12 +173,16 @@ def pair_nn(
     )
     cuda_lib.check(err, "pair_nn")
     pair_nn.launches += 1
+    pair_nn.scratch_bytes = max(pair_nn.scratch_bytes, slot_d2.nbytes + slot_row.nbytes)
     return d2, idx, xyz
 
 
 #: calls of `pair_nn` that launched K2 (CUDA tensors only): one a call,
 #: though K2 is two launches (the scan and the combine)
 pair_nn.launches = 0
+#: the largest per-slot scratch (bytes, slot_d2 and slot_row) a launch has
+#: allocated since this was last set to 0
+pair_nn.scratch_bytes = 0
 
 
 def kernel_grid(tile_src: int, max_pairs: int) -> dict:

@@ -316,6 +316,7 @@ def _superblock_fine(*inputs, global_layout: bool = False):
     )
     cuda_lib.check(err, "superblock_fine")
     superblock_fine.launches += 1
+    superblock_fine.scratch_bytes = max(superblock_fine.scratch_bytes, scratch.nbytes)
     return (
         poses,
         priors,
@@ -331,6 +332,9 @@ def _superblock_fine(*inputs, global_layout: bool = False):
 
 #: kernel launches made by `superblock_fine` (CUDA tensors only)
 superblock_fine.launches = 0
+#: the largest per-slot scratch (bytes) a launch has allocated since this
+#: was last set to 0
+superblock_fine.scratch_bytes = 0
 
 
 def kernel_grid(n_src_tiles: int, tile_src: int, tile_tgt: int) -> dict:

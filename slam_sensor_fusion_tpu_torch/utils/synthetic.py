@@ -327,6 +327,73 @@ def make_sequence(
     )
 
 
+def make_sequence_from_scans(
+    scans: list[np.ndarray],
+    poses: np.ndarray,
+    seed: int = 0,
+    odom_drift: float = 0.0008,
+    gps_noise_m: float = 0.6,
+    datum_yaw: float = 0.35,
+) -> SensorSequence:
+    """Synthesize the sensor streams around EXTERNAL scans + ground truth.
+
+    The KITTI-format path: the odometry benchmark ships scans and poses
+    but none of the streams the localization product consumes
+    (localization_node.cpp:80-84 — upstream LIO odometry, GPS NavSatFix,
+    compass heading), so this derives them from the ground-truth poses
+    exactly like `make_sequence` does for fully synthetic runs: drifting
+    LIO odometry (relative GT motion composed with noise), GPS fixes
+    whose UTM round-trip lands near the true position, and an ENU
+    compass yaw with the datum offset.
+    """
+    rng = np.random.default_rng(seed)
+    poses = np.asarray(poses, np.float64)
+    n_frames = len(poses)
+    if len(scans) != n_frames:
+        raise ValueError(f"{len(scans)} scans for {n_frames} poses")
+
+    e0, n0 = ll_to_utm(DATUM_LAT, DATUM_LON)
+    global_T_map = np.eye(4)
+    global_T_map[:3, :3] = _rot_z(datum_yaw)
+    global_T_map[:3, 3] = [e0, n0, 412.0]
+
+    odom = np.zeros((n_frames, 4, 4), np.float64)
+    lat = np.zeros(n_frames)
+    lon = np.zeros(n_frames)
+    alt = np.zeros(n_frames)
+    compass = np.zeros(n_frames)
+    odom_T = np.eye(4)
+    for i in range(n_frames):
+        if i > 0:
+            rel = np.linalg.inv(poses[i - 1]) @ poses[i]
+            dyaw = rng.normal(0, odom_drift)
+            noise_T = np.eye(4)
+            noise_T[:3, :3] = _rot_z(dyaw)
+            noise_T[:3, 3] = rng.normal(0, odom_drift * 10, 3)
+            odom_T = odom_T @ rel @ noise_T
+        odom[i] = odom_T
+
+        noisy_t = poses[i][:3, 3] + rng.normal(0, gps_noise_m, 3)
+        lat[i], lon[i], alt[i] = _gps_from_map_pose(noisy_t, global_T_map)
+        map_yaw = np.arctan2(poses[i][1, 0], poses[i][0, 0])
+        compass[i] = np.mod(
+            datum_yaw + map_yaw + rng.normal(0, 0.01) + np.pi, 2 * np.pi
+        ) - np.pi
+
+    return SensorSequence(
+        scans=list(scans),
+        odom_T_sensor=odom.astype(np.float32),
+        gps_lat=lat,
+        gps_lon=lon,
+        gps_alt=alt,
+        gps_cov_trace=np.full(n_frames, 3 * gps_noise_m ** 2),
+        odom_cov_trace=np.full(n_frames, 0.03),
+        compass_yaw=compass,
+        true_map_T_sensor=poses.astype(np.float32),
+        global_T_map=global_T_map,
+    )
+
+
 def make_imu(
     poses: np.ndarray,
     scan_dt: float = 0.1,

@@ -16,6 +16,8 @@ from slam_sensor_fusion_tpu_torch.utils.config import StochasticFilterConfig
 
 #: the entry points users and the port's own loops call with a device
 EXPECTED = {
+    "api.localize",
+    "examples_selftest.run_selftest",
     "models.ekf.init_state",
     "models.session.LIOSession",
     "utils.convert.cached_p2p_target_from_numpy",

@@ -130,16 +130,6 @@ def test_localizer_run_matches_jax(world, mode):
     assert np.sqrt((err ** 2).sum(1).mean()) < 0.15
 
 
-def test_localizer_run_rejects_debug(world):
-    seq, map_data = world
-    cfg = dataclasses.replace(PARITY, enable_debug=True)
-    with pytest.raises(NotImplementedError, match="enable_debug"):
-        tl.Localizer(map_data, cfg, device="cpu").run(
-            seq.scans, seq.odom_T_sensor, seq.gps_lat, seq.gps_lon, seq.gps_alt,
-            seq.compass_yaw, seq.odom_cov_trace, seq.gps_cov_trace,
-        )
-
-
 def test_per_frame_superblock_matches_k1(world):
     """One superblock frame by frame on K3 (lazy ICP) against the same
     superblock in K1 (the port's plain versions of both), as the JAX

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from slam_sensor_fusion_tpu_torch.examples_selftest import selftest_world
 from slam_sensor_fusion_tpu_torch.models import localization as tl
 from slam_sensor_fusion_tpu_torch.models import pipeline_fast as tpf
 from slam_sensor_fusion_tpu_torch.models.mapping import build_map_data
@@ -18,7 +19,6 @@ from slam_sensor_fusion_tpu_torch.ops import icp_fused as tif
 from slam_sensor_fusion_tpu_torch.ops.morton import sort_points_numpy, tile_bboxes
 from slam_sensor_fusion_tpu_torch.ops.nn_gated import pair_tiles
 from slam_sensor_fusion_tpu_torch.ops.nn_pallas import _build_tile_pair_list, make_pages
-from slam_sensor_fusion_tpu_torch.utils import synthetic as syn
 from slam_sensor_fusion_tpu_torch.utils.config import (
     BruteForceConfig,
     CloudCapacity,
@@ -50,17 +50,9 @@ SLICE_CONFIG = LocalizationConfig(
 
 def build_world(n_frames: int, seed: int):
     """tests/test_pipeline.py's build_world_and_sequence, from the port's
-    copy of the generator (the same arrays, tests/test_torch_host.py)."""
-    rng = np.random.default_rng(seed)
-    world = syn.make_world(rng, extent=60.0, n_buildings=25, n_poles=60, points_per_m2=24.0)
-    poses = syn.make_trajectory(n_frames)
-    seq = syn.make_sequence(seed=seed, world=world, poses=poses, scan_points=6000, gps_noise_m=0.3)
-    tiles = []
-    map_rng = np.random.default_rng(seed + 1)
-    for i in range(0, n_frames, 2):
-        body = syn.render_scan(world, poses[i], map_rng, max_points=6000, noise=0.005)
-        tiles.append(body @ poses[i][:3, :3].T + poses[i][:3, 3])
-    odom_pos, gps_rows = syn.make_mapping_logs(seq, standstill_frames=10)
+    copy of the generator (the same arrays, tests/test_torch_host.py): the
+    selftest's world (examples_selftest.selftest_world) and its map."""
+    seq, tiles, odom_pos, gps_rows = selftest_world(n_frames, seed)
     return seq, build_map_data(tiles, odom_pos, gps_rows)
 
 
