@@ -140,6 +140,31 @@ check exits non-zero:
      insert); Localizer.run's debug branch on the selftest world (poses
      equal bit for bit to a run without it, its five files, CALLBACK TOOK
      logged).
+ 11. the multi-device layer (slam_sensor_fusion_tpu_torch/parallel), each
+     path over a mesh of 4 shards that this process holds on the one card,
+     against its single-device run: fleet_run_chunk_fast with 4 copies of
+     phase 3's sequence over 32 frames (each bit-equal to its own
+     run_chunk_fast, 0 overflow and slack, ATE-RMSE < 0.1 m, one K1 a
+     superblock; scans/s); batched_run_chunk with 2 sequences of 9 frames
+     on the gated "xla" backend (each bit-equal to its own run_chunk);
+     sharded_brute_force_align at phase 3's brute-force inputs with no hit
+     and with a hit (the threshold at twice the best score; success, T and
+     score bit-equal to brute_force_align);
+     sp_icp_align of phase 3's cropped scan against the whole map in 4
+     Morton-contiguous shards (iterations and n_corr equal to icp_align on
+     the whole map, T to 1e-4, error to 1e-5, 4 K2 launches an
+     association); sp_run_chunk over 32 steady frames from frame 9 (equal to
+     sp_run_chunk_single on the whole map to the same bounds, 0 overflow,
+     ATE-RMSE < 0.1 m; scans/s, K2 launches a frame); the sharded hash
+     store over phase 9's 16 groups, each shard's table below the map's
+     live cells (union cell-exact to one store, 0 dropped, 0 out of grid,
+     one segment sum a shard insert; frames/s); the LIO fleets over a mesh
+     of 2 shards, one robot each (equal to phase 7's robots and to their
+     own run_lio_blocks); the distributed form in processes of their own,
+     a 1-rank NCCL group and 2 gloo ranks holding 2 shards each (host
+     staging), running sp_icp_align, sp_p2p_align (phase 6's anchor map)
+     and sharded_brute_force_align bit-equal to this process's 4 shards;
+     dryrun_multichip(4) on the card.
 
 Phase 2 also holds K3 against its plain version (fresh and lazy, at the
 session's shapes), the per-frame superblock branch (K3 lazy) against K1 on
@@ -237,6 +262,11 @@ K6_KERNELS = ("p2p_gn_cluster_kernel",)
 #: against K4 with fixed correspondences on the whole map (the JAX
 #: package's test of sp_p2p_align, tests/test_parallel.py)
 SP_SHARDS = (1, 4)
+SHARDS11 = 4  # phase 11: the shards of every mesh
+FLEET11_SEQUENCES = 4  # phase 11's superblock fleet
+FLEET11_FRAMES = 32  # after the startup frame: 4 superblocks
+BATCHED11_FRAMES = 9  # phase 11's per-frame fleet
+SP11_FRAMES = 32  # phase 11's map-sharded steady state
 SP_TOL = 1e-4
 #: K1 and K4 must spread each association over at least this many SMs
 MIN_GRID_BLOCKS = 16
@@ -781,6 +811,13 @@ def profile_pass(run, pf, n_blocks: int, pass_s: float, tag: str) -> float:
           f"over {len(times)} launches (CUDA events); device idle share not measured [{tag}]",
           flush=True)
     return ms
+
+
+def prime_below(n: int) -> int:
+    """The largest prime <= n (n >= 2)."""
+    while any(n % d == 0 for d in range(2, math.isqrt(n) + 1)):
+        n -= 1
+    return n
 
 
 def zero_counts(*kernels) -> None:
@@ -1340,6 +1377,304 @@ def phase10(dev, tag, name, kernels, record, launches):
     return out
 
 
+def phase11(dev, tag, kernels, record, p) -> dict:
+    """The multi-device layer (slam_sensor_fusion_tpu_torch/parallel) on the
+    card at the bench's widths, from the worlds and states of phases 3, 6,
+    7 and 9 (`p`): every path over a mesh held by this process (n shards
+    in turn on the one card), each against its single-device run; then the
+    distributed form in processes of their own, and the dry run."""
+    from slam_sensor_fusion_tpu_torch.models import lio
+    from slam_sensor_fusion_tpu_torch.models import localization as lz
+    from slam_sensor_fusion_tpu_torch.models import pipeline_fast as pf
+    from slam_sensor_fusion_tpu_torch.ops import cloud as cl
+    from slam_sensor_fusion_tpu_torch.ops.brute_force import brute_force_align
+    from slam_sensor_fusion_tpu_torch.ops.icp import icp_align
+    from slam_sensor_fusion_tpu_torch.ops.lio_superblock_fused import lio_superblock
+    from slam_sensor_fusion_tpu_torch.ops.nn_pallas import pair_nn
+    from slam_sensor_fusion_tpu_torch.ops.superblock_fused import superblock_fine
+    from slam_sensor_fusion_tpu_torch.ops.voxel_map import (
+        voxel_map_centroids_numpy,
+        voxel_map_init,
+        voxel_map_insert,
+    )
+    from slam_sensor_fusion_tpu_torch.ops.voxel_segsum import segment_sum_sorted
+    from slam_sensor_fusion_tpu_torch.parallel import (
+        batch,
+        dryrun,
+        lio_fleet,
+        map_shard,
+        voxel_map_shard,
+    )
+    from slam_sensor_fusion_tpu_torch.parallel.brute_force import sharded_brute_force_align
+    from slam_sensor_fusion_tpu_torch.parallel.mesh import make_mesh, tree_index, tree_stack
+
+    t0 = time.perf_counter()
+    res = {}
+    config, loc, state, seq, gps_T = p["config"], p["loc"], p["state"], p["seq"], p["gps_T"]
+    n_sh = SHARDS11
+    dp4 = make_mesh(n_sh, "dp", dev, single_process=True)
+    sp4 = make_mesh(n_sh, "sp", dev, single_process=True)
+
+    def stack(x, B):
+        return x if x is None else torch.stack([x] * B)
+
+    # the superblock fleet: B sequences of phase 3's world, 4 superblocks each
+    n = FLEET11_FRAMES
+    frames = pf.PagedFrames(*[x[:n] for x in p["frames"]])
+    B = FLEET11_SEQUENCES
+    zero_counts(*kernels)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ffin, fout = batch.fleet_run_chunk_fast(
+        tree_stack([state] * B), pf.PagedFrames(*[stack(x, B) for x in frames]),
+        cl.Cloud(*[stack(x, B) for x in loc.map_cloud]), config, dp4)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    record("fleet_chunk_fast")
+    k1 = superblock_fine.launches
+    _, solo = pf.run_chunk_fast(state, frames, loc.map_cloud, config)
+    gt = seq.true_map_T_sensor[1:n + 1]
+    ates = [ate_rmse(fout.map_T_sensor[b].cpu().numpy(), gt) for b in range(B)]
+    n_ovf, n_slack = int(fout.pair_overflow.sum()), int(fout.slack_violation.sum())
+    res["fleet_scans_s"] = B * n / dt
+    print(f"fleet_run_chunk_fast: {B} sequences x {n} frames over {n_sh} dp shards {dt:.3f} s = "
+          f"{res['fleet_scans_s']:.1f} scans/s, ATE-RMSE {', '.join(f'{a:.4f}' for a in ates)} m, "
+          f"pair-overflow frames {n_ovf}, slack-violations {n_slack}, K1 launches {k1} [{tag}]",
+          flush=True)
+    for b in range(B):
+        if not torch.equal(fout.map_T_sensor[b], solo.map_T_sensor):
+            fail(f"fleet_run_chunk_fast: sequence {b} differs from its own run by "
+                 f"{(fout.map_T_sensor[b] - solo.map_T_sensor).abs().max().item()}")
+    if n_ovf or n_slack or k1 != B * (n // config.superstep) or not max(ates) < ATE_LIMIT:
+        fail(f"fleet_run_chunk_fast: overflow {n_ovf}, slack {n_slack}, K1 launches {k1}, "
+             f"ATE-RMSE {max(ates)}")
+
+    # the per-frame fleet on the "xla" backend (the gated XLA search)
+    n, B = BATCHED11_FRAMES, 2
+    sl = slice(1, n + 1)
+    fb = lz.build_frame_batch(config, seq.scans[sl], seq.odom_T_sensor[sl], gps_T[sl],
+                              seq.odom_cov_trace[sl], seq.gps_cov_trace[sl], np.ones(n, bool), dev)
+    zero_counts(*kernels)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, bout = batch.batched_run_chunk(
+        tree_stack([state] * B), lz.FrameBatch(*[stack(x, B) for x in fb]),
+        cl.Cloud(*[stack(x, B) for x in loc.map_cloud]), config)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    record("batched_run_chunk")
+    _, bsolo = lz.run_chunk(state, fb, loc.map_cloud, batch._xla_config(config))
+    b_ate = ate_rmse(bout.map_T_sensor[0].cpu().numpy(), seq.true_map_T_sensor[sl])
+    print(f"batched_run_chunk: {B} sequences x {n} frames on the gated \"xla\" backend {dt:.3f} s, "
+          f"ATE-RMSE {b_ate:.4f} m, iterations {bout.icp_iterations[0].tolist()}, overflow frames "
+          f"{int(bout.pair_overflow.sum())} [{tag}]", flush=True)
+    for b in range(B):
+        if not torch.equal(bout.map_T_sensor[b], bsolo.map_T_sensor):
+            fail(f"batched_run_chunk: sequence {b} differs from its own run_chunk")
+    if not np.isfinite(b_ate):
+        fail("batched_run_chunk: a non-finite pose")
+
+    # the brute force over the candidate grid: with no candidate under the
+    # threshold, then with the threshold at twice the best score (the first
+    # candidate under it in enumeration order wins, not the best)
+    bf_in = p["bf"][:5]
+    thr = 1e-9
+    for label in ("none", "hit"):
+        bcfg = dataclasses.replace(config.brute_force, mean_error_threshold=thr)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = sharded_brute_force_align(*bf_in, bcfg, sp4)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        want = brute_force_align(*bf_in, bcfg)
+        same = (bool(got.success) == bool(want.success)
+                and torch.equal(got.transformation, want.transformation)
+                and torch.equal(got.score, want.score))
+        print(f"sharded_brute_force_align ({label}): success {bool(got.success)}, score "
+              f"{float(got.score):.6f}, {dt * 1e3:.1f} ms over {n_sh} shards; equal to "
+              f"brute_force_align bit for bit: {same} [{tag}]", flush=True)
+        if not same or bool(got.success) != (label == "hit"):
+            fail(f"sharded_brute_force_align ({label}) differs from brute_force_align: success "
+                 f"{bool(got.success)} vs {bool(want.success)}, score {float(got.score)} vs "
+                 f"{float(want.score)}")
+        thr = 2.0 * float(want.score)
+    record("sharded_brute_force")
+
+    # map-sharded ICP: phase 3's cropped scan against the whole map split
+    # into 4 Morton-contiguous shards, K2 once a shard an association
+    icfg = config.icp
+    whole = loc.map_cloud
+    map_np = whole.points[whole.mask].cpu().numpy()
+    shards, smask = map_shard.shard_cloud(map_np, n_sh, icfg.tile_tgt)
+    shards, smask = torch.from_numpy(shards).to(dev), torch.from_numpy(smask).to(dev)
+    cscan, T0 = p["cscan"], nudge(p["coarse_T"], 0.3, -0.2, 2.0)
+    zero_counts(*kernels)
+    single = icp_align(cscan.points, cscan.mask, whole.points, whole.mask, T0, icfg)
+    k2_single = pair_nn.launches
+    zero_counts(*kernels)
+    sharded = map_shard.sp_icp_align(cscan.points, cscan.mask, shards, smask, T0, icfg, sp4)
+    torch.cuda.synchronize()
+    record("sp_icp_align")
+    k2_sharded = pair_nn.launches
+    gap = (sharded.transformation - single.transformation).abs().max().item()
+    print(f"sp_icp_align over {n_sh} shards of the whole map ({map_np.shape[0]} points): "
+          f"{int(sharded.iterations)} iterations, n_corr {int(sharded.n_correspondences)}, max |T| "
+          f"diff to icp_align on the whole map {gap:.3e}, error diff "
+          f"{abs(float(sharded.error) - float(single.error)):.3e}; K2 launches {k2_sharded} "
+          f"(whole map {k2_single}) [{tag}]", flush=True)
+    if (int(sharded.iterations), int(sharded.n_correspondences)) != (
+            int(single.iterations), int(single.n_correspondences)):
+        fail("sp_icp_align: iterations or n_corr differ from icp_align on the whole map")
+    if not (gap <= SP_TOL and abs(float(sharded.error) - float(single.error)) <= 1e-5):
+        fail(f"sp_icp_align: T differs by {gap} or error by "
+             f"{abs(float(sharded.error) - float(single.error))}")
+    if bool(sharded.pair_overflow) or bool(single.pair_overflow) or k2_sharded != n_sh * k2_single:
+        fail(f"sp_icp_align: overflow, or K2 launched {k2_sharded} times for {k2_single} "
+             f"associations over {n_sh} shards")
+
+    # the map-sharded steady state: 32 frames from frame 9, started at the
+    # superblock path's posterior of frame 8 (the coarse pose's error has
+    # been worked off by then)
+    n = SP11_FRAMES
+    sl = slice(9, n + 9)
+    fb = lz.build_frame_batch(config, seq.scans[sl], seq.odom_T_sensor[sl], gps_T[sl],
+                              seq.odom_cov_trace[sl], seq.gps_cov_trace[sl], np.ones(n, bool), dev)
+    scans = cl.crop_radius(cl.Cloud(fb.scan_points, fb.scan_mask),
+                           torch.zeros(3, device=dev), config.cloud_crop_radius)
+    xs = (scans.points, scans.mask, fb.odom_T_sensor, fb.map_T_sensor_gps, fb.odom_cov_trace,
+          fb.gps_cov_trace)
+    st0 = map_shard.sp_init_state(solo.map_T_sensor[7], seq.odom_T_sensor[8], config.filter,
+                                  device=dev)
+    zero_counts(*kernels)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, sout = map_shard.sp_run_chunk(st0, *xs, shards, smask, icfg, config.filter, sp4)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    record("sp_run_chunk")
+    k2_frame = pair_nn.launches / n
+    _, wout = map_shard.sp_run_chunk_single(st0, *xs, whole.points, whole.mask, icfg,
+                                            config.filter)
+    s_ate = ate_rmse(sout.map_T_sensor.cpu().numpy(), seq.true_map_T_sensor[sl])
+    gap = (sout.map_T_sensor - wout.map_T_sensor).abs().max().item()
+    res["sp_scans_s"], res["sp_k2_a_frame"] = n / dt, k2_frame
+    print(f"sp_run_chunk: {n} frames over {n_sh} map shards {dt:.3f} s = {n / dt:.1f} scans/s, "
+          f"ATE-RMSE {s_ate:.4f} m, max |T| diff to the whole map {gap:.3e}, overflow frames "
+          f"{int(sout.pair_overflow.sum())}, K2 launches a frame {k2_frame:.2f} [{tag}]",
+          flush=True)
+    if not (torch.equal(sout.n_correspondences, wout.n_correspondences)
+            and torch.equal(sout.icp_converged, wout.icp_converged)):
+        fail("sp_run_chunk: n_corr or convergence differ from the whole map's loop")
+    if not gap <= SP_TOL or sout.pair_overflow.any() or wout.pair_overflow.any():
+        fail(f"sp_run_chunk: T differs by {gap}, or a pair list overflowed")
+    if not s_ate < ATE_LIMIT:
+        fail(f"sp_run_chunk: ATE-RMSE {s_ate} >= {ATE_LIMIT}")
+
+    # the sharded voxel store: phase 9's groups, each shard's table below
+    # the single store's live cells
+    worlds, masks, hcfg = p["map_worlds"], p["map_masks"], p["hash_config"]
+    single = voxel_map_init(hcfg, MAP_ORIGIN, dev)
+    for w, m in zip(worlds, masks):
+        single = voxel_map_insert(single, w, m, hcfg)
+    want = voxel_map_centroids_numpy(single)
+    # a shard's table below the map's live cells holds its quarter of
+    # them at 2/7 of its slots, ~10x the single store's occupancy. A prime
+    # size gives every probe stride a full cycle; on this world a power of
+    # two, or a size with small factors, leaves cells unplaced after the
+    # probe budget at this occupancy, and the store counts their points
+    # dropped
+    table = prime_below(len(want) * 7 // 8)
+    scfg = hcfg._replace(table_size=table)
+    if not table < len(want):
+        fail(f"sharded voxel store: a shard's table of {table} holds the {len(want)} cells")
+    pts = torch.stack(worlds)
+    zero_counts(*kernels)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    vst = voxel_map_shard.sp_voxel_map_init(scfg, MAP_ORIGIN, sp4, dev)
+    vst = voxel_map_shard.sp_voxel_map_insert_chunk(vst, pts, masks, scfg, sp4)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    record("sp_voxel_map")
+    dropped, oob, per_shard = voxel_map_shard.sp_voxel_map_flags(vst)
+    got = voxel_map_shard.sp_voxel_map_centroids_numpy(vst)
+
+    def rows(a):
+        return a[np.lexsort((a[:, 2], a[:, 1], a[:, 0]))]
+
+    exact = got.shape == want.shape and np.array_equal(rows(got), rows(want))
+    res["sp_map_frames_s"] = MAP_FRAMES / dt
+    print(f"sp_voxel_map_insert_chunk: {len(worlds)} groups ({MAP_FRAMES} frames) over {n_sh} "
+          f"shards of {table} slots {dt:.3f} s = {MAP_FRAMES / dt:.1f} frames/s; {len(want)} cells, "
+          f"per shard {per_shard.tolist()}, dropped {dropped}, oob {oob}; union == one store "
+          f"cell for cell: {exact}; voxel_segment_sum launches {segment_sum_sorted.launches} "
+          f"[{tag}]", flush=True)
+    if dropped or oob or not exact:
+        fail(f"sharded voxel store: dropped {dropped}, oob {oob}, union equal {exact}")
+    if segment_sum_sorted.launches != n_sh * len(worlds):
+        fail(f"sharded voxel store: {segment_sum_sorted.launches} segment sums for "
+             f"{n_sh * len(worlds)} shard inserts")
+
+    # the LIO fleets, one robot a shard, against phase 7's fleet (each
+    # robot already equal to its own run) and the robots' own run_lio_blocks
+    lcfg, lstates, robots = p["lcfg"], p["lio_states"], p["lio_robots"]
+    dp2 = make_mesh(len(robots), "dp", dev, single_process=True)
+    stacked = [torch.stack(xs) for xs in zip(*robots)]
+    zero_counts(*kernels)
+    mfin, mout = lio_fleet.fleet_run_lio_superblocks(lstates, *stacked, lcfg, mesh=dp2)
+    torch.cuda.synchronize()
+    record("lio_fleet_superblocks_mesh")
+    k7 = lio_superblock.launches
+    ffin, fout = p["lio_fleet"]
+    if not (torch.equal(mout.world_T_body, fout.world_T_body)
+            and torch.equal(mfin.ekf_state.P, ffin.ekf_state.P) and torch.equal(mfin.ring, ffin.ring)):
+        fail("fleet_run_lio_superblocks over a mesh differs from the robots' own runs")
+    zero_counts(*kernels)
+    t1 = time.perf_counter()
+    _, xout = lio_fleet.fleet_run_lio(lstates, *stacked, lcfg, mesh=dp2)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    record("lio_fleet_xla_mesh")
+    for b, frames in enumerate(robots):
+        _, xsolo = lio.run_lio_blocks(tree_index(lstates, b), *frames, lio_fleet._xla_config(lcfg))
+        if not torch.equal(xout.world_T_body[b], xsolo.world_T_body):
+            fail(f"fleet_run_lio: robot {b} differs from its own run_lio_blocks")
+    x_ate = [ate_rmse(xout.world_T_body[b].cpu().numpy(), p["lio_gt"]) for b in range(len(robots))]
+    print(f"LIO fleets over {len(robots)} dp shards: fleet_run_lio_superblocks equal to phase 7's "
+          f"robots (K7 launches {k7}); fleet_run_lio (\"xla\" backend) {dt:.3f} s, each robot equal "
+          f"to its own run_lio_blocks, ATE-RMSE {', '.join(f'{a:.4f}' for a in x_ate)} m [{tag}]",
+          flush=True)
+    if not max(x_ate) < LIO_ATE_LIMIT:
+        fail(f"fleet_run_lio: ATE-RMSE {max(x_ate)} >= {LIO_ATE_LIMIT}")
+
+    # the distributed form: a 1-rank NCCL group, and 2 gloo ranks holding 2
+    # shards each on the one card (NCCL refuses two ranks on one card; gloo
+    # stages its gathers through the host), against this process's 4 shards
+    inputs = dict(
+        icp=dict(source=cscan.points, source_mask=cscan.mask, map_points=map_np,
+                 initial_T=T0, config=icfg),
+        p2p=p["p2p"],
+        bf=tuple(p["bf"][:5]) + (config.brute_force,),
+    )
+    want = dryrun.sharded_registration(sp4, **inputs)
+    for world, backend in [(1, "nccl"), (2, "gloo")]:
+        t1 = time.perf_counter()
+        got = dryrun.run_distributed(inputs, n_sh, world, backend, "cuda", timeout=300)
+        dt = time.perf_counter() - t1
+        same = {k: dryrun.bit_equal(got[k], want[k]) for k in want}
+        print(f"distributed form: {world} {backend} rank(s) x {n_sh // world} shards, "
+              f"sp_icp_align / sp_p2p_align / sharded_brute_force_align equal to one process "
+              f"bit for bit: {same} ({dt:.1f} s with the processes' start) [{tag}]", flush=True)
+        if not all(same.values()):
+            fail(f"distributed form ({world} {backend} ranks) differs from one process: {same}")
+
+    # the dry run on the card
+    line = dryrun.dryrun_multichip(n_sh, dev)
+    print(f"phase 11 multi-device layer: {time.perf_counter() - t0:.1f} s [{tag}]", flush=True)
+    res["dryrun"] = line
+    return res
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # ---- 0. the device ----
@@ -1843,6 +2178,11 @@ def main() -> None:
         if not ate < ATE_LIMIT:
             fail(f"ATE-RMSE {ate} >= {ATE_LIMIT}")
     record("superblocks")
+    # phase 11 starts from this path's world, state and paged frames
+    p11 = dict(config=config, loc=loc, state=state, seq=seq, gps_T=gps_T, frames=frames,
+               cscan=cscan, coarse_T=coarse.map_T_sensor,
+               bf=(bf_scan.points, bf_scan.mask, bf_map.points, bf_map.mask,
+                   torch.from_numpy(np.asarray(gps_T[0], np.float32)).to(dev)))
     ate3_head = ate_rmse(est[: RECORD_FRAMES - 1], gt[: RECORD_FRAMES - 1])
     if pair_nn.launches < 1:
         fail("K2 never launched on the main path")
@@ -2116,6 +2456,11 @@ def main() -> None:
         args = (larrays[0][w + k], larrays[1][w + k])
         sp_frames.append((args, prior_k, p2p.point_to_plane_align_fused(
             *args, lstate_w.anchor_cache, prior_k, sp_cfg)))
+    p11["p2p"] = dict(
+        source=sp_frames[0][0][0], source_mask=sp_frames[0][0][1], map_points=a_pts,
+        map_normals=a_nrm, map_normals_valid=a_nv,
+        center=lstate_w.anchor_cache.center.cpu().numpy(), initial_T=sp_frames[0][1],
+        config=sp_cfg)
     sp = {}
     for n_sh in SP_SHARDS:
         target = map_shard.shard_p2p_target(
@@ -2257,6 +2602,8 @@ def main() -> None:
         states, *[torch.stack(xs) for xs in zip(*robots)], lcfg)
     torch.cuda.synchronize()
     record("lio_fleet")
+    p11.update(lcfg=lcfg, lio_states=states, lio_robots=robots, lio_fleet=(ffin, fout),
+               lio_gt=lgt[:nf])
     f_launched = lio_superblock.launches
     f_blocks = -(-nf // lcfg.refresh_every)
     for b, frames in enumerate(robots):
@@ -2380,6 +2727,7 @@ def main() -> None:
     # world points (computed on the card), so only the store is compared
     worlds = [group_world(map_groups, g) for g in range(n_map_groups)]
     masks = map_groups[1].reshape(len(worlds), -1)
+    p11.update(map_worlds=worlds, map_masks=masks, hash_config=hcfg)
     t1 = time.perf_counter()
     cst = sorted_voxel_map_init(scfg, MAP_ORIGIN, "cpu")
     gst = sorted_voxel_map_init(scfg, MAP_ORIGIN, dev)
@@ -2487,6 +2835,11 @@ def main() -> None:
     # path at seq-00 density (localization, LIO, map store), debug branch ----
     p10 = phase10(dev, tag, name, kernels, record, launches)
 
+    # ---- 11. the multi-device layer: fleets, sharded brute force, ICP,
+    # steady state and voxel store, LIO fleets over a mesh, the distributed
+    # form, the dry run ----
+    r11 = phase11(dev, tag, kernels, record, p11)
+
     for kernel in kernels:
         if not sum(launches[kernel].values()):
             fail(f"{kernel.__name__} never launched on a main path")
@@ -2510,7 +2863,7 @@ def main() -> None:
             ms_kitti=p10["k1_ms"], plain_ms_kitti=p10["k1_plain_ms"],
             bound_ms_kitti=p10["k1_bound"][0], scratch_bytes_kitti=p10["kitti_scratch"]["K1"],
             tiles_kitti=p10["kitti_tiles"], kitti_scans_s=p10["kitti_scans_s"],
-            kitti_idle=p10["kitti_idle"],
+            kitti_idle=p10["kitti_idle"], fleet_scans_s=r11["fleet_scans_s"],
             **{f"{key}_{label}": val for label, w in wide.items() for key, val in [
                 ("ms", w["k1_ms"]), ("plain_ms", w["k1_plain_ms"]),
                 ("bound_ms", w["k1_bound"][0]), ("ms_steady_superblock", w["k1_steady_ms"]),
@@ -2522,7 +2875,8 @@ def main() -> None:
             bound_ms_16x4096=x["k2_bound"][0], device_ms=k2_device_ms,
             device_ms_16x4096=x["k2_device_ms"], grid=grids["K2 scan"],
             scratch_bytes_kitti=p10["kitti_scratch"]["K2"],
-            grid_16x4096=grids["K2 scan 16x4096"]),
+            grid_16x4096=grids["K2 scan 16x4096"], sp_scans_s=r11["sp_scans_s"],
+            sp_launches_a_frame=r11["sp_k2_a_frame"]),
         row(_fused_core, "K3 icp_fused", "slam_sensor_fusion_tpu_torch/csrc/icp_fused.cu",
             "slam_sensor_fusion_tpu/ops/icp_fused.py:131",
             max(k3_err, k3l_err, x["k3_fresh_err"], x["k3_lazy_err"]), k3_ms, k3_plain_ms, k3_bound,
@@ -2560,7 +2914,8 @@ def main() -> None:
             library_diff_elements_ties=segsum["ties"][5],
             map_frames_s={k: v["frames_s"] for k, v in map_ms.items()},
             map_ms_an_insert={k: v["flush_ms"] for k, v in map_ms.items()},
-            map_idle={k: v["idle"] for k, v in map_ms.items()}),
+            map_idle={k: v["idle"] for k, v in map_ms.items()},
+            sp_map_frames_s=r11["sp_map_frames_s"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -62,7 +62,6 @@
 
 namespace cg = cooperative_groups;
 
-constexpr int kQmax = 8;
 constexpr int kNMom = 17;  // W, Ss[3], St[3], Mst[9], Eabs
 
 // Mirrors ctypes struct `_SBParams` in ops/superblock_fused.py.
@@ -73,7 +72,6 @@ struct SBParams {
   float mad_lo; // min_distance_per_scan
   float mad_hi; // max_distance_per_scan / 3
   float z_thr;  // z_score_threshold
-  float wq[kQmax];
   int num_iterations;
   int min_corr;
   int Q;
@@ -463,6 +461,8 @@ __global__ void __launch_bounds__(1024, 1) superblock_kernel(
     float* __restrict__ count_out,        // (1, 128)
     float* scratch,                       // (max_pairs, 4, TM), rounds' winners by slot
     float4* point_state,                  // (nSt, TM): the global layout's points
+    const float* __restrict__ wq,         // (Q,) the filter queue's weights
+    float* qbuf,                          // (2, Q, 12): the queue and its next state (thread 0)
     sfk::grid::Ctl* ctl,                  // the leader's published round
     int K, int nSt, int TM, int TN, int max_pairs, int s_max, SBParams prm) {
   extern __shared__ float4 smem_page[];  // s_max staging pages of TN rows (workers)
@@ -481,20 +481,22 @@ __global__ void __launch_bounds__(1024, 1) superblock_kernel(
   }
   const int Q = prm.Q;
 
-  // carried state, thread 0 only
+  // carried state, thread 0 only; the queue's Q transitions (rotation,
+  // then translation: 12 floats each) and their next state live in `qbuf`,
+  // so the queue takes any size
   float Rp[9], tp[3], Ro[9], to[3], Rf[9], tf[3];
-  float trans[kQmax][12];
+  float* const trans = qbuf;
   int count = 0;
   // per-frame values thread 0 keeps across the ICP
   float Rg[9], tg[3], Rpr[9], tpr[3], Rpred[9], tpred[3], Rok[9], tok[3];
-  float new_trans[kQmax][12];
+  float* const new_trans = qbuf + 12 * Q;
   int new_count = 0;
   float cx[3];
   if (threadIdx.x == 0) {
     sfk::read44(pose0, Rp, tp);
     sfk::read44(odom_prev0, Ro, to);
     sfk::read44(filt_prev0, Rf, tf);
-    for (int q = 0; q < Q; ++q) sfk::read44(trans0 + 16 * q, trans[q], trans[q] + 9);
+    for (int q = 0; q < Q; ++q) sfk::read44(trans0 + 16 * q, trans + 12 * q, trans + 12 * q + 9);
     count = count0[0];
     cx[0] = center[0]; cx[1] = center[1]; cx[2] = center[2];
   }
@@ -529,24 +531,27 @@ __global__ void __launch_bounds__(1024, 1) superblock_kernel(
       const bool not_full = count < Q;
       for (int q = 0; q < Q; ++q) {
         const float* srcq;
-        if (not_full) srcq = (count == q) ? nullptr : trans[q];
-        else srcq = (q < Q - 1) ? trans[q + 1] : nullptr;
-        for (int m = 0; m < 9; ++m) new_trans[q][m] = srcq ? srcq[m] : Rtr[m];
-        for (int a = 0; a < 3; ++a) new_trans[q][9 + a] = srcq ? srcq[9 + a] : ttr[a];
+        if (not_full) srcq = (count == q) ? nullptr : trans + 12 * q;
+        else srcq = (q < Q - 1) ? trans + 12 * (q + 1) : nullptr;
+        float* nq = new_trans + 12 * q;
+        for (int m = 0; m < 9; ++m) nq[m] = srcq ? srcq[m] : Rtr[m];
+        for (int a = 0; a < 3; ++a) nq[9 + a] = srcq ? srcq[9 + a] : ttr[a];
       }
       new_count = min(count + 1, Q);
-      float mean[3] = {0.0f, 0.0f, 0.0f}, px[kQmax][3];
+      // each queued position pose @ transition_q's translation, computed
+      // again for the deviation pass (the same expression, the same bits)
+      float mean[3] = {0.0f, 0.0f, 0.0f};
       for (int q = 0; q < Q; ++q) {
         float v3[3];
-        sfk::mv3(Rp, new_trans[q] + 9, v3);
-        for (int a = 0; a < 3; ++a) {
-          px[q][a] = v3[a] + tp[a];
-          mean[a] = mean[a] + prm.wq[q] * px[q][a];
-        }
+        sfk::mv3(Rp, new_trans + 12 * q + 9, v3);
+        for (int a = 0; a < 3; ++a) mean[a] = mean[a] + wq[q] * (v3[a] + tp[a]);
       }
       float mad[3] = {0.0f, 0.0f, 0.0f};
-      for (int q = 0; q < Q; ++q)
-        for (int a = 0; a < 3; ++a) mad[a] = mad[a] + prm.wq[q] * fabsf(px[q][a] - mean[a]);
+      for (int q = 0; q < Q; ++q) {
+        float v3[3];
+        sfk::mv3(Rp, new_trans + 12 * q + 9, v3);
+        for (int a = 0; a < 3; ++a) mad[a] = mad[a] + wq[q] * fabsf((v3[a] + tp[a]) - mean[a]);
+      }
       for (int a = 0; a < 3; ++a) mad[a] = fminf(fmaxf(mad[a], prm.mad_lo), prm.mad_hi);
       float z = sfk::jmax(fabsf(tpr[0] - mean[0]) / mad[0],
                           sfk::jmax(fabsf(tpr[1] - mean[1]) / mad[1],
@@ -558,9 +563,9 @@ __global__ void __launch_bounds__(1024, 1) superblock_kernel(
       for (int a = 0; a < 3; ++a) mt[a] = 0.0f;
       for (int q = 0; q < Q; ++q) {
         float Rc[9], tc[3];
-        sfk::compose(new_trans[q], new_trans[q] + 9, Rp, tp, Rc, tc);
-        for (int m = 0; m < 9; ++m) mR[m] = mR[m] + prm.wq[q] * Rc[m];
-        for (int a = 0; a < 3; ++a) mt[a] = mt[a] + prm.wq[q] * tc[a];
+        sfk::compose(new_trans + 12 * q, new_trans + 12 * q + 9, Rp, tp, Rc, tc);
+        for (int m = 0; m < 9; ++m) mR[m] = mR[m] + wq[q] * Rc[m];
+        for (int a = 0; a < 3; ++a) mt[a] = mt[a] + wq[q] * tc[a];
       }
       const bool gated = z > prm.z_thr;
       for (int m = 0; m < 9; ++m) Rg[m] = gated ? mR[m] : Rpr[m];
@@ -598,8 +603,7 @@ __global__ void __launch_bounds__(1024, 1) superblock_kernel(
         // 5) predicated state update
         for (int m = 0; m < 9; ++m) { Rp[m] = Rfin[m]; Ro[m] = Rok[m]; Rf[m] = Rpr[m]; }
         for (int a = 0; a < 3; ++a) { tp[a] = tfin[a]; to[a] = tok[a]; tf[a] = tpr[a]; }
-        for (int q = 0; q < Q; ++q)
-          for (int m = 0; m < 12; ++m) trans[q][m] = new_trans[q][m];
+        for (int m = 0; m < 12 * Q; ++m) trans[m] = new_trans[m];
         count = new_count;
       }
       sfk::pack44(Rp, tp, 1.0f, poses_out + 16 * k);
@@ -614,7 +618,8 @@ __global__ void __launch_bounds__(1024, 1) superblock_kernel(
     sfk::pack44(Rp, tp, 1.0f, state_out);
     sfk::pack44(Ro, to, 1.0f, state_out + 16);
     sfk::pack44(Rf, tf, 1.0f, state_out + 32);
-    for (int q = 0; q < Q; ++q) sfk::pack44(trans[q], trans[q] + 9, 1.0f, state_out + 48 + 16 * q);
+    for (int q = 0; q < Q; ++q)
+      sfk::pack44(trans + 12 * q, trans + 12 * q + 9, 1.0f, state_out + 48 + 16 * q);
     count_out[0] = (float)count;
     for (int m = 1; m < 128; ++m) count_out[m] = 0.0f;
   }
@@ -643,8 +648,9 @@ int launch(const float* src_pages, const int* pair_start, const int* pair_cnt,
            const int* count0, const float* filt_prev0, const float* center,
            const float* tgt_pages, float* poses_out, float* priors_out,
            float* odom_pred_out, float* stats_out, float* state_out,
-           float* count_out, float* scratch, float4* point_state, sfk::grid::Ctl* ctl, int K,
-           int nSt, int TM, int TN, int max_pairs, SBParams prm, cudaStream_t stream) {
+           float* count_out, float* scratch, float4* point_state, const float* wq, float* qbuf,
+           sfk::grid::Ctl* ctl, int K, int nSt, int TM, int TN, int max_pairs, SBParams prm,
+           cudaStream_t stream) {
   const int threads = block_threads<Pts>(TM);
   int s_max = chunk_max(threads, TN);
   const size_t smem = (size_t)s_max * TN * sizeof(float4);
@@ -658,7 +664,7 @@ int launch(const float* src_pages, const int* pair_start, const int* pair_cnt,
                   &gps_T, &odom_tr, &gps_tr, &pose0, &odom_prev0, &trans0,
                   &count0, &filt_prev0, &center, &tgt_pages, &poses_out, &priors_out,
                   &odom_pred_out, &stats_out, &state_out, &count_out, &scratch, &point_state,
-                  &ctl, &K, &nSt, &TM, &TN, &max_pairs, &s_max, &prm};
+                  &wq, &qbuf, &ctl, &K, &nSt, &TM, &TN, &max_pairs, &s_max, &prm};
   e = cudaLaunchCooperativeKernel((const void*)superblock_kernel<Pts>, dim3(blocks),
                                   dim3(threads), args, smem, stream);
   if (e != cudaSuccess) return (int)e;
@@ -691,7 +697,8 @@ inline bool bad_tiles(int nSt, int TM) {
 // shrunk), or cudaErrorInvalidValue for a tile shape or queue size it does
 // not take. `scratch` holds max_pairs x 4 x TM floats, `point_state` nSt x
 // TM x 4 floats (read only by the global layout: past 8 source tiles or
-// 1024 rows, or with `global` set), `ctl` a sfk::grid::Ctl; none needs
+// 1024 rows, or with `global` set), `wq` the filter queue's Q weights,
+// `qbuf` 2 x Q x 12 floats, `ctl` a sfk::grid::Ctl; only `wq` needs
 // initialising.
 extern "C" int sfk_superblock_fine(
     const float* src_pages, const int* pair_start, const int* pair_cnt,
@@ -701,17 +708,17 @@ extern "C" int sfk_superblock_fine(
     const int* count0, const float* filt_prev0, const float* center,
     const float* tgt_pages, float* poses_out, float* priors_out,
     float* odom_pred_out, float* stats_out, float* state_out, float* count_out,
-    float* scratch, float* point_state, void* ctl, int K, int nSt, int TM, int TN,
-    int max_pairs, int global, const SBParams* prm, cudaStream_t stream) {
-  if (prm->Q < 1 || prm->Q > kQmax || bad_tiles(nSt, TM)) return (int)cudaErrorInvalidValue;
+    float* scratch, float* point_state, const float* wq, float* qbuf, void* ctl, int K, int nSt,
+    int TM, int TN, int max_pairs, int global, const SBParams* prm, cudaStream_t stream) {
+  if (prm->Q < 1 || bad_tiles(nSt, TM)) return (int)cudaErrorInvalidValue;
   sfk::grid::Ctl* c = static_cast<sfk::grid::Ctl*>(ctl);
   float4* ps4 = reinterpret_cast<float4*>(point_state);
 #define SFK_LAUNCH(PTS)                                                       \
   launch<PTS>(src_pages, pair_start, pair_cnt, pair_tgt, valid, odom_T, gps_T, \
               odom_tr, gps_tr, pose0, odom_prev0, trans0, count0, filt_prev0,  \
               center, tgt_pages, poses_out, priors_out, odom_pred_out,         \
-              stats_out, state_out, count_out, scratch, ps4, c, K, nSt, TM,    \
-              TN, max_pairs, *prm, stream)
+              stats_out, state_out, count_out, scratch, ps4, wq, qbuf, c, K,   \
+              nSt, TM, TN, max_pairs, *prm, stream)
   if (global_layout(nSt, TM, global)) return SFK_LAUNCH(GlobalPoints);
   switch (nSt) {
     case 1: return SFK_LAUNCH(Points<1>);

@@ -166,12 +166,14 @@ def recrop(
 ) -> tuple[cl.Cloud, CachedTarget]:
     """Map re-crop around `center` (localization_node.cpp:299-305): the
     radius crop compacted into the fixed ICP target buffer, plus its target
-    pages. The map was Morton-sorted once at load (`Localizer`), and the
-    order-preserving compact keeps that tile locality, so no sort here."""
-    if not config.presorted_map:
-        raise ValueError("the port needs a Morton-presorted map (presorted_map=True)")
+    pages. With config.presorted_map the map was Morton-sorted once at load
+    (`Localizer`) and the order-preserving compact keeps that tile
+    locality; otherwise the crop is Morton-sorted here, once a re-crop, as
+    the JAX package does (localization.py:208-211)."""
     mask = cl.crop_radius(map_cloud, center, config.cloud_crop_radius)
     packed = cl.compact(mask, config.capacity.cropped_map)
+    if not config.presorted_map:
+        packed = morton.sort_by_morton(packed)
     cache = build_cached_target(
         packed.points, packed.mask, center, config.icp.tile_tgt,
         gate_sub=config.icp.gate_sub_tgt,

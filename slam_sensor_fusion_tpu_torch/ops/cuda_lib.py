@@ -112,7 +112,7 @@ def _declare(so: ctypes.CDLL) -> None:
     so.sfk_pair_nn.restype = I
     so.sfk_pair_nn_grid.argtypes = [I] * 2 + [P] * 3
     so.sfk_pair_nn_grid.restype = I
-    so.sfk_superblock_fine.argtypes = [P] * 25 + [I] * 6 + [P, P]
+    so.sfk_superblock_fine.argtypes = [P] * 27 + [I] * 6 + [P, P]
     so.sfk_superblock_fine.restype = I
     so.sfk_superblock_grid.argtypes = [I] * 3 + [P] * 3
     so.sfk_superblock_grid.restype = I

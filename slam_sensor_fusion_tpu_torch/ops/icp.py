@@ -17,13 +17,19 @@ translation; every association is one K2 call (ops/nn_pallas.pair_nn)
 against a tile pair list built with the gate radius dilated by
 `reassoc_margin`. A movement guard rebuilds the list once accumulated motion
 could exceed that margin, so metre-scale rescue alignments never miss true
-neighbours. The loop runs on the host (one sync per iteration): it is the
-one-shot startup rescue, not the per-frame path.
+neighbours. The loop runs on the host (one sync per iteration): the
+startup rescue, the per-frame parity engine and the map-sharded loop run
+it, not the superblock path.
 
-`_icp_xla` is the same control flow on the dense (M, 3) layout and the
-dense nearest-neighbour sweep: the fused ICP's fallback for capacities that
-are not multiples of the tiles (the JAX package computes it with XLA, so
-plain PyTorch is the port; there is no kernel).
+`_icp_xla` is the same control flow on the (M, 3) layout, on the gated XLA
+search (ops/nn_gated.gated_nn) or the dense sweep: what `icp_align` runs
+off the "pallas" backend, without `gated` or at capacities that are not
+multiples of the tiles, as the JAX `icp_align` dispatches (the JAX package
+computes it with XLA, so plain PyTorch is the port; there is no kernel).
+
+`_icp_pairs` also runs against a map split into shards
+(parallel/map_shard.sp_icp_align): K2 once a shard, the winners combined
+over the mesh.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ from slam_sensor_fusion_tpu_torch.ops import geometry
 from slam_sensor_fusion_tpu_torch.ops.cloud import dist2
 from slam_sensor_fusion_tpu_torch.ops.morton import tile_bboxes
 from slam_sensor_fusion_tpu_torch.ops.nn import nearest_neighbor
-from slam_sensor_fusion_tpu_torch.ops.nn_gated import pair_tiles
+from slam_sensor_fusion_tpu_torch.ops.nn_gated import gated_nn, pair_tiles
 from slam_sensor_fusion_tpu_torch.ops.nn_pallas import (
     _build_tile_pair_list,
     make_pages,
@@ -135,33 +141,39 @@ def _pair_list_builder(target, target_mask, config: ICPConfig, nSt: int):
     return build
 
 
-def _first_association(source, source_mask, target, target_mask, initial_T, config: ICPConfig):
-    """Stage the first association of `icp_align`: (source points under
-    initial_T, their pages, the target pages, the pair-list builder, the
-    first pair list, its overflow flag). Both page sets are rebased on
-    initial_T's translation with +1e7 sentinels."""
+def _stage(source, source_mask, targets, initial_T, config: ICPConfig):
+    """Stage the first association of the pair-list loop against the
+    target shards `targets` [(target, target_mask)]: (source points under
+    initial_T, their pages, each shard's target pages, pair-list builder
+    and first pair list, the lists' overflow flag). Every page set is
+    rebased on initial_T's translation, the same centre for every shard, so
+    a point pair's d2 does not depend on the shard that holds the target
+    point; +1e7 sentinels."""
     TM, TN = config.tile_src, config.tile_tgt
-    if source.shape[0] % TM or target.shape[0] % TN:
+    bad = [t.shape[0] for t, _ in targets if t.shape[0] % TN]
+    if source.shape[0] % TM or bad:
         raise ValueError(
-            f"icp_align: capacities {source.shape[0]}, {target.shape[0]} are "
-            f"not multiples of the tiles {TM}, {TN}"
+            f"icp_align: capacities {source.shape[0]}, {[t.shape[0] for t, _ in targets]} "
+            f"are not multiples of the tiles {TM}, {TN}"
         )
     center = initial_T[:3, 3]
     pts0_flat = geometry.transform_points(initial_T, source)
-    build = _pair_list_builder(target, target_mask, config, source.shape[0] // TM)
-    pairs, overflow = build(*tile_bboxes(pts0_flat, source_mask, TM))
+    box0 = tile_bboxes(pts0_flat, source_mask, TM)
+    builds = [_pair_list_builder(t, m, config, source.shape[0] // TM) for t, m in targets]
+    firsts = [build(*box0) for build in builds]
+    overflow = torch.stack([ovf for _, ovf in firsts]).any()
     pts = make_pages(pts0_flat, source_mask, center, TM)
-    tgt_pages = make_pages(target, target_mask, center, TN)
-    return pts0_flat, pts, tgt_pages, build, pairs, overflow
+    tgt_pages = [make_pages(t, m, center, TN) for t, m in targets]
+    return pts0_flat, pts, tgt_pages, builds, [pairs for pairs, _ in firsts], overflow
 
 
 def association_inputs(source, source_mask, target, target_mask, initial_T, config: ICPConfig):
     """K2's inputs for the first association of `icp_align`: (source pages
     under initial_T, target pages, pair_start, pair_cnt, pair_tgt)."""
-    _, pts, tgt_pages, _, pairs, _ = _first_association(
-        source, source_mask, target, target_mask, initial_T, config
+    _, pts, tgt_pages, _, pairs, _ = _stage(
+        source, source_mask, [(target, target_mask)], initial_T, config
     )
-    return (pts, tgt_pages, *pairs)
+    return (pts, tgt_pages[0], *pairs[0])
 
 
 def _icp_xla(
@@ -171,26 +183,37 @@ def _icp_xla(
     target_mask: torch.Tensor,
     initial_T: torch.Tensor,
     config: ICPConfig,
+    use_gated: bool = False,
 ) -> ICPResult:
-    """The dense (M, 3)-layout ICP (the JAX `_icp_xla` without the gated
-    search): the same control flow as `icp_align` on the dense
-    nearest-neighbour sweep (ops/nn.nearest_neighbor), for any capacities.
-    It is the fused ICP's fallback when the capacities are not multiples of
-    the tiles. The loop runs on the host, one sync an iteration."""
+    """The (M, 3)-layout ICP (the JAX `_icp_xla`): the same control flow as
+    the pair-list loop, each association either the gated XLA formulation
+    (ops/nn_gated.gated_nn, `use_gated`: capacities that are multiples of
+    the tiles) or the dense sweep (ops/nn.nearest_neighbor, any
+    capacities). `icp_align` takes it off the "pallas" backend, and the
+    fused ICP for capacities that are not multiples of the tiles.
+    `pair_overflow` is the first association's visit-list truncation, as
+    in the JAX function. The loop runs on the host, one sync an
+    iteration."""
     dev = source.device
     gate = config.max_correspondence_dist_sq
     center = initial_T[:3, 3]
 
     def associate(pts, mask):
+        if use_gated:
+            res = gated_nn(
+                pts, mask, target, target_mask, center, gate, config.tile_src,
+                config.tile_tgt, config.max_visits,
+            )
+            return res.d2, target[res.idx.long()], res.visit_overflow
         d2, idx = nearest_neighbor(pts, mask, target, target_mask, center)
-        return d2, target[idx.long()]
+        return d2, target[idx.long()], torch.zeros((), dtype=torch.bool, device=dev)
 
     def mean_error(pts, corr, alive):
         w = alive.float()
         return (torch.linalg.norm(pts - corr, dim=-1) * w).sum() / torch.clamp(w.sum(), min=1.0)
 
     pts = geometry.transform_points(initial_T, source)
-    d2, corr = associate(pts, source_mask)
+    d2, corr, pair_overflow = associate(pts, source_mask)
     alive = source_mask & (d2 < gate)
     n_corr0 = alive.sum(dtype=torch.int32)
     enough = int(n_corr0) >= config.min_correspondences
@@ -203,7 +226,7 @@ def _icp_xla(
         done = bool(error < config.acceptable_mean_error)
         if not done:
             if bool((last_error - error).abs() < config.transformation_epsilon):
-                d2n, corr_n = associate(pts, alive)
+                d2n, corr_n, _ = associate(pts, alive)
                 alive = alive & (d2n < gate)
                 corr = torch.where(alive[:, None], corr_n, corr)
             T_step = geometry.kabsch(pts, corr, alive.float())
@@ -220,7 +243,7 @@ def _icp_xla(
             enough and bool(error_out < config.acceptable_mean_error), device=dev
         ),
         n_correspondences=n_corr0,
-        pair_overflow=torch.zeros((), dtype=torch.bool, device=dev),
+        pair_overflow=pair_overflow,
         det_min=torch.zeros((), dtype=torch.float32, device=dev),
     )
 
@@ -235,12 +258,43 @@ def icp_align(
 ) -> ICPResult:
     """Align ``source`` (M, 3) onto ``target`` (N, 3) from ``initial_T``.
 
-    M and N must be multiples of config.tile_src and config.tile_tgt; both
-    clouds should be spatially coherent (Morton order) for the tile cull
-    to be tight — it is exact for any order."""
+    Dispatches as the JAX function does (icp.py:481-525): with
+    config.gated and M, N multiples of the tiles, the "pallas" backend runs
+    the pair-list loop on K2 (`_icp_pairs`) and any other backend the
+    gated XLA formulation (`_icp_xla` on ops/nn_gated.gated_nn); otherwise
+    the dense sweep (`_icp_xla` on ops/nn.nearest_neighbor). Both clouds
+    should be spatially coherent (Morton order) for the tile cull to be
+    tight; it is exact for any order."""
+    use_gated = (
+        config.gated
+        and source.shape[0] % config.tile_src == 0
+        and target.shape[0] % config.tile_tgt == 0
+    )
+    if use_gated and config.nn_backend == "pallas":
+        return _icp_pairs(source, source_mask, [(target, target_mask)], initial_T, config)
+    return _icp_xla(source, source_mask, target, target_mask, initial_T, config, use_gated)
+
+
+def _icp_pairs(
+    source: torch.Tensor,
+    source_mask: torch.Tensor,
+    targets: list[tuple[torch.Tensor, torch.Tensor]],
+    initial_T: torch.Tensor,
+    config: ICPConfig,
+    mesh=None,
+) -> ICPResult:
+    """The pair-list loop on K2 (the JAX `_icp_pallas`) against the target
+    shards this process holds, `targets` [(target, target_mask)]: one
+    (the whole map) with `mesh` None. With a mesh (parallel/mesh.Mesh,
+    map-sharded mode, the JAX `axis_name`), every association calls K2
+    once a local shard, each against its own pair list, and
+    `mesh.combine_winners` gathers the (d2, xyz) winners over every shard
+    of the mesh and takes the first argmin over the shard axis (an exact
+    tie keeps the earlier shard) before the gate; the rest of the loop is
+    replicated. `pair_overflow` is then the OR over the shards."""
     dev = source.device
-    pts0_flat, pts, tgt_pages, build_pairs, pairs, pair_overflow = _first_association(
-        source, source_mask, target, target_mask, initial_T, config
+    pts0_flat, pts, tgt_pages, builds, pairs, pair_overflow = _stage(
+        source, source_mask, targets, initial_T, config
     )
     gate = config.max_correspondence_dist_sq
     center = initial_T[:3, 3]
@@ -251,7 +305,11 @@ def icp_align(
     )
 
     def associate(pts_pages, alive_w, pairs):
-        d2, _, xyz = pair_nn(pts_pages, tgt_pages, *pairs)
+        outs = [pair_nn(pts_pages, tp, *pr) for tp, pr in zip(tgt_pages, pairs)]
+        if mesh is None:
+            d2, _, xyz = outs[0]
+        else:
+            d2, xyz = mesh.combine_winners([o[0] for o in outs], [o[2] for o in outs])
         return xyz, alive_w * (d2[:, 0, :] < gate).float()
 
     corr, alive = associate(pts, smask_pages.float(), pairs)
@@ -267,10 +325,11 @@ def icp_align(
     while i < config.num_iterations and not done:
         if bool(moved > config.reassoc_margin):
             # past the margin the dilated list may miss true neighbours:
-            # rebuild it from the current point positions
+            # rebuild each shard's list from the current point positions
             lo_r, hi_r = _pages_bboxes(pts, smask_pages)
-            pairs, ovf = build_pairs(lo_r + center, hi_r + center, cnt_pages)
-            pair_overflow = pair_overflow | ovf
+            rebuilt = [build(lo_r + center, hi_r + center, cnt_pages) for build in builds]
+            pairs = [p for p, _ in rebuilt]
+            pair_overflow = pair_overflow | torch.stack([ovf for _, ovf in rebuilt]).any()
             moved = torch.zeros_like(moved)
         error = _pages_masked_mean_error(pts, corr, alive)
         hit = bool(error < config.acceptable_mean_error)
@@ -285,6 +344,10 @@ def icp_align(
             i += 1
         last_error = error
         done = hit
+    if mesh is not None:
+        # each shard's lists can truncate on their own; any truncation
+        # makes the combined correspondence set suspect
+        pair_overflow = mesh.any(pair_overflow)
     final_T = geometry.make_T(eye, center) @ T
     error_out = last_error if enough else torch.tensor(1e6, device=dev)
     return ICPResult(

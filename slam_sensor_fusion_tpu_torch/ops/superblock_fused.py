@@ -45,7 +45,6 @@ from slam_sensor_fusion_tpu_torch.ops.nn_pallas import MAX_TILE_SRC, _tile_chunk
 from slam_sensor_fusion_tpu_torch.utils.config import LocalizationConfig
 
 _BIG = 3.0e38
-_Q_MAX = 8  # queue slots the kernel's parameter block holds
 
 
 class _SBParams(ctypes.Structure):
@@ -58,7 +57,6 @@ class _SBParams(ctypes.Structure):
         ("mad_lo", ctypes.c_float),
         ("mad_hi", ctypes.c_float),
         ("z_thr", ctypes.c_float),
-        ("wq", ctypes.c_float * _Q_MAX),
         ("num_iterations", ctypes.c_int),
         ("min_corr", ctypes.c_int),
         ("Q", ctypes.c_int),
@@ -69,14 +67,7 @@ class _SBParams(ctypes.Structure):
 
 def _params(config: LocalizationConfig) -> _SBParams:
     icp, filt = config.icp, config.filter
-    Q = filt.queue_size
-    if not 1 <= Q <= _Q_MAX:
-        raise ValueError(f"superblock_fine: queue_size {Q} not in [1, {_Q_MAX}]")
-    # exp(i - Q) weights normalized in double, then rounded to f32 — as the
-    # JAX kernel's Python-float constants are
-    wq = [math.exp(i - Q) for i in range(Q)]
-    s = sum(wq)
-    p = _SBParams(
+    return _SBParams(
         gate=icp.max_correspondence_dist_sq,
         eps=icp.transformation_epsilon,
         acc=icp.acceptable_mean_error,
@@ -85,13 +76,23 @@ def _params(config: LocalizationConfig) -> _SBParams:
         z_thr=filt.z_score_threshold,
         num_iterations=icp.num_iterations,
         min_corr=icp.min_correspondences,
-        Q=Q,
+        Q=filt.queue_size,
         fixed_gains=int(config.fixed_gains),
         lazy=int(icp.mode == "parity"),
     )
-    for i, w in enumerate(wq):
-        p.wq[i] = w / s
-    return p
+
+
+def _queue_weights(Q: int, device: torch.device) -> torch.Tensor:
+    """The filter queue's (Q,) weights exp(i - Q), normalized in double and
+    then rounded to f32, as the JAX kernel's Python-float constants are;
+    copied from pinned memory without a sync (the launch's stream orders
+    it)."""
+    if Q < 1:
+        raise ValueError(f"superblock_fine: queue_size {Q} < 1")
+    wq = [math.exp(i - Q) for i in range(Q)]
+    s = sum(wq)
+    host = torch.tensor([w / s for w in wq], dtype=torch.float32).pin_memory()
+    return host.to(device, non_blocking=True)
 
 
 # ---------------------------------------------------------------------------
@@ -304,13 +305,16 @@ def _superblock_fine(*inputs, global_layout: bool = False):
     scratch = torch.empty((max_pairs, 4, TM), dtype=f32, device=dev)
     # the global layout's points: matched x, y, z and the alive weight
     point_state = torch.empty((nSt, TM, 4), dtype=f32, device=dev)
+    # the leader's filter queue and its next state (any queue size)
+    wq = _queue_weights(Q, dev)
+    qbuf = torch.empty((2, Q, 12), dtype=f32, device=dev)
     ctl = cuda_lib.control_block(dev)
     prm = _params(config)
     err = cuda_lib.lib().sfk_superblock_fine(
         *[t.data_ptr() for t, *_ in args],
         poses.data_ptr(), priors.data_ptr(), odom_preds.data_ptr(),
         stats.data_ptr(), state.data_ptr(), count_out.data_ptr(),
-        scratch.data_ptr(), point_state.data_ptr(), ctl.data_ptr(),
+        scratch.data_ptr(), point_state.data_ptr(), wq.data_ptr(), qbuf.data_ptr(), ctl.data_ptr(),
         K, nSt, TM, TN, max_pairs, int(global_layout), ctypes.addressof(prm),
         cuda_lib.stream_ptr(src_pages),
     )

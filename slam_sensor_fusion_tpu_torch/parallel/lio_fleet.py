@@ -6,14 +6,17 @@ state (`LIOState`, whose slot and frame counters all robots share: they run
 the same frames). Per-robot odometry is embarrassingly parallel. The JAX
 package vmaps `run_lio_blocks` on its XLA backend (the single-shot kernels
 do not vmap) and shards `run_lio_superblocks` over a `dp` mesh, one
-`lax.map` of robots per device. On one card there is no mesh: robots run
-one after another, so B robots cost B launches of the per-frame kernels or
-of K7 a block. Batching robots into one launch is later work.
+`lax.map` of robots per device. The port splits the robots over a
+`parallel/mesh.Mesh` in contiguous blocks (B must be a multiple of its
+shard count): each process runs its block one robot after another (B
+robots cost B launches of the per-frame kernels or of K7 a block), and the
+outputs are gathered over the mesh's processes, so every process returns
+the whole fleet. No other collective is needed. With no mesh one process
+runs every robot. Batching robots into one launch is later work.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from slam_sensor_fusion_tpu_torch.models.lio import (
@@ -24,6 +27,7 @@ from slam_sensor_fusion_tpu_torch.models.lio import (
     run_lio_blocks,
     run_lio_superblocks,
 )
+from slam_sensor_fusion_tpu_torch.parallel.mesh import Mesh, tree_index, tree_stack
 
 
 def _xla_config(config: LIOConfig) -> LIOConfig:
@@ -32,25 +36,6 @@ def _xla_config(config: LIOConfig) -> LIOConfig:
     if config.p2p.nn_backend in ("fused", "pallas"):
         return config._replace(p2p=config.p2p._replace(nn_backend="xla"))
     return config
-
-
-def _map(fn, *trees):
-    """`fn` over the tensors of matching NamedTuples (None and ints kept
-    from the first tree)."""
-    first = trees[0]
-    if isinstance(first, tuple) and hasattr(first, "_fields"):
-        return type(first)(*[_map(fn, *xs) for xs in zip(*trees)])
-    if isinstance(first, torch.Tensor):
-        return fn(*trees)
-    return first
-
-
-def _robot(states: LIOState, b: int) -> LIOState:
-    return _map(lambda x: x[b], states)
-
-
-def _stack(items):
-    return _map(lambda *xs: torch.stack(xs), *items)
 
 
 def fleet_init(
@@ -69,16 +54,23 @@ def fleet_init(
     masks = to(first_masks, torch.bool)
     T0 = to(world_T_body0, torch.float32)
     cfg = _xla_config(config)
-    return _stack([init_state(cfg, s, m, T) for s, m, T in zip(scans, masks, T0)])
+    return tree_stack([init_state(cfg, s, m, T) for s, m, T in zip(scans, masks, T0)])
 
 
-def _per_robot(run, states: LIOState, inputs) -> tuple[LIOState, LIOOutput]:
+def _per_robot(run, states: LIOState, inputs, mesh: Mesh | None) -> tuple[LIOState, LIOOutput]:
+    """`run` for each robot of this process's block in turn, the results
+    stacked and gathered over the mesh."""
+    B = inputs[0].shape[0]
+    block = range(B) if mesh is None else range(*mesh.local_block(B).indices(B))
     finals, outs = [], []
-    for b in range(inputs[0].shape[0]):
-        fin, out = run(_robot(states, b), *[a[b] for a in inputs])
+    for b in block:
+        fin, out = run(tree_index(states, b), *[a[b] for a in inputs])
         finals.append(fin)
         outs.append(out)
-    return _stack(finals), _stack(outs)
+    fin, out = tree_stack(finals), tree_stack(outs)
+    if mesh is not None:
+        fin, out = mesh.gather_tree(fin), mesh.gather_tree(out)
+    return fin, out
 
 
 def fleet_run_lio(
@@ -92,12 +84,14 @@ def fleet_run_lio(
     gps_var: torch.Tensor,  # (B, T)
     gps_valid: torch.Tensor,  # (B, T)
     config: LIOConfig = LIOConfig(),
+    mesh: Mesh | None = None,
 ) -> tuple[LIOState, LIOOutput]:
     """`run_lio_blocks` for each robot on the dense ("xla") registration
-    backend, as the JAX package's vmapped fleet runs it."""
+    backend, as the JAX package's vmapped fleet runs it; the robots split
+    over `mesh` (None: every robot in this process)."""
     cfg = _xla_config(config)
     inputs = (scan_points, scan_mask, imu_gyro, imu_accel, imu_dt, gps_pos, gps_var, gps_valid)
-    return _per_robot(lambda st, *a: run_lio_blocks(st, *a, cfg), states, inputs)
+    return _per_robot(lambda st, *a: run_lio_blocks(st, *a, cfg), states, inputs, mesh)
 
 
 def fleet_run_lio_superblocks(
@@ -111,13 +105,12 @@ def fleet_run_lio_superblocks(
     gps_var: torch.Tensor,  # (B, T)
     gps_valid: torch.Tensor,  # (B, T)
     config: LIOConfig,
-    mesh=None,
+    mesh: Mesh | None = None,
 ) -> tuple[LIOState, LIOOutput]:
     """The production whole-block loop (`run_lio_superblocks`, one K7
-    launch a block) for each robot in turn, as each device of the JAX
-    package's `dp` mesh maps it over its robots. One card holds the whole
-    fleet: `mesh` must be None or name a single device."""
-    if mesh is not None and np.asarray(getattr(mesh, "devices", mesh)).size != 1:
-        raise ValueError("fleet_run_lio_superblocks: the port runs the fleet on one card")
+    launch a block) for each robot of this process's block of `mesh` in
+    turn, as each device of the JAX package's `dp` mesh maps it over its
+    robots (None: every robot in this process). B must be a multiple of
+    the mesh's shard count."""
     inputs = (scan_points, scan_mask, imu_gyro, imu_accel, imu_dt, gps_pos, gps_var, gps_valid)
-    return _per_robot(lambda st, *a: run_lio_superblocks(st, *a, config), states, inputs)
+    return _per_robot(lambda st, *a: run_lio_superblocks(st, *a, config), states, inputs, mesh)

@@ -191,8 +191,8 @@ class LocalizationConfig:
     #: per-re-crop device sort can be skipped: a compact() of a globally
     #: Z-ordered map preserves spatial tile locality inside the crop.
     #: Order-invariant semantics — gated NN is exact within admitted
-    #: pairs and tile admission uses realized point bboxes. The port
-    #: supports only True (models/pipeline_fast.py raises otherwise).
+    #: pairs and tile admission uses realized point bboxes. False sorts
+    #: each crop at re-crop instead (models/localization.recrop).
     presorted_map: bool = True
     #: re-crop the map once we moved this far from the reference frame
     #: (localization_node.cpp:299-305)

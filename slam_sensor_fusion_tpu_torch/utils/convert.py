@@ -27,7 +27,7 @@ from slam_sensor_fusion_tpu_torch.ops.point_to_plane import PointToPlaneConfig
 from slam_sensor_fusion_tpu_torch.ops.stochastic_filter import FilterState
 from slam_sensor_fusion_tpu_torch.ops.voxel_map import VoxelMapState
 from slam_sensor_fusion_tpu_torch.ops.voxel_map_sorted import SortedVoxelMapState
-from slam_sensor_fusion_tpu_torch.parallel.map_shard import ShardedP2PTarget
+from slam_sensor_fusion_tpu_torch.parallel.map_shard import ShardedP2PTarget, SpPipelineState
 from slam_sensor_fusion_tpu_torch.utils.config import (
     BruteForceConfig,
     CloudCapacity,
@@ -180,6 +180,24 @@ def sharded_p2p_target_from_numpy(
     )
 
 
+def sp_state_from_numpy(
+    state, device: torch.device | str = torch.device("cuda")
+) -> SpPipelineState:
+    """An SpPipelineState (the map-sharded loop's carry: pose, odometry
+    reference, filter queue) from the JAX one whose leaves are NumPy
+    arrays."""
+    fs = state.filter_state
+    return SpPipelineState(
+        map_T_sensor=_tensor(state.map_T_sensor, device),
+        odom_T_sensor_previous=_tensor(state.odom_T_sensor_previous, device),
+        filter_state=FilterState(
+            transitions=_tensor(fs.transitions, device),
+            count=_tensor(np.asarray(fs.count, np.int32), device),
+            previous_pose=_tensor(fs.previous_pose, device),
+        ),
+    )
+
+
 def lio_state_from_numpy(
     state, device: torch.device | str = torch.device("cuda")
 ) -> LIOState:
@@ -218,3 +236,14 @@ def sorted_voxel_map_state_from_numpy(
     return SortedVoxelMapState(
         *[_tensor(getattr(state, f), device) for f in SortedVoxelMapState._fields]
     )
+
+
+def sp_voxel_map_state_from_numpy(
+    state, device: torch.device | str = torch.device("cuda")
+) -> VoxelMapState:
+    """The sharded hash store (parallel/voxel_map_shard: a leading shard
+    axis on every leaf) from the JAX one whose leaves are NumPy arrays,
+    every shard's table as it is; the port's insert goes on from it."""
+    if np.ndim(state.keys) != 2:
+        raise ValueError(f"a sharded store's keys are (shards, table), not {np.shape(state.keys)}")
+    return voxel_map_state_from_numpy(state, device)

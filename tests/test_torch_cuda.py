@@ -25,7 +25,10 @@ them in registers. K7 to 3e-4 on poses and state, 1e-4 of max|P| on P,
 1e-4 relative on the stats lanes with EQUAL n_correspondences, GPS
 acceptance and slack flags. The voxel stores' segment sum equals its plain
 version bit for bit, and the sorted and hash stores on the card equal each
-other and their CPU runs bit for bit."""
+other and their CPU runs bit for bit. K1 takes a filter queue of any size
+(12 here) to the same bounds, with its digest at the default 4 unchanged.
+Map-sharded ICP at 4 shards on the card has the CPU run's counts and T to
+1e-4."""
 
 import dataclasses
 
@@ -125,6 +128,19 @@ def test_superblock_kernel_matches_plain(cuda_device, scene):
     want = superblock_fine_plain(*args, cfg)
     torch.cuda.synchronize()
     assert superblock_fine.launches == before + 1
+    compare_superblock([x.cpu().numpy() for x in want], [x.cpu().numpy() for x in got],
+                       args[4].cpu().numpy())
+
+
+def test_superblock_kernel_takes_any_queue_size(cuda_device):
+    """K1 with a 12-pose filter queue (past the 8 its parameter block once
+    held), entered two poses short of full: the queue fills inside the
+    block and the z-score gate runs on it, against the plain version."""
+    cfg, args = superblock_args("parity", device=cuda_device, queue_size=12)
+    got = superblock_fine(*args, cfg)
+    want = superblock_fine_plain(*args, cfg)
+    torch.cuda.synchronize()
+    assert got[6].shape == (12, 4, 4) and int(got[7]) == int(want[7]) == 12
     compare_superblock([x.cpu().numpy() for x in want], [x.cpu().numpy() for x in got],
                        args[4].cpu().numpy())
 
@@ -411,6 +427,34 @@ def test_sp_p2p_align_matches_whole_map_k4(cuda_device, n_shards):
     want = tpf.point_to_plane_align_fused(src, smask, whole, T0, config)
     assert int(got.n_correspondences) == int(want.n_correspondences) > 3000
     torch.testing.assert_close(got.transformation, want.transformation, rtol=0, atol=1e-4)
+
+
+def test_sp_icp_align_on_the_card_matches_the_cpu(cuda_device):
+    """Map-sharded ICP at 4 shards (parallel/map_shard.sp_icp_align, K2 a
+    shard an association) on the card against the same run on the CPU (K2's
+    plain version): EQUAL iterations, correspondence count and overflow, T
+    to 1e-4."""
+    from slam_sensor_fusion_tpu_torch.parallel.dryrun import registration_inputs
+    from slam_sensor_fusion_tpu_torch.parallel.mesh import make_mesh
+
+    def run(device):
+        inp = registration_inputs(device)["icp"]
+        shards, mask = tms.shard_cloud(inp["map_points"], 4, inp["config"].tile_tgt)
+        return tms.sp_icp_align(
+            inp["source"], inp["source_mask"], torch.from_numpy(shards).to(device),
+            torch.from_numpy(mask).to(device), inp["initial_T"], inp["config"],
+            make_mesh(4, "sp", device, single_process=True))
+
+    before = pair_nn.launches
+    got = run(cuda_device)
+    torch.cuda.synchronize()
+    launched = pair_nn.launches - before
+    want = run("cpu")
+    assert launched > 0 and launched % 4 == 0
+    for name in ("iterations", "n_correspondences", "pair_overflow", "has_converged"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+    assert int(got.n_correspondences) == 300
+    torch.testing.assert_close(got.transformation.cpu(), want.transformation, rtol=0, atol=1e-4)
 
 
 #: `p2p_digest` of K4, K5 and K6 as built before their device functions

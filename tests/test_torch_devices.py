@@ -41,6 +41,14 @@ EXPECTED = {
     "utils.convert.state_from_numpy",
     "utils.convert.sorted_voxel_map_state_from_numpy",
     "utils.convert.voxel_map_state_from_numpy",
+    "utils.convert.sp_state_from_numpy",
+    "utils.convert.sp_voxel_map_state_from_numpy",
+    "parallel.mesh.make_mesh",
+    "parallel.batch.batched_init_state",
+    "parallel.map_shard.sp_init_state",
+    "parallel.voxel_map_shard.sp_voxel_map_init",
+    "parallel.dryrun.dryrun_multichip",
+    "parallel.dryrun.registration_inputs",
 }
 
 

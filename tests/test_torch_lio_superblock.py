@@ -40,6 +40,7 @@ from slam_sensor_fusion_tpu_torch.ops import cloud as tcl
 from slam_sensor_fusion_tpu_torch.ops import icp_fused as tif
 from slam_sensor_fusion_tpu_torch.ops import lio_superblock_fused as tsb
 from slam_sensor_fusion_tpu_torch.parallel import lio_fleet
+from slam_sensor_fusion_tpu_torch.parallel.mesh import make_mesh, tree_stack
 from slam_sensor_fusion_tpu_torch.utils.convert import lio_state_from_numpy
 from torch_lio_world import SMALL_LIO, lio_sequence
 from torch_parity import np_tree, t
@@ -217,7 +218,7 @@ def test_fleet_robots_equal_their_solo_runs(runs):
     robots = [core, core[:7] + [np.zeros_like(core[7])]]
     stacked = [torch.stack([t(a), t(b)]) for a, b in zip(*robots)]
     first = runs["st_t"]
-    states = lio_fleet._stack([first, first])
+    states = tree_stack([first, first])
     fin, out = lio_fleet.fleet_run_lio_superblocks(states, *stacked, SB_CONFIG, mesh=None)
     assert out.world_T_body.shape == (2, N_STEPS, 4, 4)
     for b, frames in enumerate(robots):
@@ -228,8 +229,14 @@ def test_fleet_robots_equal_their_solo_runs(runs):
         assert torch.equal(fin.ring[b], fin_b.ring)
         assert fin_b.slot == fin.slot == 8
     assert not out.gps_accepted[1].any() and out.gps_accepted[0].any()
-    with pytest.raises(ValueError, match="one card"):
-        lio_fleet.fleet_run_lio_superblocks(states, *stacked, SB_CONFIG, mesh=["a", "b"])
+    # the robots split over a mesh of 2 shards give the same fleet; a mesh
+    # whose shard count does not divide the robots is refused
+    _, out2 = lio_fleet.fleet_run_lio_superblocks(
+        states, *stacked, SB_CONFIG, mesh=make_mesh(2, device="cpu", single_process=True))
+    assert torch.equal(out2.world_T_body, out.world_T_body)
+    with pytest.raises(ValueError, match="multiple of mesh size"):
+        lio_fleet.fleet_run_lio_superblocks(
+            states, *stacked, SB_CONFIG, mesh=make_mesh(3, device="cpu", single_process=True))
 
 
 def test_fleet_init_stacks_robots():

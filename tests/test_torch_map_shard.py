@@ -29,6 +29,7 @@ from slam_sensor_fusion_tpu.parallel.mesh import make_mesh
 from slam_sensor_fusion_tpu_torch.ops import p2p_fused as tf
 from slam_sensor_fusion_tpu_torch.ops.point_to_plane import PointToPlaneConfig
 from slam_sensor_fusion_tpu_torch.parallel import map_shard as tms
+from slam_sensor_fusion_tpu_torch.parallel.mesh import make_mesh as t_make_mesh
 from slam_sensor_fusion_tpu_torch.utils.convert import sharded_p2p_target_from_numpy
 from torch_lio_world import p2p_scene
 from torch_parity import np_tree, t
@@ -115,7 +116,8 @@ def test_cross_shard_tie_keeps_the_earlier_shard(world):
     cfg = PointToPlaneConfig(**CFG)
     d2s, qns = zip(*[tf.associate_p2p_fused(src, smask, target.shard(s), torch.eye(4), cfg)
                      for s in range(N_SHARDS)])
-    d2, qn = tms.combine_shard_winners(list(d2s), list(qns))
+    mesh = t_make_mesh(N_SHARDS, "sp", "cpu", single_process=True)
+    d2, qn = mesh.combine_winners(list(d2s), list(qns))
     TM = cfg.tile_src
     for s, k in enumerate(ties):
         i, r = divmod(int(k), TM)
@@ -126,7 +128,7 @@ def test_cross_shard_tie_keeps_the_earlier_shard(world):
         assert float(qn[i, 3:, r].abs().sum()) == 0.0  # the earlier copy's invalid normal
         assert float(qns[s + 1][i, 3:, r].abs().sum()) > 0.5
     # the later shard winning instead would count every tie point
-    d2_r, qn_r = tms.combine_shard_winners(list(d2s[::-1]), list(qns[::-1]))
+    d2_r, qn_r = mesh.combine_winners(list(d2s[::-1]), list(qns[::-1]))
     first = tf.p2p_gn_from_correspondences(src, smask, d2, qn, torch.eye(4), target.center, cfg)
     later = tf.p2p_gn_from_correspondences(src, smask, d2_r, qn_r, torch.eye(4), target.center,
                                            cfg)

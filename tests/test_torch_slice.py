@@ -93,9 +93,10 @@ def test_port_imports_no_jax():
 
 
 def test_run_chunk_fast_rejects_what_the_port_does_not_run(world):
-    """The port runs whole superblocks on a presorted map only; with
-    block_kernel=False the superblock runs frame by frame (one K3 call a
-    frame) and reports the same per-frame fields."""
+    """The port runs whole superblocks only (a chunk must be a multiple of
+    the superstep); with block_kernel=False the superblock runs frame by
+    frame (one K3 call a frame) and reports the same per-frame fields; a
+    map that is not presorted is Morton-sorted at each re-crop."""
     import dataclasses
 
     from slam_sensor_fusion_tpu_torch.models import localization as tl
@@ -117,6 +118,23 @@ def test_run_chunk_fast_rejects_what_the_port_does_not_run(world):
     assert (out.n_correspondences > 100).all() and not out.pair_overflow.any()
     assert out.slack_violation is not None and out.pair_demand is not None
     torch.testing.assert_close(final.map_T_sensor, out.map_T_sensor[-1])
-    with pytest.raises(ValueError, match="presorted"):
-        tl.recrop(loc.map_cloud, state.map_T_sensor[:3, 3],
-                  dataclasses.replace(SLICE_CONFIG, presorted_map=False))
+    # without a presorted map the crop is Morton-sorted at re-crop: the
+    # same points as the presorted crop, in the crop's own Z-order
+    from slam_sensor_fusion_tpu_torch.ops import morton
+
+    centre = state.map_T_sensor[:3, 3]
+    kept, _ = tl.recrop(loc.map_cloud, centre, SLICE_CONFIG)
+    cropped, cache = tl.recrop(loc.map_cloud, centre,
+                               dataclasses.replace(SLICE_CONFIG, presorted_map=False))
+    assert torch.equal(cropped.mask, kept.mask)
+    n = int(kept.mask.sum())
+
+    def rows(x):
+        return np.unique(x[:n].numpy(), axis=0)
+
+    np.testing.assert_array_equal(rows(cropped.points), rows(kept.points))
+    lo, hi = morton.cloud_box(cropped)
+    codes = morton.morton_codes(cropped.points, cropped.mask, lo, hi)
+    assert bool((codes[1:] >= codes[:-1]).all())
+    assert cache.pages.shape == (SLICE_CONFIG.capacity.cropped_map // SLICE_CONFIG.icp.tile_tgt, 3,
+                                 SLICE_CONFIG.icp.tile_tgt)

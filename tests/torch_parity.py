@@ -14,6 +14,7 @@ import dataclasses
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from slam_sensor_fusion_tpu.utils import config as jc
@@ -49,3 +50,15 @@ def np_tree(x):
 def t(a) -> torch.Tensor:
     """NumPy (or JAX) array -> CPU torch tensor, dtype kept."""
     return torch.from_numpy(np.array(a))
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """torch on one thread for a module, restored after it: the port's plain
+    kernels issue many small operations, and under the suite's parallel
+    workers their thread pools oversubscribe the cores (results do not
+    change: the modules using it compare within one setting or to JAX)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)

@@ -70,14 +70,21 @@ def mode_config(mode):
     return dataclasses.replace(SLICE_CONFIG, icp=dataclasses.replace(SLICE_CONFIG.icp, mode=mode))
 
 
-def superblock_args(mode, device="cpu", invalid=(3,), src_tiles=None, ties=False):
+def superblock_args(mode, device="cpu", invalid=(3,), src_tiles=None, ties=False,
+                    queue_size=None):
     """One superblock's K1 inputs from the port's prologue: the first 8
     frames after the GPS start, the frames in `invalid` invalid.
     `src_tiles` = (nSt, TM) re-tiles the cropped scan (nSt * TM points);
     `ties` copies each even target row over the odd row after it, so every
-    tile minimum is an exact tie of two rows."""
+    tile minimum is an exact tie of two rows. `queue_size` sets the
+    stochastic filter's queue and enters the block with it two poses short
+    of full, every slot holding one GPS step, so the block fills it and
+    then runs the z-score gate on a full queue."""
     seq, map_data = build_world(n_frames=9, seed=2)
     cfg = mode_config(mode)
+    if queue_size is not None:
+        cfg = dataclasses.replace(
+            cfg, filter=dataclasses.replace(cfg.filter, queue_size=queue_size))
     if src_tiles is not None:
         n_tiles, tile_src = src_tiles
         cfg = dataclasses.replace(
@@ -99,6 +106,14 @@ def superblock_args(mode, device="cpu", invalid=(3,), src_tiles=None, ties=False
     )
     pro = tpf.superstep_prologue(state, blk, loc.map_cloud, cfg)
     fs = state.filter_state
+    if queue_size is not None:
+        step = np.linalg.inv(gps_T[0].astype(np.float64)) @ gps_T[1]
+        fs = fs._replace(
+            transitions=torch.from_numpy(np.tile(step.astype(np.float32), (queue_size, 1, 1)))
+            .to(device),
+            count=torch.tensor(queue_size - 2, dtype=torch.int32, device=device),
+            previous_pose=state.map_T_sensor,
+        )
     tgt_pages = pro.cached_target.pages
     if ties:
         tgt_pages = tgt_pages.clone()
