@@ -165,6 +165,23 @@ check exits non-zero:
      staging), running sp_icp_align, sp_p2p_align (phase 6's anchor map)
      and sharded_brute_force_align bit-equal to this process's 4 shards;
      dryrun_multichip(4) on the card.
+ 12. the public helpers on the card at full width: gated_nn_pallas (K2)
+     on phase 3's first steady frame (the cropped scan, 4 x 1024 rows
+     under that frame's pose, against the Morton-sorted cropped map, 128 x
+     512, at the ICP gate), with a roomy pair list and a truncating one;
+     voxel_downsample (voxel_segment_sum) on phase 9's first deskewed
+     scan (16 384 rows) and group (131 072 rows) at 0.2 m, anchored at the
+     masked min corner and at bench_map's anchor (where the int32 voxel
+     ids wrap); masked_points, to_numpy, rotation, translation and svd3x3.
+     Requires each result equal to the same call on CPU copies (K2's idx
+     and overflow, d2 to 1e-5 relative; the voxel grid bit for bit;
+     svd3x3's S to 3e-6 of the largest, U diag(S) Vh to 1e-5 of H), K2's
+     choice and d2 within 1e-4 m^2 of a float64 dense search on every row
+     with a neighbour in the gate, the voxel grid's cells equal to
+     voxel_downsample_numpy's to 1e-4 m (rows on a float32/float64 cell
+     boundary left out), one K2 launch a gated call and one
+     voxel_segment_sum launch a downsample; prints each call's ms, the
+     card's busy ms of it (profiler), its CPU ms and its bound.
 
 Phase 2 also holds K3 against its plain version (fresh and lazy, at the
 session's shapes), the per-frame superblock branch (K3 lazy) against K1 on
@@ -173,7 +190,7 @@ K6(K5(x)) against K4 on a steady-state frame of the LIO world (frame 33,
 the ring full) against the anchor its block starts with (with K5's scan
 and combine and K6's device time under the profiler), and K7 against
 its plain version on the block of frames 33-48 from the same state.
-Every kernel's launch count is set to 0 before each path of phases 3-9
+Every kernel's launch count is set to 0 before each path of phases 3-12
 and read after it.
 
 The line before the last is the kernels' JSON record (time, plain time,
@@ -182,9 +199,11 @@ card could take for the same work; K1 also its steady-state time and its
 times at the JAX package's tile shapes, K2 at the stress tiles, K3 its
 lazy times and at 4 x 4096, K4 its fresh-correspondence times, K5 and K6
 their device times alone and a frame of sp_p2p_align at 1 and 4 shards;
-K1-K5 and K7 their grids, K6 its cluster; voxel_segment_sum its tie-heavy
-times, `index_add_`'s time as its library_ms and phase 9's frames/s, ms an
-insert and idle share of each store); the last line is
+K1-K5 and K7 their grids, K6 its cluster; K2 also gated_nn_pallas's time,
+CPU time, bound and busy device time; voxel_segment_sum its tie-heavy times, `index_add_`'s
+time as its library_ms, phase 9's frames/s, ms an insert and idle share
+of each store, and voxel_downsample's time, CPU time, bound and busy
+device time on a group); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -239,6 +258,15 @@ K1_TOL = 3e-4  # poses/priors/state: tests/test_superblock_kernel.py's bound
 K3_TOL = 3e-4  # poses, the same bound; the ICP error to K3_ERR_TOL
 K3_ERR_TOL = 1e-3
 K2_RTOL = 1e-5  # d2, relative
+#: gated_nn_pallas against a float64 dense search, within the gate (m^2):
+#: its choice's distance to the minimum, its d2 to its choice's distance
+#: (K2's expanded float32 form at coordinates up to ~10 m rounds by ~2e-5)
+DENSE_TOL = 1e-4
+VOXEL_TOL = 1e-4  # m: voxel_downsample's float32 centroids against the host merge's float64
+#: svd3x3's S on the card (cuSOLVER) against the CPU's (LAPACK), relative to
+#: the largest: two backward-stable algorithms, each some ulps of it off
+SVD_RTOL = 3e-6
+SVD_TOL = 1e-5  # |U diag(S) Vh - H|
 K4_TOL = 3e-4  # T of K4 and K6
 K4_RTOL = 1e-4  # rmse, wr2 and the 21 JtJ lanes, relative
 K5_RTOL = 1e-6  # d2, relative; the matched pages are equal
@@ -1675,6 +1703,212 @@ def phase11(dev, tag, kernels, record, p) -> dict:
     return res
 
 
+def voxel_reference(points, mask, origin, voxel: float, grid_dim: int):
+    """`voxel_downsample_numpy`'s centroids in `voxel_downsample`'s row
+    order, for the rows whose float32 cell (the device's arithmetic) is
+    their float64 cell (the host merge's): (kept rows (N,) bool, centroids
+    (n, 3)). Fails where the wrapped ids of two cells collide or a cell
+    lies off the grid. The host merge numbers cells in (i, j, k) order; the
+    device in the order of their int32 ids, (i * g + j) * g + k wrapped."""
+    from slam_sensor_fusion_tpu_torch.ops.cloud import voxel_downsample_numpy
+
+    p32 = points.cpu().numpy()
+    o32 = np.asarray(origin, np.float32)
+    c64 = np.floor((p32.astype(np.float64) - o32.astype(np.float64)) / voxel)
+    c32 = np.floor((p32 - o32) / np.float32(voxel))
+    kept = mask.cpu().numpy() & (c32 == c64).all(axis=1)
+    cells = np.unique(c64[kept].astype(np.int64), axis=0)  # (i, j, k) order
+    if not ((cells >= 0) & (cells < grid_dim)).all():
+        fail("voxel_downsample reference: a cell lies off the grid")
+    lin = (cells[:, 0] * grid_dim + cells[:, 1]) * grid_dim + cells[:, 2]
+    wrapped = (lin + 2**31) % 2**32 - 2**31
+    if len(np.unique(wrapped)) != len(cells):
+        fail("voxel_downsample reference: two cells share a wrapped id")
+    want = voxel_downsample_numpy(p32[kept], voxel, origin=o32)
+    return kept, want[np.argsort(wrapped, kind="stable")]
+
+
+def phase12(dev, tag, kernels, record, launches, p) -> dict:
+    """The public helpers on the card at full width (`p`: phase 3's first
+    steady frame, phase 9's first group): `gated_nn_pallas` (K2) on the
+    cropped scan against the cropped map, `voxel_downsample`
+    (voxel_segment_sum) on a scan and a group, then `masked_points`,
+    `to_numpy`, `rotation`, `translation` and `svd3x3`; each against the
+    same call on CPU copies, K2's against a dense search too and the voxel
+    grid against the host merge. Returns the numbers for the kernels'
+    record."""
+    from slam_sensor_fusion_tpu_torch.ops import cloud as cl
+    from slam_sensor_fusion_tpu_torch.ops import geometry as geo
+    from slam_sensor_fusion_tpu_torch.ops.nn_gated import build_visit_lists
+    from slam_sensor_fusion_tpu_torch.ops.nn_pallas import gated_nn_pallas, pair_nn
+    from slam_sensor_fusion_tpu_torch.ops.voxel_segsum import segment_sum_sorted
+
+    t0 = time.perf_counter()
+    res = {}
+    icp = p["config"].icp
+    TM, TN = icp.tile_src, icp.tile_tgt
+    pages, cnt, pose = p["frame_pages"], p["frame_cnt"], p["pose"]
+    src = geo.transform_points(pose, pages.transpose(1, 2).reshape(-1, 3))
+    smask = (torch.arange(TM, device=dev)[None, :] < cnt[:, None]).reshape(-1)
+    tgt, tmask = p["cropped_map"].points, p["cropped_map"].mask
+    center = geo.translation(pose).contiguous()
+    r2 = icp.max_correspondence_dist_sq
+    nSt = src.shape[0] // TM
+    _, counts, _ = build_visit_lists(src, smask, tgt, tmask, r2, TM, TN, icp.max_visits)
+    demand = int(counts.sum())
+    nn_args = (src, smask, tgt, tmask, center, r2)
+    nn_kw = {
+        "full": dict(tile_src=TM, tile_tgt=TN, max_visits=icp.max_visits,
+                     max_pairs=nSt * icp.max_pairs_factor),
+        "truncated": dict(tile_src=TM, tile_tgt=TN, max_visits=icp.max_visits,
+                          max_pairs=demand // 2),
+    }
+    MAP_GRID = 2048  # voxel_downsample's default grid
+    rows = {"scan": (p["scan"], MAP_SCAN_CAP), "group": (p["group"], MAP_GROUP * MAP_SCAN_CAP)}
+    vox_cases = {(k, o): (pm, n, o) for k, (pm, n) in rows.items() for o in ("min", "map")}
+
+    map_origin = torch.tensor(MAP_ORIGIN, device=dev)
+
+    def vox(points, mask, n, origin):
+        o = None if origin == "min" else map_origin.to(points.device)
+        return cl.voxel_downsample(cl.Cloud(points, mask), MAP_VOXEL, n, origin=o)
+
+    # the main path: each helper once on the card, launches counted
+    zero_counts(*kernels)
+    nn_got = {k: gated_nn_pallas(*nn_args, **kw) for k, kw in nn_kw.items()}
+    vox_got = {k: vox(*pm, n, o) for k, (pm, n, o) in vox_cases.items()}
+    torch.cuda.synchronize()
+    record("public_helpers")
+    n_k2, n_seg = launches[pair_nn]["public_helpers"], launches[segment_sum_sorted]["public_helpers"]
+    if n_k2 != len(nn_kw) or n_seg != len(vox_cases):
+        fail(f"public helpers: K2 launched {n_k2} times for {len(nn_kw)} calls, "
+             f"voxel_segment_sum {n_seg} for {len(vox_cases)}")
+
+    # gated_nn_pallas against its CPU run (the plain K2) and a dense search
+    cpu_args = tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in nn_args)
+    for k, kw in nn_kw.items():
+        t1 = time.perf_counter()
+        want = gated_nn_pallas(*cpu_args, **kw)
+        plain_s = time.perf_counter() - t1
+        got = nn_got[k]
+        if bool(got.overflow) != bool(want.overflow) or bool(got.overflow) != (k == "truncated"):
+            fail(f"gated_nn_pallas {k}: overflow {bool(got.overflow)} on the card, "
+                 f"{bool(want.overflow)} on the CPU")
+        if not torch.equal(got.idx.cpu(), want.idx):
+            fail(f"gated_nn_pallas {k}: idx differs from the CPU run on "
+                 f"{int((got.idx.cpu() != want.idx).sum())} rows")
+        rel = ((got.d2.cpu() - want.d2).abs() / want.d2.abs().clamp(min=1e-30)).max().item()
+        if rel > K2_RTOL:
+            fail(f"gated_nn_pallas {k}: d2 relative error {rel} > {K2_RTOL} against the CPU run")
+        if k == "full":
+            res["gnn_plain_ms"] = plain_s * 1e3
+        print(f"gated_nn_pallas {k} (max_pairs {kw['max_pairs']}, tile-pair demand {demand}): "
+              f"idx and overflow ({bool(got.overflow)}) equal the CPU run, d2 rel {rel:.2e}; "
+              f"CPU {plain_s * 1e3:.1f} ms [{tag}]", flush=True)
+    full = nn_got["full"]
+    s64, t64 = src.double(), tgt.double()
+    t_norm = torch.where(tmask, (t64 * t64).sum(-1), torch.inf)
+    dmin, darg = [], []
+    for i0 in range(0, s64.shape[0], 1024):
+        s = s64[i0:i0 + 1024]
+        d2 = (s * s).sum(-1)[:, None] - 2.0 * s @ t64.T + t_norm[None, :]
+        m, a = d2.min(dim=1)
+        dmin.append(m)
+        darg.append(a)
+    dmin, darg = torch.cat(dmin), torch.cat(darg)
+    inside = smask & (dmin < r2)
+    exact = ((s64 - t64[full.idx.long()]) ** 2).sum(-1)  # its choice's distance
+    off_choice = (exact - dmin)[inside].abs().max().item()
+    off_d2 = (full.d2.double() - exact)[inside].abs().max().item()
+    if off_choice > DENSE_TOL or off_d2 > DENSE_TOL:
+        fail(f"gated_nn_pallas: within the gate its choice is {off_choice:.2e} m^2 from the dense "
+             f"minimum and its d2 {off_d2:.2e} m^2 from its choice's (> {DENSE_TOL})")
+    n_in = int(inside.sum())
+    n_other = int((full.idx.long() != darg)[inside].sum())
+    print(f"gated_nn_pallas vs a dense search (float64) on {n_in} of {int(smask.sum())} rows with a "
+          f"neighbour in the gate: choice within {off_choice:.2e} m^2 of the minimum, d2 within "
+          f"{off_d2:.2e} m^2; {n_other} rows chose another point at that distance [{tag}]",
+          flush=True)
+    res["gnn_ms"] = time_ms(lambda: gated_nn_pallas(*nn_args, **nn_kw["full"]), 20)
+    # every kernel of a call ("" is in every name): the card's busy time
+    res["gnn_device_ms"] = device_ms(lambda: gated_nn_pallas(*nn_args, **nn_kw["full"]), 10, ("",))
+    res["gnn_bound"] = bound(
+        min(demand, nn_kw["full"]["max_pairs"]) * TM * TN * FLOP_PER_DISTANCE,
+        nbytes(*nn_args[:5]) + nbytes(full.d2, full.idx, full.overflow),
+    )
+    print(f"gated_nn_pallas ({nSt} x {TM} source rows, {tgt.shape[0] // TN} x {TN} target, "
+          f"{min(demand, nn_kw['full']['max_pairs'])} tile pairs): {res['gnn_ms']:.4f} ms a call, "
+          f"the card busy {res['gnn_device_ms']} ms of it (profiler), "
+          f"CPU {res['gnn_plain_ms']:.1f} ms, bound {res['gnn_bound'][0]:.4f} ms "
+          f"({res['gnn_bound'][1]}) [{tag}]", flush=True)
+
+    # voxel_downsample against its CPU run (bits) and the host merge (sets)
+    for (k, o), (pm, n, _) in vox_cases.items():
+        pts, msk = pm
+        got = vox_got[k, o]
+        t1 = time.perf_counter()
+        want = vox(pts.cpu(), msk.cpu(), n, o)
+        plain_s = time.perf_counter() - t1
+        if not (torch.equal(got.points.cpu(), want.points) and torch.equal(got.mask.cpu(), want.mask)):
+            fail(f"voxel_downsample {k}, origin {o}: the card differs from the CPU run")
+        origin = (torch.where(msk[:, None], pts, torch.inf).amin(0).cpu().numpy() if o == "min"
+                  else np.asarray(MAP_ORIGIN, np.float32))
+        kept, ref = voxel_reference(pts, msk, origin, MAP_VOXEL, MAP_GRID)
+        sub = cl.voxel_downsample(cl.Cloud(pts, torch.from_numpy(kept).to(dev)), MAP_VOXEL, n,
+                                  origin=torch.from_numpy(origin).to(dev))
+        u = ref.shape[0]
+        sm = sub.mask.cpu().numpy()
+        if not (sm[:u].all() and not sm[u:].any()):
+            fail(f"voxel_downsample {k}, origin {o}: {int(sm.sum())} cells against the host "
+                 f"merge's {u}")
+        err = float(np.abs(sub.points.cpu().numpy()[:u] - ref).max())
+        if err > VOXEL_TOL:
+            fail(f"voxel_downsample {k}, origin {o}: centroids {err:.2e} m from the host merge's")
+        neg = int((sub.points[:u, 0] - float(origin[0]) >= 512 * MAP_VOXEL).sum())
+        print(f"voxel_downsample {k} ({n} rows, origin {o}): {int(got.mask.sum())} cells, bits equal "
+              f"the CPU run (CPU {plain_s * 1e3:.1f} ms); {u} cells over {int(kept.sum())} rows "
+              f"({int(msk.sum()) - int(kept.sum())} on a float32/float64 cell boundary left out) "
+              f"equal the host merge's to {err:.2e} m, {neg} of them at i >= 512 (negative ids) "
+              f"[{tag}]", flush=True)
+        if (k, o) == ("group", "map"):
+            res["vox_plain_ms"] = plain_s * 1e3
+    gpts, gmsk = p["group"]
+    res["vox_ms"] = time_ms(lambda: vox(gpts, gmsk, MAP_GROUP * MAP_SCAN_CAP, "map"), 20)
+    res["vox_device_ms"] = device_ms(lambda: vox(gpts, gmsk, MAP_GROUP * MAP_SCAN_CAP, "map"), 10,
+                                     ("",))
+    gout = vox_got["group", "map"]
+    res["vox_bound"] = bound(4 * int(gmsk.sum()), nbytes(gpts, gmsk) + nbytes(*gout))
+    print(f"voxel_downsample group ({gpts.shape[0]} rows, bench_map's anchor): {res['vox_ms']:.4f} "
+          f"ms a call, the card busy {res['vox_device_ms']} ms of it (profiler), CPU "
+          f"{res['vox_plain_ms']:.1f} ms, bound {res['vox_bound'][0]:.5f} ms "
+          f"({res['vox_bound'][1]}) [{tag}]", flush=True)
+
+    # masked_points, to_numpy, rotation, translation, svd3x3: the card's
+    # results against the CPU's
+    scan = cl.Cloud(src, smask)
+    cscan = cl.Cloud(src.cpu(), smask.cpu())
+    if not torch.equal(cl.masked_points(scan).cpu(), cl.masked_points(cscan)):
+        fail("masked_points: the card differs from the CPU")
+    if not np.array_equal(cl.to_numpy(scan), cl.to_numpy(cscan)):
+        fail("to_numpy: the card differs from the CPU")
+    for f in (geo.rotation, geo.translation):
+        if not torch.equal(f(pose).cpu(), f(pose.cpu())):
+            fail(f"{f.__name__}: the card differs from the CPU")
+    H = torch.from_numpy(np.random.default_rng(12).normal(size=(64, 3, 3)).astype(np.float32))
+    U, S, Vh = geo.svd3x3(H.to(dev))
+    _, S_cpu, _ = geo.svd3x3(H)
+    s_rel = ((S.cpu() - S_cpu).abs() / S_cpu[:, :1]).max().item()
+    rebuild = ((U * S[:, None, :]) @ Vh - H.to(dev)).abs().max().item()
+    if s_rel > SVD_RTOL or rebuild > SVD_TOL:
+        fail(f"svd3x3: S {s_rel:.2e} (relative) from the CPU's, rebuild {rebuild:.2e}")
+    print(f"masked_points, to_numpy, rotation, translation equal the CPU's; svd3x3 of 64 3x3 on "
+          f"the card: S within {s_rel:.2e} of the CPU's (relative to the largest), U diag(S) Vh "
+          f"within {rebuild:.2e} of H [{tag}]", flush=True)
+    print(f"phase 12 public helpers: {time.perf_counter() - t0:.1f} s; launches K2 {n_k2}, "
+          f"voxel_segment_sum {n_seg} [{tag}]", flush=True)
+    return res
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # ---- 0. the device ----
@@ -2179,6 +2413,9 @@ def main() -> None:
             fail(f"ATE-RMSE {ate} >= {ATE_LIMIT}")
     record("superblocks")
     # phase 11 starts from this path's world, state and paged frames
+    # phase 12 runs the public helpers on the first steady frame
+    p12 = dict(config=config, cropped_map=state.cropped_map, frame_pages=frames.src_pages[0],
+               frame_cnt=frames.src_cnt[0], pose=out.map_T_sensor[0])
     p11 = dict(config=config, loc=loc, state=state, seq=seq, gps_T=gps_T, frames=frames,
                cscan=cscan, coarse_T=coarse.map_T_sensor,
                bf=(bf_scan.points, bf_scan.mask, bf_map.points, bf_map.mask,
@@ -2728,6 +2965,8 @@ def main() -> None:
     worlds = [group_world(map_groups, g) for g in range(n_map_groups)]
     masks = map_groups[1].reshape(len(worlds), -1)
     p11.update(map_worlds=worlds, map_masks=masks, hash_config=hcfg)
+    p12.update(group=(worlds[0], masks[0]),
+               scan=(worlds[0][:MAP_SCAN_CAP], masks[0][:MAP_SCAN_CAP]))
     t1 = time.perf_counter()
     cst = sorted_voxel_map_init(scfg, MAP_ORIGIN, "cpu")
     gst = sorted_voxel_map_init(scfg, MAP_ORIGIN, dev)
@@ -2840,6 +3079,11 @@ def main() -> None:
     # form, the dry run ----
     r11 = phase11(dev, tag, kernels, record, p11)
 
+    # ---- 12. the public helpers: gated_nn_pallas (K2), voxel_downsample
+    # (voxel_segment_sum), masked_points, to_numpy, rotation, translation,
+    # svd3x3 ----
+    r12 = phase12(dev, tag, kernels, record, launches, p12)
+
     for kernel in kernels:
         if not sum(launches[kernel].values()):
             fail(f"{kernel.__name__} never launched on a main path")
@@ -2876,7 +3120,10 @@ def main() -> None:
             device_ms_16x4096=x["k2_device_ms"], grid=grids["K2 scan"],
             scratch_bytes_kitti=p10["kitti_scratch"]["K2"],
             grid_16x4096=grids["K2 scan 16x4096"], sp_scans_s=r11["sp_scans_s"],
-            sp_launches_a_frame=r11["sp_k2_a_frame"]),
+            sp_launches_a_frame=r11["sp_k2_a_frame"], ms_gated_nn_pallas=r12["gnn_ms"],
+            plain_ms_gated_nn_pallas=r12["gnn_plain_ms"],
+            bound_ms_gated_nn_pallas=r12["gnn_bound"][0],
+            device_ms_gated_nn_pallas=r12["gnn_device_ms"]),
         row(_fused_core, "K3 icp_fused", "slam_sensor_fusion_tpu_torch/csrc/icp_fused.cu",
             "slam_sensor_fusion_tpu/ops/icp_fused.py:131",
             max(k3_err, k3l_err, x["k3_fresh_err"], x["k3_lazy_err"]), k3_ms, k3_plain_ms, k3_bound,
@@ -2915,7 +3162,10 @@ def main() -> None:
             map_frames_s={k: v["frames_s"] for k, v in map_ms.items()},
             map_ms_an_insert={k: v["flush_ms"] for k, v in map_ms.items()},
             map_idle={k: v["idle"] for k, v in map_ms.items()},
-            sp_map_frames_s=r11["sp_map_frames_s"]),
+            sp_map_frames_s=r11["sp_map_frames_s"], ms_voxel_downsample=r12["vox_ms"],
+            plain_ms_voxel_downsample=r12["vox_plain_ms"],
+            bound_ms_voxel_downsample=r12["vox_bound"][0],
+            device_ms_voxel_downsample=r12["vox_device_ms"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -19,7 +19,9 @@ Layout mirrors the JAX package, with the same module and function names:
   models/   host map build and StreamingMapper, localization (startup,
             per-frame engine, Localizer.run and its debug branch), the
             superblock pipeline, the EKF and LIO loops, online sessions
-  parallel/ the LIO fleet and the map-sharded registration on one card
+  parallel/ the multi-device layer on torch.distributed: the mesh, the
+            localization and LIO fleets, the sharded brute force, the
+            map-sharded ICP and registration, the sharded voxel store
   utils/    config tree, synthetic world, KITTI loader, autosize, map_data
             I/O, profiling, viz, roofline, state conversion from the JAX
             package's arrays
@@ -38,3 +40,11 @@ import torch as _torch
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
+
+from slam_sensor_fusion_tpu_torch.utils.config import (  # noqa: E402, F401
+    ICPConfig,
+    BruteForceConfig,
+    StochasticFilterConfig,
+    LocalizationConfig,
+    MappingConfig,
+)

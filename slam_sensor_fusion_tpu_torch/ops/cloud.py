@@ -13,6 +13,9 @@ Reference ports:
 * remove_floor        <- removeFloor (:76-92) (keeps z > 0)
 * voxel_downsample_numpy <- pcl::VoxelGrid centroid mode
                          (global_map_frames_manager.cpp:143-146)
+* voxel_downsample    <- the same on the device: a stable sort of the voxel
+                         ids, then the order-exact segment sum
+                         (ops/voxel_segsum)
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from slam_sensor_fusion_tpu_torch.ops.voxel_segsum import segment_sum_sorted
 
 
 class Cloud(NamedTuple):
@@ -57,6 +62,12 @@ def from_numpy(
     return Cloud(
         torch.from_numpy(buf).to(device), torch.from_numpy(mask).to(device)
     )
+
+
+def to_numpy(cloud: Cloud) -> np.ndarray:
+    """The valid points of a cloud as a host (n, 3) array."""
+    pts = cloud.points.detach().cpu().numpy()
+    return pts[cloud.mask.detach().cpu().numpy()]
 
 
 def uniform_subsample(cloud: Cloud, step: int) -> Cloud:
@@ -159,6 +170,77 @@ def packed_sample_indices(
     first = torch.zeros_like(idx[..., :1], dtype=torch.bool)
     dup = torch.cat([first, idx[..., 1:] == idx[..., :-1]], dim=-1)
     return idx, (idx < n) & ~dup
+
+
+def masked_points(cloud: Cloud, fill: float = float("inf")) -> torch.Tensor:
+    """Points with invalid rows replaced by ``fill`` (for NN targets)."""
+    return torch.where(cloud.mask[:, None], cloud.points, fill)
+
+
+def _saturating_int32(f: torch.Tensor) -> torch.Tensor:
+    """float -> int32 as XLA converts: out-of-range values saturate at the
+    int32 limits and NaN becomes 0 (torch's own cast of such values is
+    undefined, so the range is fixed in float and int64 first)."""
+    f = torch.nan_to_num(f, nan=0.0).clamp(-(2.0**31), 2.0**31)
+    return f.to(torch.int64).clamp(-(2**31), 2**31 - 1).to(torch.int32)
+
+
+def _wrap_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 with two's-complement wrap-around, as int32
+    arithmetic in XLA overflows."""
+    return ((x + 2**31) % 2**32 - 2**31).to(torch.int32)
+
+
+def voxel_downsample(
+    cloud: Cloud,
+    voxel_size: float,
+    out_capacity: int,
+    origin: torch.Tensor | None = None,
+    grid_dim: int = 2048,
+) -> Cloud:
+    """Centroid-per-voxel downsample with a fixed output capacity (the JAX
+    package's device voxel grid, cloud.py:229-281).
+
+    Voxel ids are linearized over a ``grid_dim``^3 grid anchored at
+    ``origin`` (default: the masked min corner, a non-finite component 0)
+    as ``(i * grid_dim + j) * grid_dim + k`` in int32 WITH wrap-around, as
+    the JAX function computes them: at the default grid_dim, cells 1024
+    apart in i share an id and i >= 512 gives negative ids, which sort
+    first. Masked rows take the id int32 max. Rows are sorted by id
+    (stable: a voxel's rows keep their order), each voxel numbered in id
+    order, and the first ``out_capacity`` voxels summed by the order-exact
+    segment sum with the counts as a fourth column; voxels past
+    ``out_capacity`` are dropped. On the CPU the same bits as the JAX
+    function."""
+    dev = cloud.points.device
+    pts, mask = cloud.points, cloud.mask
+    if origin is None:
+        origin = torch.where(mask[:, None], pts, torch.inf).amin(dim=0)
+        origin = torch.where(torch.isfinite(origin), origin, 0.0)
+    # a 0-d tensor divisor: a Python scalar on the card becomes a multiply
+    # by its reciprocal, which rounds differently
+    vs = torch.full((), voxel_size, dtype=pts.dtype, device=dev)
+    ijk = _saturating_int32(torch.floor((pts - origin[None, :]) / vs)).to(torch.int64)
+    i, j, k = torch.clamp(ijk, 0, grid_dim - 1).unbind(dim=-1)
+    lin = _wrap_int32((i * grid_dim + j) * grid_dim + k)
+    lin = torch.where(mask, lin, torch.iinfo(torch.int32).max)
+
+    lin_s, order = torch.sort(lin, stable=True)
+    valid_s = mask[order]
+    first = torch.ones_like(valid_s)
+    first[1:] = lin_s[1:] != lin_s[:-1]
+    seg = torch.cumsum(first & valid_s, dim=0, dtype=torch.int32) - 1
+    # the segment sum needs nondecreasing ids: masked rows (all +0.0, which
+    # changes no bit of a sum that starts at +0.0) take the id of the valid
+    # row before them (-1, no voxel, at the start); voxels past
+    # out_capacity take the dropped id out_capacity
+    seg = torch.where(valid_s, seg, -1).cummax(dim=0).values
+    seg = torch.clamp(seg, max=out_capacity)
+    vals = torch.cat([pts[order], torch.ones_like(pts[:, :1])], dim=1)
+    vals = torch.where(valid_s[:, None], vals, 0.0)
+    out = segment_sum_sorted(vals, seg, out_capacity)
+    sums, cnts = out[:, :3], out[:, 3]
+    return Cloud(sums / torch.clamp(cnts, min=1.0)[:, None], cnts > 0)
 
 
 def voxel_downsample_numpy(

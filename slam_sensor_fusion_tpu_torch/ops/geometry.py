@@ -35,6 +35,14 @@ def make_T(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return T
 
 
+def translation(T: torch.Tensor) -> torch.Tensor:
+    return T[..., :3, 3]
+
+
+def rotation(T: torch.Tensor) -> torch.Tensor:
+    return T[..., :3, :3]
+
+
 def inv_T(T: torch.Tensor) -> torch.Tensor:
     """Inverse of a rigid transform without a general 4x4 solve."""
     Rt = T[..., :3, :3].transpose(-1, -2)
@@ -166,6 +174,14 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
     return v * scale[..., None]
 
 
+def svd3x3(H: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Full SVD of (..., 3, 3): (U, S, Vh). A thin wrapper, as the JAX
+    package's is; the singular vectors' signs are the backend's (LAPACK on
+    the CPU, cuSOLVER on the card), not necessarily the JAX package's."""
+    U, S, Vh = torch.linalg.svd(H, full_matrices=True)
+    return U, S, Vh
+
+
 def kabsch(src: torch.Tensor, tgt: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Weighted Kabsch/Umeyama rigid step: the best T with tgt ~= R src + t
     (icp_point_to_point.cpp:112-159): weighted centroids, cross-covariance
@@ -179,7 +195,7 @@ def kabsch(src: torch.Tensor, tgt: torch.Tensor, weights: torch.Tensor) -> torch
     src0 = (src - c_src) * w[:, None]
     tgt0 = tgt - c_tgt
     H = src0.T @ tgt0
-    U, _, Vh = torch.linalg.svd(H)
+    U, _, Vh = svd3x3(H)
     V = Vh.T
     det = torch.linalg.det(V @ U.T)
     flip = torch.ones(3, dtype=H.dtype, device=H.device)

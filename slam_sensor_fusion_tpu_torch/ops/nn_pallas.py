@@ -11,10 +11,13 @@ not change (tests/test_torch_nn.py holds them equal).
 `pair_nn` launches the CUDA kernel (csrc/nn_pallas.cu: a scan of (source
 tile, pair slot) items over the whole card, then a combine of each row's
 slots in order) for tensors on the card and runs `pair_nn_plain` for
-tensors on the CPU.
+tensors on the CPU. `gated_nn_pallas` is the one-call form: culling, pair
+list, pages and K2 for two Morton-sorted clouds.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -25,6 +28,12 @@ _FAR = 1.0e7  # sentinel coordinate for invalid points (d2 ~ 1e14 << _BIG)
 #: the widest source tile K1, K2 and K3 take (the JAX package's stress
 #: configuration and its autosize rule use 4096)
 MAX_TILE_SRC = 4096
+
+
+class PallasNNResult(NamedTuple):
+    d2: torch.Tensor
+    idx: torch.Tensor
+    overflow: torch.Tensor  # () bool: max_pairs or max_visits truncated the list
 
 
 def _build_tile_pair_list(
@@ -183,6 +192,46 @@ pair_nn.launches = 0
 #: the largest per-slot scratch (bytes, slot_d2 and slot_row) a launch has
 #: allocated since this was last set to 0
 pair_nn.scratch_bytes = 0
+
+
+def gated_nn_pallas(
+    src: torch.Tensor,
+    src_mask: torch.Tensor,
+    tgt: torch.Tensor,
+    tgt_mask: torch.Tensor,
+    center: torch.Tensor,
+    radius2: float,
+    tile_src: int = 256,
+    tile_tgt: int = 512,
+    max_visits: int = 24,
+    max_pairs: int | None = None,
+) -> PallasNNResult:
+    """Gated NN over Morton-sorted clouds in one call (the JAX function,
+    nn_pallas.py:232-274): the visit lists of ops/nn_gated, the tile-major
+    pair list truncated at `max_pairs` (default 8 a source tile; the same
+    entries the JAX package's pair-major list keeps), pages of both clouds
+    rebased on `center`, then K2 (`pair_nn`: the kernel for CUDA tensors,
+    the plain version for CPU ones). d2 (M,) is _BIG on masked source
+    rows, idx (M,) a flat target index. Exact, as the dense search, for
+    every source row whose nearest neighbour lies within the gate;
+    `overflow` reports a truncated visit or pair list."""
+    # imported here: ops/nn_gated imports this module
+    from slam_sensor_fusion_tpu_torch.ops.nn_gated import build_visit_lists
+
+    M = src.shape[0]
+    nSt = M // tile_src
+    if max_pairs is None:
+        max_pairs = nSt * 8
+    visits, counts, v_overflow = build_visit_lists(
+        src, src_mask, tgt, tgt_mask, radius2, tile_src, tile_tgt, max_visits
+    )
+    pair_start, pair_cnt, pair_tgt = _build_tile_pair_list(visits, counts, max_pairs)
+    overflow = v_overflow | (counts.sum() > max_pairs)
+    src_pages = make_pages(src, src_mask, center, tile_src)
+    tgt_pages = make_pages(tgt, tgt_mask, center, tile_tgt)
+    d2, idx, _ = pair_nn(src_pages, tgt_pages, pair_start, pair_cnt, pair_tgt)
+    d2 = torch.where(src_mask, d2.reshape(M), _BIG)
+    return PallasNNResult(d2=d2, idx=idx.reshape(M), overflow=overflow)
 
 
 def kernel_grid(tile_src: int, max_pairs: int) -> dict:

@@ -48,7 +48,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from slam_sensor_fusion_tpu_torch.ops.cloud import Cloud
+from slam_sensor_fusion_tpu_torch.ops.cloud import Cloud, _saturating_int32
 from slam_sensor_fusion_tpu_torch.ops.voxel_segsum import segment_sum_sorted
 
 _EMPTY = np.int32(np.iinfo(np.int32).max)
@@ -141,14 +141,6 @@ def _anchor(origin, device: torch.device | str) -> torch.Tensor:
     if isinstance(origin, torch.Tensor):
         return origin.detach().to(device=device, dtype=torch.float32).reshape(3).clone()
     return torch.tensor(np.asarray(origin, np.float32).reshape(3), device=device)
-
-
-def _saturating_int32(f: torch.Tensor) -> torch.Tensor:
-    """float -> int32 as XLA converts: out-of-range values saturate at the
-    int32 limits and NaN becomes 0 (torch's own cast of such values is
-    undefined, so the range is fixed in float and int64 first)."""
-    f = torch.nan_to_num(f, nan=0.0).clamp(-(2.0**31), 2.0**31)
-    return f.to(torch.int64).clamp(-(2**31), 2**31 - 1).to(torch.int32)
 
 
 def _pack_ids(

@@ -587,3 +587,61 @@ def test_voxel_stores_on_the_card_equal_each_other_and_the_cpu(cuda_device):
         card, cpu = runs["cuda", name], runs["cpu", name]
         for f in card._fields:
             assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), (name, f)
+
+
+def _gated_case(device):
+    """1024 Morton-sorted source points near a 4096-point target, a few rows
+    of each masked (tests/test_torch_helpers.py's case)."""
+    from slam_sensor_fusion_tpu_torch.ops.morton import sort_points_numpy
+
+    rng = np.random.default_rng(4)
+    tgt = sort_points_numpy(rng.uniform(-8, 8, (4096, 3)).astype(np.float32))
+    src = tgt[rng.choice(4096, 1024, replace=False)] + rng.normal(0, 0.05, (1024, 3))
+    src = sort_points_numpy(src.astype(np.float32))
+    smask, tmask = np.arange(1024) < 984, np.arange(4096) < 3996
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    return to(src), to(smask), to(tgt), to(tmask), to(src[smask].mean(0)), 2.736 ** 2
+
+
+@pytest.mark.parametrize("max_pairs", [None, 12], ids=["default", "truncating"])
+def test_gated_nn_pallas_on_the_card_matches_the_cpu(cuda_device, max_pairs):
+    """The one-call gated NN launches K2 once; idx and overflow equal the
+    CPU run's (the plain K2), d2 to 1e-5 relative, with and without a
+    truncated pair list."""
+    args = _gated_case(cuda_device)
+    before = pair_nn.launches
+    got = tnn.gated_nn_pallas(*args, tile_src=256, tile_tgt=512, max_pairs=max_pairs)
+    torch.cuda.synchronize()
+    assert pair_nn.launches == before + 1
+    want = tnn.gated_nn_pallas(*[a.cpu() if isinstance(a, torch.Tensor) else a for a in args],
+                               tile_src=256, tile_tgt=512, max_pairs=max_pairs)
+    assert bool(got.overflow) == bool(want.overflow) == (max_pairs is not None)
+    assert torch.equal(got.idx.cpu(), want.idx)
+    torch.testing.assert_close(got.d2.cpu(), want.d2, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("origin", [None, (0.0, 0.0, 0.0)], ids=["min_corner", "origin"])
+def test_voxel_downsample_on_the_card_matches_the_cpu(cuda_device, origin):
+    """The device voxel grid launches the segment sum once and gives the
+    CPU run's bits, its int32 ids wrapping (x from 0 to 250 m at 0.2 m:
+    cells 1024 apart share an id) on a cloud with masked inf rows."""
+    from slam_sensor_fusion_tpu_torch.ops import cloud as tcl
+    from slam_sensor_fusion_tpu_torch.ops import voxel_segsum as vs
+
+    rng = np.random.default_rng(14)
+    pts = (rng.uniform(0, 1, (20000, 3)) * [250.0, 30.0, 5.0]).astype(np.float32)
+    mask = rng.random(20000) < 0.9
+    pts[~mask] = np.inf
+    runs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        o = None if origin is None else torch.tensor(origin, device=dev)
+        before = vs.segment_sum_sorted.launches
+        runs.append(tcl.voxel_downsample(
+            tcl.Cloud(torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev)), 0.2, 16384,
+            origin=o))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert vs.segment_sum_sorted.launches == before + 1
+    card, cpu = runs
+    assert torch.equal(card.points.cpu(), cpu.points) and torch.equal(card.mask.cpu(), cpu.mask)
+    assert bool(cpu.mask.all())  # more voxels than rows: the first 16384 kept
