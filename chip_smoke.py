@@ -249,6 +249,25 @@ KITTI_POINTS = 131072
 KITTI_DENSITY = 96.0
 KITTI_EXTENT = 140.0
 KITTI_SAMPLE = 16  # scans autosize samples
+#: phase 13: bench.py bench_kitti's own LIO settings (:1169-1227, the
+#: fixture branch) at the source tile widths the JAX LIO takes
+#: (BENCH_LIO_TILE_SRC); (a) its own fixture, cut from 256 frames, (b)
+#: phase 10's seq-00-density fixture, cut to 65 frames
+BENCH_KITTI_FRAMES = 129
+BENCH_KITTI_POINTS = 16384  # BENCH_KITTI_FIXTURE_PTS
+BENCH_KITTI_REG_SUB = 8  # BENCH_KITTI_REG_SUB on the fixture
+SEQ00_LIO_FRAMES = 65
+WIDE_TILES = (512, 2048, 4096)
+#: one fixture's trajectories at two tile widths (m). The widths change the
+#: pair lists' order and the moment sums' order, so not the bits: in the
+#: first block, on one anchor, the bound of the K4 parity tests
+#: (tests/test_torch_lio_k4.py); over the run, after each anchor refresh
+#: the cell normals' float32 prefix sums at world coordinates round the
+#: parted rings apart (ROADMAP §3: ~6e-3 m against the JAX package after
+#: one refresh) and the runs become two estimates, each held to
+#: LIO_ATE_LIMIT on its own: a third of it
+WIDTH_BLOCK_TOL = 1e-4
+WIDTH_TRAJ_TOL = 0.1
 KITTI_MAP_EVERY = 4  # a map tile every 4th frame (bench_kitti_loc)
 SELFTEST_ATE_LIMIT = 0.25  # m: examples_selftest's pass rule
 STREAM_JITTER = 0.03  # s: timestamp jitter of the CLI's streams, within the 0.1 s slop
@@ -550,6 +569,26 @@ def device_ms(fn, reps: int, names) -> float | None:
     return sum(found) if found else None
 
 
+def profiled_pass(run) -> tuple[float, float, list]:
+    """One pass of `run` under torch.profiler, timed by itself: (the
+    device's busy ms, the pass's own wall ms, the device events). The idle
+    share of the pass is 1 - busy / wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    on_dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.self_device_time_total for e in on_dev) / 1e3, wall_ms, on_dev
+
+
+def idle_share(busy_ms: float, wall_ms: float) -> str:
+    return f"{100 - 100 * busy_ms / wall_ms:.1f}%" if busy_ms > 0 else "not measured"
+
+
 def check_k2(inputs, dev_name):
     from slam_sensor_fusion_tpu_torch.ops.nn_pallas import pair_nn, pair_nn_plain
 
@@ -793,28 +832,20 @@ def push_args(seq, i):
             float(seq.gps_cov_trace[i]))
 
 
-def profile_pass(run, pf, n_blocks: int, pass_s: float, tag: str) -> float:
+def profile_pass(run, pf, n_blocks: int, tag: str) -> float:
     """One more steady pass of the superblock main path under
-    torch.profiler: prints K1's mean ms a launch, its share of the device
-    time and the device's idle share against `pass_s`, the last timed
-    pass's seconds. Where the profiler records no device time, K1 is timed
+    torch.profiler, timed by itself: prints K1's mean ms a launch, its
+    share of the device time and the device's idle share of that pass's
+    own wall time. Where the profiler records no device time, K1 is timed
     with CUDA events around each launch instead. Returns K1's ms a launch."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    on_dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in on_dev) / 1e3
+    busy, pass_ms, on_dev = profiled_pass(run)
     k1 = [e for e in on_dev if "superblock_kernel" in e.key]
     k1_total = sum(e.self_device_time_total for e in k1) / 1e3
     k1_n = sum(e.count for e in k1)
     if busy > 0 and k1_n == n_blocks:
-        pass_ms = pass_s * 1e3
         print(f"superblock profile, one pass: K1 {k1_total / k1_n:.3f} ms a launch over {k1_n} "
               f"launches, {100 * k1_total / busy:.1f}% of device time; device busy {busy:.3f} ms "
-              f"of the last timed pass's {pass_ms:.3f} ms (idle {100 - 100 * busy / pass_ms:.1f}%); "
+              f"of the profiled pass's own {pass_ms:.3f} ms (idle {idle_share(busy, pass_ms)}); "
               f"{sum(e.count for e in on_dev)} device operations [{tag}]", flush=True)
         return k1_total / k1_n
     # no device time under the profiler: CUDA events around each K1 launch
@@ -927,10 +958,11 @@ def tie_heavy_group(n_rows: int, dev):
     return torch.from_numpy(vals).to(dev), torch.from_numpy(seg).to(dev), U
 
 
-def check_segsum(values, seg, U, dev_name):
+def check_segsum(values, seg, U):
     """The segment-sum kernel against its plain version (bits) and against
-    `index_add_` on the same rows: (max |kernel - plain|, ms, plain ms,
-    bound, index_add_ ms, output elements where index_add_ differs)."""
+    `index_add_` on the same rows: max |kernel - plain|, the times by CUDA
+    events and on the card alone (profiler), the plain version's, the
+    bound, and the output elements where `index_add_` differs."""
     from slam_sensor_fusion_tpu_torch.ops.voxel_segsum import (
         segment_sum_sorted,
         segment_sum_sorted_plain,
@@ -941,14 +973,25 @@ def check_segsum(values, seg, U, dev_name):
     idx = seg.long()
     lib = torch.zeros_like(want).index_add_(0, idx, values)
     torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        fail(f"voxel_segment_sum differs from its plain version on {int((got != want).sum())} "
-             f"of {got.numel()} elements")
-    ms = time_ms(lambda: segment_sum_sorted(values, seg, U), 20)
-    plain_ms = time_ms(lambda: segment_sum_sorted_plain(values, seg, U), 1)
-    lib_ms = time_ms(lambda: torch.zeros_like(want).index_add_(0, idx, values), 20)
-    bnd = bound(values.numel(), nbytes(values, seg, want))
-    return (got - want).abs().max().item(), ms, plain_ms, bnd, lib_ms, int((lib != got).sum())
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        fail(f"voxel_segment_sum differs from its plain version on "
+             f"{int((got.view(torch.int32) != want.view(torch.int32)).sum())} of {got.numel()} "
+             f"elements")
+
+    def library():
+        return torch.zeros_like(want).index_add_(0, idx, values)
+
+    return dict(
+        err=(got - want).abs().max().item(),
+        ms=time_ms(lambda: segment_sum_sorted(values, seg, U), 20),
+        device_ms=device_ms(lambda: segment_sum_sorted(values, seg, U), 20,
+                            ("segment_sum_sorted_kernel",)),
+        plain_ms=time_ms(lambda: segment_sum_sorted_plain(values, seg, U), 1),
+        bound=bound(values.numel(), nbytes(values, seg, want)),
+        lib_ms=time_ms(library, 20),
+        lib_device_ms=device_ms(library, 20, ("index",)),
+        lib_diff=int((lib != got).sum()),
+    )
 
 
 def run_cli(*args, timeout: int = 600):
@@ -1020,25 +1063,37 @@ def kitti_world(root: str):
     return kseq, syn.make_sequence_from_scans(scans, kseq.poses)
 
 
+def bench_kitti_lio_config(scans, tile_src: int):
+    """bench.py bench_kitti's LIOConfig word for word on its fixture
+    (:1193-1227: registration subsample 8, normal cells of 1.2 m, the fused
+    backend), at source tiles of `tile_src`, with the scan capacity
+    suggest_scan_capacity gives for `scans`."""
+    from slam_sensor_fusion_tpu_torch.models.ekf import EKFConfig
+    from slam_sensor_fusion_tpu_torch.models.lio import LIOConfig
+    from slam_sensor_fusion_tpu_torch.ops.point_to_plane import PointToPlaneConfig
+    from slam_sensor_fusion_tpu_torch.utils import kitti
+
+    return LIOConfig(
+        scan_capacity=kitti.suggest_scan_capacity(scans), window=16, slot_points=4096,
+        refresh_every=16,
+        p2p=PointToPlaneConfig(
+            nn_backend="fused", num_iterations=2, fixed_correspondences=True,
+            reassoc_margin=0.15, tile_src=tile_src, tile_tgt=1024, max_visits=64,
+            assoc_unroll=1,
+        ),
+        reg_subsample=BENCH_KITTI_REG_SUB, anchor_subsample=2, normal_est="cells",
+        normal_voxel=1.2, icp_cov_mode="gn", icp_pos_std=0.3, superstep_slack=0.05,
+        slack_base=0.1, ekf=EKFConfig(init_pos_std=0.1, init_vel_std=0.1),
+    )
+
+
 def kitti_lio_config(scans):
     """bench.py bench_kitti's configuration on its fixture (:1195-1227,
     the block driver), with the scan capacity and registration subsample
     utils/autosize.suggest_lio_config picks for `scans`."""
-    from slam_sensor_fusion_tpu_torch.models.ekf import EKFConfig
-    from slam_sensor_fusion_tpu_torch.models.lio import LIOConfig
-    from slam_sensor_fusion_tpu_torch.ops.point_to_plane import PointToPlaneConfig
     from slam_sensor_fusion_tpu_torch.utils.autosize import suggest_lio_config
 
-    return suggest_lio_config(scans, base=LIOConfig(
-        window=16, slot_points=4096, refresh_every=16,
-        p2p=PointToPlaneConfig(
-            nn_backend="fused", num_iterations=2, fixed_correspondences=True,
-            reassoc_margin=0.15, tile_src=512, tile_tgt=1024, max_visits=64, assoc_unroll=1,
-        ),
-        anchor_subsample=2, normal_est="cells", normal_voxel=1.2, icp_cov_mode="gn",
-        icp_pos_std=0.3, superstep_slack=0.05, slack_base=0.1,
-        ekf=EKFConfig(init_pos_std=0.1, init_vel_std=0.1),
-    ))
+    return suggest_lio_config(scans, base=bench_kitti_lio_config(scans, 512))
 
 
 def lio_inputs(kseq, cap: int):
@@ -1331,7 +1386,7 @@ def phase10(dev, tag, name, kernels, record, launches):
         if not l_ate < LIO_ATE_LIMIT:
             fail(f"KITTI LIO: ATE-RMSE {l_ate} >= {LIO_ATE_LIMIT}")
     record("kitti_lio")
-    out.update(lio_scans_s=Tl / lio_s, lio_ate=l_ate)
+    out.update(lio_scans_s=Tl / lio_s, lio_ate=l_ate, kseq=kseq)
     del arrays, tau
     print(f"phase 10 d (KITTI LIO): {time.perf_counter() - t0:.1f} s (host inputs {prep_s:.1f} s) "
           f"[{tag}]", flush=True)
@@ -1909,6 +1964,263 @@ def phase12(dev, tag, kernels, record, launches, p) -> dict:
     return res
 
 
+def p2p_bounds(k4_in, cfg, k4_out, k5_out, k6_in, k6_out) -> dict:
+    """The bounds (ms, by) of K4 fixed and fresh, K5 and K6 on one frame's
+    inputs: the distances over the tile pairs in the list, ~110 float
+    operations a point a GN pass, each input and output byte once."""
+    TM, TN = k4_in[0].shape[-1], k4_in[1].shape[-1]
+    n_pass = cfg.num_iterations + 1
+    gn_flops = n_pass * k4_in[0].shape[0] * TM * FLOP_PER_GN_POINT
+    assoc_flops = int(k4_in[3].sum()) * TM * TN * FLOP_PER_DISTANCE
+    k4_bytes = nbytes(*k4_in) + nbytes(*k4_out)
+    return {
+        "K4": bound(assoc_flops + gn_flops, k4_bytes),
+        "K4 fresh": bound(n_pass * assoc_flops + gn_flops, k4_bytes),
+        "K5": bound(assoc_flops, nbytes(*k4_in) + nbytes(*k5_out)),
+        "K6": bound(gn_flops, nbytes(*k6_in) + nbytes(*k6_out)),
+    }
+
+
+def k7_bound_of(k7_in, k7_pairs: int, cfg, k7_out) -> tuple[float, str]:
+    """K7's bound on a block: the distances over the block's tile pairs
+    (once a frame with fixed correspondences), the GN passes' points and
+    the EKF's 16x16 products, each input and output byte once."""
+    Kb, nSt, _, TM = k7_in[17].shape
+    TN, Ki = k7_in[18].shape[-1], k7_in[6].shape[1]
+    n_pass = cfg.p2p.num_iterations + 1
+    n_assoc = 1 if cfg.p2p.fixed_correspondences else n_pass
+    flops = (n_assoc * k7_pairs * TM * TN * FLOP_PER_DISTANCE
+             + Kb * n_pass * nSt * TM * FLOP_PER_GN_POINT
+             + Kb * (2 * Ki + 4) * FLOP_PER_EKF_PRODUCT)
+    return bound(flops, nbytes(*[a for a in k7_in if isinstance(a, torch.Tensor)])
+                 + nbytes(*k7_out))
+
+
+def check_wide_kernels(lio, cfg, state, arrays, tau, lo, dev, name, tag) -> dict:
+    """K4 (fixed and fresh), K5, K6 and K6(K5(x)) against their plain
+    versions on frame `lo`'s registration rows (the state's ring after the
+    frames before it, its anchor refreshed), and K7 against its plain
+    version on the first 2 frames of the block from `lo`; their times and
+    bounds."""
+    from slam_sensor_fusion_tpu_torch.ops import p2p_fused as p2p
+    from slam_sensor_fusion_tpu_torch.ops.lio_superblock_fused import (
+        lio_superblock,
+        lio_superblock_plain,
+    )
+
+    W = cfg.p2p.tile_src
+    st = lio._with_anchor(
+        state, lio._refresh_anchor(state.ring, state.ring_mask, state.ekf_state.p, cfg),
+        lio._pose_cov6(state.ekf_state.P))
+    _, prior, scan = lio._prior_and_scan(st, arrays[0][lo], arrays[2][lo], arrays[3][lo],
+                                         arrays[4][lo], cfg, tau[lo])
+    rsub = cfg.reg_subsample
+    k4_in, _, demand = p2p.p2p_inputs(scan[::rsub].contiguous(), arrays[1][lo][::rsub].contiguous(),
+                                      st.anchor_cache, prior, cfg.p2p)
+    fixed, fresh = cfg.p2p, cfg.p2p._replace(fixed_correspondences=False)
+    print(f"K4 at {W} rows: src {tuple(k4_in[0].shape)} tgt {tuple(k4_in[1].shape)}, pair demand "
+          f"{int(demand)}, in the list {int(k4_in[3].sum())} of {k4_in[4].shape[0]}", flush=True)
+    r = {"K4 err": check_gn(f"K4 fixed at {W} rows", p2p._p2p_core(*k4_in, fixed),
+                            p2p._p2p_core_plain(*k4_in, fixed), name),
+         "K4 fresh err": check_gn(f"K4 fresh at {W} rows", p2p._p2p_core(*k4_in, fresh),
+                                  p2p._p2p_core_plain(*k4_in, fresh), name)}
+    d2_k, qn_k = p2p._p2p_associate(*k4_in)
+    d2_p, qn_p = p2p._p2p_associate_plain(*k4_in)
+    torch.cuda.synchronize()
+    k5_rel = ((d2_k - d2_p).abs() / torch.clamp(d2_p.abs(), min=1e-30)).max().item()
+    if not (k5_rel <= K5_RTOL and torch.equal(qn_k, qn_p)):
+        fail(f"K5 at {W} rows: d2 relative error {k5_rel}, matched pages equal "
+             f"{torch.equal(qn_k, qn_p)}")
+    r["K5 err"] = (d2_k - d2_p).abs()[d2_p < 1e6].max().item()
+    print(f"K5 at {W} rows vs plain: d2 rel {k5_rel:.3e}, matched pages equal [{name}]", flush=True)
+    k6_in = (k4_in[5], k4_in[0], d2_p, qn_p)
+    r["K6 err"] = check_gn(f"K6 at {W} rows", p2p._p2p_gn_corr(*k6_in, fixed),
+                           p2p._p2p_gn_corr_plain(*k6_in, fixed), name)
+    whole = p2p._p2p_core(*k4_in, fixed)
+    halves = p2p._p2p_gn_corr(k4_in[5], k4_in[0], d2_k, qn_k, fixed)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(whole, halves)):
+        fail(f"K6(K5(x)) at {W} rows differs from K4 with fixed correspondences")
+    calls = {
+        "K4": (lambda: p2p._p2p_core(*k4_in, fixed), lambda: p2p._p2p_core_plain(*k4_in, fixed)),
+        "K4 fresh": (lambda: p2p._p2p_core(*k4_in, fresh),
+                     lambda: p2p._p2p_core_plain(*k4_in, fresh)),
+        "K5": (lambda: p2p._p2p_associate(*k4_in), lambda: p2p._p2p_associate_plain(*k4_in)),
+        "K6": (lambda: p2p._p2p_gn_corr(*k6_in, fixed),
+               lambda: p2p._p2p_gn_corr_plain(*k6_in, fixed)),
+    }
+    bounds = p2p_bounds(k4_in, fixed, whole, (d2_k, qn_k), k6_in, halves)
+    r["K6 device ms"] = device_ms(calls["K6"][0], 10, K6_KERNELS)
+    for k, (kernel, plain) in calls.items():
+        r[f"{k} ms"], r[f"{k} plain ms"], r[f"{k} bound"] = (
+            time_ms(kernel, 5), time_ms(plain, 1), bounds[k])
+    r["K6 cluster"] = p2p.gn_cluster(k4_in[0].shape[0], W)
+    r["K4 grid"] = p2p.kernel_grid(k4_in[0].shape[0], W)
+    print(f"at {W} rows: " + ", ".join(
+        f"{k} {r[f'{k} ms']:.3f} ms (plain {r[f'{k} plain ms']:.1f}, bound {r[f'{k} bound'][0]:.4f} "
+        f"by {r[f'{k} bound'][1]})" for k in calls)
+        + f"; K6 on the card alone {r['K6 device ms']} ms, its cluster {r['K6 cluster']}, K4's grid "
+        f"{r['K4 grid']} [{tag}]", flush=True)
+    # K7 on the first 2 frames of the block from `lo`
+    k7_in, _ = lio_block_inputs(lio, cfg, state, arrays, tau, lo, dev)
+    k7_2 = tuple(a[:2] if i in (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 17) else a
+                 for i, a in enumerate(k7_in))
+    params = lio._superblock_params(cfg)
+    r["K7 err"] = check_k7(k7_2, params, name)
+    r["K7 2-frame ms"] = time_ms(lambda: lio_superblock(*k7_2, params), 3)
+    r["K7 2-frame plain ms"] = time_ms(lambda: lio_superblock_plain(*k7_2, params), 1)
+    return r
+
+
+def phase13(dev, tag, name, kernels, record, seq00) -> dict:
+    """bench.py bench_kitti's own LIO settings (registration subsample 8,
+    its LIOConfig word for word) through run_lio_superblocks (K7) at source
+    tiles of 512, 2048 and 4096 rows, on (a) bench_kitti's own fixture
+    (16 384 points a scan, 140 m) and (b) phase 10's seq-00-density
+    fixture (`seq00`, cut to 65 frames); K4-K7 against their plain versions
+    at 2048 and 4096 rows on (b). Returns the numbers for the kernels'
+    record."""
+    from types import SimpleNamespace
+
+    from slam_sensor_fusion_tpu_torch.models import lio
+    from slam_sensor_fusion_tpu_torch.ops.lio_superblock_fused import kernel_grid as lio_grid
+    from slam_sensor_fusion_tpu_torch.utils import kitti
+
+    t_phase = time.perf_counter()
+    k7 = kernels[6]
+    out = {"runs": {}, "wide": {}}
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        kitti.make_synthetic_kitti(tmp, n_frames=BENCH_KITTI_FRAMES, max_points=BENCH_KITTI_POINTS,
+                                   extent=KITTI_EXTENT)
+        seq_a = kitti.load_sequence(tmp, "00")
+    fixtures = {
+        "a": seq_a,
+        "b": SimpleNamespace(scans=seq00.scans[:SEQ00_LIO_FRAMES],
+                             poses=seq00.poses[:SEQ00_LIO_FRAMES]),
+    }
+    print(f"phase 13 fixtures: (a) bench_kitti's, {len(seq_a.scans)} frames of up to "
+          f"{max(len(s) for s in seq_a.scans)} points, made in {time.perf_counter() - t0:.1f} s; "
+          f"(b) phase 10's, {SEQ00_LIO_FRAMES} frames of up to "
+          f"{max(len(s) for s in fixtures['b'].scans)} points", flush=True)
+    for fx, seq in fixtures.items():
+        t0 = time.perf_counter()
+        poses = seq.poses
+        cfg0 = bench_kitti_lio_config(seq.scans, WIDE_TILES[0])
+        sp, sm, tp, gyro, accel, dts, gps = lio_inputs(seq, cfg0.scan_capacity)
+        Tl = len(seq.scans) - 1
+        arrays = [up(a) for a in (sp[1:], sm[1:], gyro, accel, dts, gps,
+                                  np.full(Tl, 0.5**2, np.float32), np.ones(Tl, bool))]
+        tau = up(tp[1:])
+        v0 = up(((poses[1, :3, 3] - poses[0, :3, 3]) / 0.1).astype(np.float32))
+        R = cfg0.refresh_every
+        rows = cfg0.scan_capacity // cfg0.reg_subsample
+        n_blk = -(-Tl // R)
+        trajs = {}
+        for W in WIDE_TILES:
+            if rows % W:
+                print(f"({fx}) {rows} registration rows do not fill tiles of {W}", flush=True)
+                continue
+            cfg = cfg0._replace(p2p=cfg0.p2p._replace(tile_src=W))
+            state0 = lio.init_state(cfg, up(sp[0]), up(sm[0]), up(poses[0].astype(np.float32)))
+            state0 = state0._replace(ekf_state=state0.ekf_state._replace(v=v0))
+
+            def run():
+                return lio.run_lio_superblocks(state0, *arrays, cfg, scan_tau=tau)
+
+            zero_counts(*kernels)
+            for p in range(2):
+                before = k7.launches
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                _, lout = run()
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t1
+                launched = k7.launches - before
+                est = lout.world_T_body.cpu().numpy()
+                ate = ate_rmse(est, poses[1:])
+                n_ovf = int(lout.pair_overflow.sum())
+                what = f"bench_kitti LIO ({fx}) at {rows // W} x {W} rows, pass {p}"
+                print(f"{what}: {Tl} frames {dt:.3f} s = {Tl / dt:.1f} scans/s, ATE-RMSE {ate:.4f} m, "
+                      f"pair overflow {n_ovf}, n_corr mean {lout.n_correspondences.float().mean().item():.0f}, "
+                      f"K7 launches {launched} for {n_blk} blocks; scan capacity {cfg.scan_capacity}, "
+                      f"registration subsample {cfg.reg_subsample} [{tag}]", flush=True)
+                if launched != n_blk:
+                    fail(f"{what}: K7 launched {launched} times for {n_blk} blocks")
+                if n_ovf:
+                    fail(f"{what}: pair overflow on {n_ovf} frames")
+                if not (np.isfinite(est).all() and torch.isfinite(lout.rmse).all()):
+                    fail(f"{what}: a non-finite pose")
+                if not ate < LIO_ATE_LIMIT:
+                    fail(f"{what}: ATE-RMSE {ate} >= {LIO_ATE_LIMIT}")
+            record(f"lio13_{fx}{W}")
+            trajs[W] = est
+            # K7 a block by CUDA events: the second block, from the first's state
+            mid, _ = lio.run_lio_superblocks(state0, *[a[:R] for a in arrays], cfg,
+                                             scan_tau=tau[:R])
+            k7_in, k7_pairs = lio_block_inputs(lio, cfg, mid, arrays, tau, R, dev)
+            params = lio._superblock_params(cfg)
+            k7_ms = time_ms(lambda: k7(*k7_in, params), 3)
+            k7_bnd = k7_bound_of(k7_in, k7_pairs, cfg, k7(*k7_in, params))
+            busy, wall, on_dev = profiled_pass(run)
+            k7_dev = sum(e.self_device_time_total for e in on_dev
+                         if "lio_superblock_kernel" in e.key) / 1e3
+            out["runs"][f"{fx}{W}"] = dict(
+                scans_s=Tl / dt, ate=ate, k7_ms=k7_ms, k7_bound=k7_bnd, busy_ms=busy,
+                wall_ms=wall, idle=idle_share(busy, wall), k7_profiled_ms=k7_dev / n_blk,
+                rows=rows, grid=lio_grid(rows // W, W))
+            print(f"bench_kitti LIO ({fx}) at {rows // W} x {W} rows: {Tl / dt:.1f} scans/s; K7 "
+                  f"{k7_ms:.3f} ms a block of {R} frames (CUDA events, {k7_pairs} tile pairs), "
+                  f"bound {k7_bnd[0]:.4f} ms ({k7_bnd[1]}); a profiled pass: device busy "
+                  f"{busy:.1f} ms of its own {wall:.1f} ms (idle {idle_share(busy, wall)}), K7 "
+                  f"{k7_dev / n_blk:.3f} ms a block there [{tag}]", flush=True)
+            if fx == "b" and W > 1024:
+                out["wide"][W] = check_wide_kernels(lio, cfg, mid, arrays, tau, R, dev, name, tag)
+        base = trajs[WIDE_TILES[0]][:, :3, 3]
+        gaps = {W: (float(np.abs(e[:R, :3, 3] - base[:R]).max()),
+                    float(np.abs(e[:, :3, 3] - base).max())) for W, e in trajs.items()}
+        print(f"bench_kitti LIO ({fx}): the widths' trajectories against {WIDE_TILES[0]} rows, "
+              f"max |position| diff (first block, whole run) {gaps} m (tolerances "
+              f"{WIDTH_BLOCK_TOL}, {WIDTH_TRAJ_TOL}); {time.perf_counter() - t0:.1f} s [{tag}]",
+              flush=True)
+        if not all(g[0] <= WIDTH_BLOCK_TOL and g[1] <= WIDTH_TRAJ_TOL for g in gaps.values()):
+            fail(f"bench_kitti LIO ({fx}): trajectories at two widths differ by {gaps} m")
+        out[f"gaps_{fx}"] = gaps
+    # voxel_segment_sum at seq-00 density: (b)'s first MAP_GROUP scans in
+    # the world frame as one insert group of the sorted store at bench_map's
+    # voxel, grid anchored 1 m under the group's min corner
+    from slam_sensor_fusion_tpu_torch.ops.voxel_map_sorted import (
+        SortedVoxelMapConfig,
+        _group_rows,
+    )
+
+    seq_b = fixtures["b"]
+    pts = np.concatenate([sc @ P[:3, :3].T + P[:3, 3] for sc, P in
+                          zip(seq_b.scans[:MAP_GROUP], seq_b.poses[:MAP_GROUP])]).astype(np.float32)
+    lo = pts.min(axis=0) - 1.0
+    cells = np.ceil((pts.max(axis=0) + 1.0 - lo) / MAP_VOXEL).astype(int)
+    gcfg = SortedVoxelMapConfig(voxel_size=MAP_VOXEL, unique_capacity=len(pts),
+                                dim_xy=int(cells[:2].max()), dim_z=int(cells[2])).validate()
+    *_, payload, seg_c, n_oob = _group_rows(up(pts), torch.ones(len(pts), dtype=torch.bool,
+                                                                 device=dev), up(lo), gcfg)
+    if int(n_oob):
+        fail(f"phase 13 segment-sum group: {int(n_oob)} points off the grid")
+    U = min(gcfg.unique_capacity, len(pts))
+    c = out["segsum"] = check_segsum(payload, seg_c, U)
+    print(f"voxel_segment_sum seq-00 group ({len(pts)} rows of {MAP_GROUP} scans, "
+          f"{int(seg_c.max()) + 1} cells, longest run {int(torch.bincount(seg_c.long()).max())}): "
+          f"bits equal the plain version; {c['ms']:.4f} ms by events, {c['device_ms']} ms on the "
+          f"card alone, plain {c['plain_ms']:.3f} ms, bound {c['bound'][0]:.5f} ms; index_add_ "
+          f"{c['lib_ms']:.4f} ms, {c['lib_device_ms']} ms on the card alone [{tag}]", flush=True)
+    print(f"phase 13 bench_kitti LIO at wide tiles: {time.perf_counter() - t_phase:.1f} s [{tag}]",
+          flush=True)
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # ---- 0. the device ----
@@ -1969,7 +2281,6 @@ def main() -> None:
     from slam_sensor_fusion_tpu_torch.ops.voxel_segsum import segment_sum_sorted
     from slam_sensor_fusion_tpu_torch.utils import mapdata, native
     from slam_sensor_fusion_tpu_torch.utils.config import MappingConfig
-    from torch.profiler import ProfilerActivity, profile
 
     kernels = (superblock_fine, pair_nn, _fused_core, p2p._p2p_core, p2p._p2p_associate,
                p2p._p2p_gn_corr, lio_superblock, segment_sum_sorted)
@@ -2264,15 +2575,8 @@ def main() -> None:
     print(f"on the card alone: K5 {k5_device_ms} ms (scan {k5_split[K5_KERNELS[0]]}, combine "
           f"{k5_split[K5_KERNELS[1]]}), K6 {k6_device_ms} ms (a cluster of {k6_cluster['ctas']} "
           f"x {k6_cluster['threads']} threads) [{tag}]", flush=True)
-    TM4, TN4 = k4_in[0].shape[-1], k4_in[1].shape[-1]
-    n_pass = lcfg.p2p.num_iterations + 1
-    gn_flops = n_pass * k4_in[0].shape[0] * TM4 * FLOP_PER_GN_POINT
-    assoc_flops = k4_pairs * TM4 * TN4 * FLOP_PER_DISTANCE
-    k4_bytes = nbytes(*k4_in) + nbytes(*whole)
-    k4_bound = bound(assoc_flops + gn_flops, k4_bytes)
-    k4f_bound = bound(n_pass * assoc_flops + gn_flops, k4_bytes)
-    k5_bound = bound(assoc_flops, nbytes(*k4_in) + nbytes(d2_k, qn_k))
-    k6_bound = bound(gn_flops, nbytes(*k6_in) + nbytes(*halves))
+    bnd4 = p2p_bounds(k4_in, lcfg.p2p, whole, (d2_k, qn_k), k6_in, halves)
+    k4_bound, k4f_bound, k5_bound, k6_bound = (bnd4[k] for k in ("K4", "K4 fresh", "K5", "K6"))
     print(f"bounds: K4 fixed {k4_bound[0]:.4f} ms ({k4_bound[1]}), fresh {k4f_bound[0]:.4f} ms "
           f"({k4f_bound[1]}), K5 {k5_bound[0]:.4f} ms ({k5_bound[1]}), K6 {k6_bound[0]:.5f} ms "
           f"({k6_bound[1]}) [{tag}]", flush=True)
@@ -2286,18 +2590,8 @@ def main() -> None:
     k7_err = check_k7(k7_in, k7_params, name)
     k7_ms = time_ms(lambda: lio_superblock(*k7_in, k7_params), 3)
     k7_plain_ms = time_ms(lambda: lio_superblock_plain(*k7_in, k7_params), 1)
-    k7_out = lio_superblock(*k7_in, k7_params)
-    Kb, nSt7, _, TM7 = k7_in[17].shape
-    TN7 = k7_in[18].shape[-1]
-    Ki7 = k7_in[6].shape[1]
-    n_assoc = 1 if lcfg.p2p.fixed_correspondences else n_pass
-    k7_flops = (
-        n_assoc * k7_pairs * TM7 * TN7 * FLOP_PER_DISTANCE
-        + Kb * n_pass * nSt7 * TM7 * FLOP_PER_GN_POINT
-        + Kb * (2 * Ki7 + 4) * FLOP_PER_EKF_PRODUCT
-    )
-    k7_bound = bound(k7_flops, nbytes(*[a for a in k7_in if isinstance(a, torch.Tensor)])
-                     + nbytes(*k7_out))
+    k7_bound = k7_bound_of(k7_in, k7_pairs, lcfg, lio_superblock(*k7_in, k7_params))
+    Kb = k7_in[17].shape[0]
     print(f"K7 {k7_ms:.3f} ms/block of {Kb} frames (plain {k7_plain_ms:.3f}); {k7_pairs} tile "
           f"pairs; bound {k7_bound[0]:.4f} ms ({k7_bound[1]}) [{tag}]", flush=True)
 
@@ -2424,8 +2718,7 @@ def main() -> None:
     if pair_nn.launches < 1:
         fail("K2 never launched on the main path")
     k1_steady_ms = profile_pass(
-        lambda: pf.run_chunk_fast(state, frames, loc.map_cloud, config), pf, n_blocks, T / rate,
-        tag)
+        lambda: pf.run_chunk_fast(state, frames, loc.map_cloud, config), pf, n_blocks, tag)
     print(f"phase 3 main path: {time.perf_counter() - t0:.1f} s (startup {t_start_path:.1f} s); "
           f"launches K1 {launches[superblock_fine]['superblocks']}, K2 "
           f"{launches[pair_nn]['superblocks']} (before the profiled pass); scans/s (pass 1) "
@@ -2589,23 +2882,16 @@ def main() -> None:
     # the profiler (kernel time by name, launches, the device's idle share)
     nb = lcfg.refresh_every
     blk = [a[w:w + nb] for a in larrays]
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        lio.run_lio_blocks(lstate_w, *blk, lcfg, scan_tau=ltau[w:w + nb])
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t1) * 1e3
-    on_dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in on_dev) / 1e3
+    busy_ms, wall_ms, on_dev = profiled_pass(
+        lambda: lio.run_lio_blocks(lstate_w, *blk, lcfg, scan_tau=ltau[w:w + nb]))
     k4_prof_ms = sum(e.self_device_time_total for e in on_dev if "p2p_fused_kernel" in e.key) / 1e3
     n_dev = sum(e.count for e in on_dev)
     if busy_ms > 0:
-        frame_ms = 1e3 / lrate  # of the second pass, without the profiler
-        print(f"LIO profile, one block of {nb} frames: device busy {busy_ms / nb:.3f} ms a frame, "
-              f"{100 * busy_ms / nb / frame_ms:.1f}% of the second pass's {frame_ms:.3f} ms a frame "
-              f"(idle {100 - 100 * busy_ms / nb / frame_ms:.1f}%), of which K4 {k4_prof_ms / nb:.3f} ms; "
-              f"{n_dev / nb:.0f} device operations a frame; {wall_ms / nb:.1f} ms a frame under the "
-              f"profiler [{tag}]", flush=True)
+        print(f"LIO profile, one block of {nb} frames: device busy {busy_ms / nb:.3f} ms a frame "
+              f"of the profiled block's own {wall_ms / nb:.3f} ms a frame (idle "
+              f"{idle_share(busy_ms, wall_ms)}), of which K4 {k4_prof_ms / nb:.3f} ms; "
+              f"{n_dev / nb:.0f} device operations a frame; {1e3 / lrate:.3f} ms a frame in the "
+              f"second pass without the profiler [{tag}]", flush=True)
     else:
         print(f"LIO profile: the profiler recorded no device time (not measured) [{tag}]", flush=True)
 
@@ -2802,24 +3088,18 @@ def main() -> None:
             blk7[0], blk7[1], ltau[w:w + R7], xi_w, lcfg), 3),
     }
     zero_counts(*kernels)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        lio.run_lio_superblocks(lstate_w, *blk7, lcfg, scan_tau=ltau[w:w + R7])
-        torch.cuda.synchronize()
-    wall7 = (time.perf_counter() - t1) * 1e3
-    on_dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy7 = sum(e.self_device_time_total for e in on_dev) / 1e3
+    busy7, wall7, on_dev = profiled_pass(
+        lambda: lio.run_lio_superblocks(lstate_w, *blk7, lcfg, scan_tau=ltau[w:w + R7]))
     k7_prof = sum(e.self_device_time_total for e in on_dev if "lio_superblock_kernel" in e.key) / 1e3
     n_dev7 = sum(e.count for e in on_dev)
     block_ms = 1e3 * R7 / brate  # the second pass's, without the profiler
     parts = ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
     if busy7 > 0:
         print(f"LIO block split (each part alone, CUDA events): {parts}; under the profiler: device "
-              f"busy {busy7:.3f} ms of the second pass's {block_ms:.3f} ms a block "
-              f"({100 * busy7 / block_ms:.1f}%, idle {100 - 100 * busy7 / block_ms:.1f}%), K7 "
-              f"{k7_prof:.3f} ms; {n_dev7} device operations a block; {wall7:.1f} ms a block under "
-              f"the profiler [{tag}]", flush=True)
+              f"busy {busy7:.3f} ms of the profiled block's own {wall7:.3f} ms (idle "
+              f"{idle_share(busy7, wall7)}), K7 {k7_prof:.3f} ms; {n_dev7} device operations a "
+              f"block; {block_ms:.3f} ms a block in the second pass without the profiler [{tag}]",
+              flush=True)
     else:
         print(f"LIO block split: {parts}; the profiler recorded no device time (not measured) "
               f"[{tag}]", flush=True)
@@ -2900,7 +3180,7 @@ def main() -> None:
         w["rate"] = wrate
         w["k1_steady_ms"] = profile_pass(
             lambda: pf.run_chunk_fast(w["state"], w["frames"], w["loc"].map_cloud, wcfg), pf,
-            n_blocks, (n - 1) / wrate, f"tiles {label}; {tag}")
+            n_blocks, f"tiles {label}; {tag}")
     print(f"phase 8 the JAX package's tile shapes: {time.perf_counter() - t0:.1f} s; scans/s (pass 1) "
           + ", ".join(f"{k} {w['rate']:.1f}" for k, w in wide.items()) + f" [{tag}]", flush=True)
 
@@ -2942,17 +3222,14 @@ def main() -> None:
             fail(f"mapping {label}: voxel_segment_sum launched "
                  f"{launches[segment_sum_sorted][f'map_{label}']} times for {2 * len(flushes)} inserts")
         # one more pass under the profiler: the device's busy and idle share
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            map_pass(insert, cfg, init(cfg, MAP_ORIGIN, dev), map_groups)
-            torch.cuda.synchronize()
-        on_dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in on_dev) / 1e3
+        # of that pass's own wall time
+        busy, pass_ms, on_dev = profiled_pass(
+            lambda: map_pass(insert, cfg, init(cfg, MAP_ORIGIN, dev), map_groups))
         seg_dev = sum(e.self_device_time_total for e in on_dev
                       if "segment_sum_sorted_kernel" in e.key) / 1e3
-        pass_ms = MAP_FRAMES / rate * 1e3
-        idle = f"{100 - 100 * busy / pass_ms:.1f}%" if busy > 0 else "not measured"
-        print(f"mapping {label} profile, one pass: device busy {busy:.3f} ms of the last timed "
-              f"pass's {pass_ms:.3f} ms (idle {idle}), voxel_segment_sum {seg_dev:.3f} ms, "
+        idle = idle_share(busy, pass_ms)
+        print(f"mapping {label} profile, one pass: device busy {busy:.3f} ms of the profiled "
+              f"pass's own {pass_ms:.3f} ms (idle {idle}), voxel_segment_sum {seg_dev:.3f} ms, "
               f"{sum(e.count for e in on_dev)} device operations [{tag}]", flush=True)
         finals[label] = st
         map_ms[label] = dict(frames_s=rate, flush_ms=flush_ms, idle=idle)
@@ -2987,13 +3264,13 @@ def main() -> None:
                 "ties": tie_heavy_group(payload.shape[0], dev)}
     segsum = {}
     for label, (vals, seg, U) in seg_case.items():
-        segsum[label] = check_segsum(vals, seg, U, name)
-        err, ms, pms, bnd, lib_ms, n_diff = segsum[label]
+        c = segsum[label] = check_segsum(vals, seg, U)
         print(f"voxel_segment_sum {label} ({vals.shape[0]} rows, {U} segments, "
               f"longest run {int(torch.bincount(seg.long()).max())}): bits equal the plain "
-              f"version; {ms:.4f} ms, plain {pms:.3f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}); "
-              f"index_add_ {lib_ms:.4f} ms, {n_diff} of {U * 4} elements differ from the kernel "
-              f"[{tag}]", flush=True)
+              f"version; {c['ms']:.4f} ms by events, {c['device_ms']} ms on the card alone, plain "
+              f"{c['plain_ms']:.3f} ms, bound {c['bound'][0]:.5f} ms ({c['bound'][1]}); index_add_ "
+              f"{c['lib_ms']:.4f} ms by events, {c['lib_device_ms']} ms on the card alone, "
+              f"{c['lib_diff']} of {U * 4} elements differ from the kernel [{tag}]", flush=True)
 
     # record phase 3's map tiles with StreamingMapper (sorted store, the
     # card), save, load, and localize on the loaded map
@@ -3084,12 +3361,26 @@ def main() -> None:
     # svd3x3 ----
     r12 = phase12(dev, tag, kernels, record, launches, p12)
 
+    # ---- 13. bench_kitti's own LIO settings at source tiles of 512, 2048
+    # and 4096 rows on its fixture and at seq-00 density; K4-K7 against
+    # their plain versions past 1024 rows ----
+    r13 = phase13(dev, tag, name, kernels, record, p10.pop("kseq"))
+
     for kernel in kernels:
         if not sum(launches[kernel].values()):
             fail(f"{kernel.__name__} never launched on a main path")
     print(f"total {time.perf_counter() - t_start:.1f} s [{tag}]", flush=True)
 
     x = wide["16x4096"]
+    wide13 = r13["wide"]
+
+    def wide_fields(kernel, suffix=""):
+        """A kernel's times at phase 13's wide tiles (seq-00 density)."""
+        tail = f"_{suffix}" if suffix else ""
+        return {f"{key}{tail}_{W}": (v[f"{kernel} {src}"] if key != "bound_ms"
+                                     else v[f"{kernel} bound"][0])
+                for W, v in wide13.items()
+                for key, src in [("ms", "ms"), ("plain_ms", "plain ms"), ("bound_ms", "")]}
 
     def row(kernel, label, source, replaces, err, ms, plain_ms, bnd, **extra):
         by_path = {p: c for p, c in launches[kernel].items() if c}
@@ -3133,39 +3424,64 @@ def main() -> None:
                for key, src in [("ms", "ms"), ("plain_ms", "plain_ms"), ("bound_ms", "bound")]},
             grid_4x4096=grids["K3 4x4096"]),
         row(p2p._p2p_core, "K4 p2p_fused", "slam_sensor_fusion_tpu_torch/csrc/p2p_fused.cu",
-            "slam_sensor_fusion_tpu/ops/p2p_fused.py:210", max(k4_err, k4f_err), k4_ms,
-            k4_plain_ms, k4_bound, ms_fresh=k4f_ms, plain_ms_fresh=k4f_plain_ms,
-            bound_ms_fresh=k4f_bound[0], grid=grids["K4"]),
+            "slam_sensor_fusion_tpu/ops/p2p_fused.py:210",
+            max([k4_err, k4f_err] + [v[k] for v in wide13.values() for k in ("K4 err", "K4 fresh err")]),
+            k4_ms, k4_plain_ms, k4_bound, ms_fresh=k4f_ms, plain_ms_fresh=k4f_plain_ms,
+            bound_ms_fresh=k4f_bound[0], grid=grids["K4"], **wide_fields("K4", "fixed"),
+            **wide_fields("K4 fresh", "fresh"),
+            **{f"grid_{W}": v["K4 grid"] for W, v in wide13.items()}),
         row(p2p._p2p_associate, "K5 p2p_associate",
             "slam_sensor_fusion_tpu_torch/csrc/p2p_fused.cu",
-            "slam_sensor_fusion_tpu/ops/p2p_fused.py:510", k5_err, k5_ms, k5_plain_ms, k5_bound,
+            "slam_sensor_fusion_tpu/ops/p2p_fused.py:510",
+            max([k5_err] + [v["K5 err"] for v in wide13.values()]), k5_ms, k5_plain_ms, k5_bound,
             device_ms=k5_device_ms, device_ms_scan=k5_split[K5_KERNELS[0]],
             device_ms_combine=k5_split[K5_KERNELS[1]], grid=grids["K5 scan"],
-            **{f"sp{n}_device_ms_a_frame": v["k5_ms_a_frame"] for n, v in sp.items()}),
+            **{f"sp{n}_device_ms_a_frame": v["k5_ms_a_frame"] for n, v in sp.items()},
+            **wide_fields("K5")),
         row(p2p._p2p_gn_corr, "K6 p2p_gn_corr", "slam_sensor_fusion_tpu_torch/csrc/p2p_fused.cu",
-            "slam_sensor_fusion_tpu/ops/p2p_fused.py:536", k6_err, k6_ms, k6_plain_ms, k6_bound,
+            "slam_sensor_fusion_tpu/ops/p2p_fused.py:536",
+            max([k6_err] + [v["K6 err"] for v in wide13.values()]), k6_ms, k6_plain_ms, k6_bound,
             device_ms=k6_device_ms, cluster=k6_cluster,
             **{f"sp{n}_device_ms_a_frame": v["k6_ms_a_frame"] for n, v in sp.items()},
-            **{f"sp{n}_ms_a_frame": v["ms_a_frame"] for n, v in sp.items()}),
+            **{f"sp{n}_ms_a_frame": v["ms_a_frame"] for n, v in sp.items()},
+            **wide_fields("K6"), **{f"device_ms_{W}": v["K6 device ms"] for W, v in wide13.items()},
+            **{f"cluster_{W}": v["K6 cluster"] for W, v in wide13.items()}),
         row(lio_superblock, "K7 lio_superblock",
             "slam_sensor_fusion_tpu_torch/csrc/lio_superblock_fused.cu",
-            "slam_sensor_fusion_tpu/ops/lio_superblock_fused.py:196", k7_err, k7_ms, k7_plain_ms,
-            k7_bound, grid=grids["K7"], kitti_lio_scans_s=p10["lio_scans_s"]),
+            "slam_sensor_fusion_tpu/ops/lio_superblock_fused.py:196",
+            max([k7_err] + [v["K7 err"] for v in wide13.values()]), k7_ms, k7_plain_ms,
+            k7_bound, grid=grids["K7"], kitti_lio_scans_s=p10["lio_scans_s"],
+            **{f"{key}_bench_kitti_{run}": v[src] for run, v in r13["runs"].items()
+               for key, src in [("ms_a_block", "k7_ms"), ("scans_s", "scans_s"), ("ate", "ate"),
+                                ("idle", "idle"), ("grid", "grid")]},
+            **{f"bound_ms_bench_kitti_{run}": v["k7_bound"][0] for run, v in r13["runs"].items()},
+            **{f"{key}_2_frames_{W}": v[src] for W, v in wide13.items()
+               for key, src in [("ms", "K7 2-frame ms"), ("plain_ms", "K7 2-frame plain ms")]},
+            trajectory_gaps_a=r13["gaps_a"], trajectory_gaps_b=r13["gaps_b"]),
         row(segment_sum_sorted, "voxel_segment_sum",
             "slam_sensor_fusion_tpu_torch/csrc/voxel_segsum.cu",
             "none: XLA scatter-add, slam_sensor_fusion_tpu/ops/voxel_map_sorted.py:178 and "
-            "ops/voxel_map.py:203", max(v[0] for v in segsum.values()), *segsum["group"][1:4],
-            library_ms=segsum["group"][4], library_diff_elements=segsum["group"][5],
-            ms_ties=segsum["ties"][1], plain_ms_ties=segsum["ties"][2],
-            bound_ms_ties=segsum["ties"][3][0], library_ms_ties=segsum["ties"][4],
-            library_diff_elements_ties=segsum["ties"][5],
+            "ops/voxel_map.py:203", max([v["err"] for v in segsum.values()] + [r13["segsum"]["err"]]),
+            segsum["group"]["ms"], segsum["group"]["plain_ms"], segsum["group"]["bound"],
+            library_ms=segsum["group"]["lib_ms"], device_ms=segsum["group"]["device_ms"],
+            library_device_ms=segsum["group"]["lib_device_ms"],
+            library_diff_elements=segsum["group"]["lib_diff"],
+            **{f"{key}_ties": segsum["ties"][src] for key, src in [
+                ("ms", "ms"), ("device_ms", "device_ms"), ("plain_ms", "plain_ms"),
+                ("library_ms", "lib_ms"), ("library_device_ms", "lib_device_ms"),
+                ("library_diff_elements", "lib_diff")]},
+            bound_ms_ties=segsum["ties"]["bound"][0],
             map_frames_s={k: v["frames_s"] for k, v in map_ms.items()},
             map_ms_an_insert={k: v["flush_ms"] for k, v in map_ms.items()},
             map_idle={k: v["idle"] for k, v in map_ms.items()},
             sp_map_frames_s=r11["sp_map_frames_s"], ms_voxel_downsample=r12["vox_ms"],
             plain_ms_voxel_downsample=r12["vox_plain_ms"],
             bound_ms_voxel_downsample=r12["vox_bound"][0],
-            device_ms_voxel_downsample=r12["vox_device_ms"]),
+            device_ms_voxel_downsample=r12["vox_device_ms"],
+            **{f"{key}_seq00_group": r13["segsum"][src] for key, src in [
+                ("ms", "ms"), ("device_ms", "device_ms"), ("plain_ms", "plain_ms"),
+                ("library_ms", "lib_ms"), ("library_device_ms", "lib_device_ms")]},
+            bound_ms_seq00_group=r13["segsum"]["bound"][0]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

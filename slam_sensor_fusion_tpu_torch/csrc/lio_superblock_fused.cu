@@ -32,11 +32,15 @@
 //
 // Design: a persistent cooperative grid, one block on each SM, as K4's
 // (grid_assoc.cuh). The frame loop runs on the device, since every frame
-// starts from the previous frame's posterior. Block 0, the leader, keeps
-// the one-block layout: TM x G threads (G = min(nSt, 1024 / TM)), group g
-// owning source tiles g, g + G, ... of the frame; the GN passes are K4's
-// device functions on the frame's slice of the pages and pair lists, with
-// the matched set in a global buffer in L2. Each association is a round
+// starts from the previous frame's posterior. Block 0, the leader, has
+// K4's leader layout: `first_threads` threads, thread x owning the points
+// x, x + blockDim.x, ... of the frame's flat (tile, row) order (at TM <=
+// 1024 the one-block layout, TM x G threads with G = min(nSt, 1024 / TM),
+// group g owning source tiles g, g + G, ...; past it 1024 threads, each
+// owning several rows of a tile: K1's global layout); the GN passes are
+// K4's device functions on the frame's slice of the pages and pair lists,
+// with the matched set in a global buffer in L2. Tiles of 32 to 4096 rows
+// in steps of 32 take the same code. Each association is a round
 // over the grid for the frame it publishes (`grid_gn`, K4's GN loop):
 // every other block scans (source tile, pair slot) items of that frame's
 // pair list into per-slot scratch, reused frame after frame, and the
@@ -463,7 +467,7 @@ __global__ void __launch_bounds__(1024, 1) lio_superblock_kernel(
 }
 
 inline bool bad_shape(int nSt, int TM, int K, int Ki) {
-  return TM < 32 || TM > 1024 || TM % 32 || nSt < 1 || K < 1 || Ki < 0;
+  return TM < 32 || TM > 4096 || TM % 32 || nSt < 1 || K < 1 || Ki < 0;
 }
 
 }  // namespace

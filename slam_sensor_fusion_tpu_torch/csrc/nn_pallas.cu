@@ -22,7 +22,7 @@
 //      the slot's one target tile for its source row from L2 (16-byte loads
 //      where the page allows) and writes the tile's unclamped minimum and
 //      its FIRST winning row (strict `<` from kBig) to per-slot scratch
-//      (max_pairs, TM). Every width up to ops/nn_pallas.MAX_TILE_SRC takes
+//      (max_pairs, TM). Every width up to ops/cuda_lib.MAX_TILE_SRC takes
 //      this one kernel.
 //   2. The combine gives each source row its slots in slot order under a
 //      strict `<` from kBig (grid_assoc.cuh's `combine`), so the earlier

@@ -30,12 +30,17 @@
 //
 // Design.
 // K4 is a persistent cooperative grid, one block on each SM
-// (grid_assoc.cuh). Block 0, the leader, keeps the one-block layout of the
-// first port: TM x G threads, G = min(nSt, 1024 / TM); group g owns source
-// tiles g, g + G, ... and thread r of a group owns point r of each of them.
-// The matched set (7 floats a point: 224 KiB at 16 tiles of 512) is more
-// than an SM's shared memory, so it lives in global buffers the wrapper
-// allocates, in K5's output layout (d2 (nSt, 1, TM), qn (nSt, 6, TM)). Each
+// (grid_assoc.cuh). Block 0, the leader, has `first_threads` threads:
+// TM x G, G = min(nSt, 1024 / TM), up to 1024 rows a tile, and 1024 past
+// that. Thread x owns the points x, x + blockDim.x, ... of the flat (tile,
+// row) order: at TM <= 1024 that is the one-block layout of the first port
+// (group g = x / TM owns tiles g, g + G, ..., thread r of a group point r
+// of each), past it K1's global layout (a thread owns several rows of a
+// tile). The matched set (7 floats a point: 224 KiB at 16 tiles of 512,
+// 448 KiB at 16 384 rows) is more than an SM's shared memory, so it lives
+// in global buffers the wrapper allocates, in K5's output layout (d2 (nSt,
+// 1, TM), qn (nSt, 6, TM)); the source points are read from their pages.
+// Tiles of 32 to 4096 rows in steps of 32 take the same code. Each
 // association is a round over the grid, grid_assoc.cuh's first-row round
 // that K3 runs on 3-row pages: every other block takes chunks of (source
 // tile, pair slot) items and runs icp_fused.cuh's `nearest_first` on the
@@ -66,13 +71,16 @@
 // the one-block walk's outputs bit for bit.
 // K6 is a thread-block cluster of C CTAs (C <= 8, a power of two, CTAs of
 // whole warps; grid and cluster are the same C CTAs on neighbouring SMs)
-// that takes over the one-block layout's TM x G threads: virtual thread
-// v = rank x blockDim + tid keeps point v % TM of tiles v / TM, v / TM + G,
-// ... . Each CTA copies its virtual threads' matched set (source xyz, d2,
-// matched xyz and normal: 10 floats a point, ~40 KiB a CTA at 16 x 512
-// and C = 8) into its shared memory once with cp.async; the three passes
-// then read shared memory (where the set does not fit, the same kernel
-// reads it from global memory each pass). A pass: every CTA adds up its
+// that takes over the leader layout's V = first_threads(nSt, TM) threads:
+// virtual thread v = rank x blockDim + tid keeps the points v, v + V, ...
+// of the flat (tile, row) order (at TM <= 1024 point v % TM of tiles v /
+// TM, v / TM + G, ...; past it several rows of a tile). The matched set is
+// spread over the cluster's CTAs, each holding its own virtual threads'
+// share: each CTA copies their points (source xyz, d2, matched xyz and
+// normal: 10 floats a point, ~40 KiB a CTA at 16 x 512 and C = 8, 80 KiB
+// at 16 384 rows) into its shared memory once with cp.async, and the
+// three passes then read shared memory (where a share does not fit, the
+// same kernel reads it from global memory each pass). A pass: every CTA adds up its
 // virtual threads' moments in the one-block order (`add_moments`), runs
 // block_sum's warp shuffle tree and writes each warp's partial to
 // red[m * 32 + warp] in CTA 0's shared memory (distributed shared memory);
@@ -197,7 +205,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // K6 on a cluster of gridDim.x CTAs (see the file's head). kStaged: the
 // matched set is copied into shared memory once, `staged` holding a CTA's
-// points as (tile k of the thread, field, thread). kThreads: the most
+// points as (point k of the thread, field, thread). kThreads: the most
 // threads a CTA has; at 256 a thread may hold two points' terms at once
 // (a thread's points are a serial chain of sums, so only the overlap of
 // their terms shortens a pass).
@@ -214,19 +222,19 @@ __global__ void __launch_bounds__(kThreads, 1) p2p_gn_cluster_kernel(
   cg::cluster_group cl = cg::this_cluster();
   const int rank = (int)cl.block_rank();
   const int B = blockDim.x;
-  const int v = rank * B + threadIdx.x;  // virtual thread of the one-block layout
-  const int G = (int)cl.num_blocks() * B / TM;
-  const int g = v / TM;
-  const int r = v - g * TM;
+  const int v = rank * B + threadIdx.x;  // virtual thread of the leader layout
+  const int V = (int)cl.num_blocks() * B;
+  const int n = nSt * TM;
   if constexpr (kStaged) {
     float* dst = staged + threadIdx.x;
-    for (int i = g; i < nSt; i += G, dst += kPointFloats * B) {
-      const float* s = src_pages + (size_t)i * 3 * TM + r;
-      const float* q = best_qn + (size_t)i * 6 * TM + r;
+    for (int p = v; p < n; p += V, dst += kPointFloats * B) {
+      const int i = p / TM;
+      const float* s = src_pages + (size_t)i * 3 * TM + (p - i * TM);
+      const float* q = best_qn + (size_t)i * 6 * TM + (p - i * TM);
       cp_async4(dst, s);
       cp_async4(dst + B, s + TM);
       cp_async4(dst + 2 * B, s + 2 * TM);
-      cp_async4(dst + 3 * B, best_d2 + (size_t)i * TM + r);
+      cp_async4(dst + 3 * B, best_d2 + p);
 #pragma unroll
       for (int k = 0; k < 6; ++k) cp_async4(dst + (4 + k) * B, q + k * TM);
     }
@@ -237,8 +245,8 @@ __global__ void __launch_bounds__(kThreads, 1) p2p_gn_cluster_kernel(
   float* red0 = cl.map_shared_rank(red, 0);
   const Shared* S0 = cl.map_shared_rank(&S, 0);
   const int lane = threadIdx.x & 31;
-  const int warp = v >> 5;  // the warp's index in the one-block layout
-  const int nwarps = (int)cl.num_blocks() * B >> 5;
+  const int warp = v >> 5;  // the warp's index in the leader layout
+  const int nwarps = V >> 5;
   if constexpr (kStaged) cp_async_wait_all();  // each thread reads only what it copied
   cl.sync();                         // every CTA runs before DSMEM is touched
   for (int it = 0;; ++it) {
@@ -247,16 +255,17 @@ __global__ void __launch_bounds__(kThreads, 1) p2p_gn_cluster_kernel(
     for (int m = 0; m < kNMom; ++m) acc[m] = 0.0f;
     const float* p = staged + threadIdx.x;
 #pragma unroll 2
-    for (int i = g; i < nSt; i += G) {
+    for (int x = v; x < n; x += V) {
       if constexpr (kStaged) {
         sfk::p2p::add_moments(acc, R, t, prm, p[0], p[B], p[2 * B], p[4 * B], p[5 * B],
                               p[6 * B], p[7 * B], p[8 * B], p[9 * B], p[3 * B]);
         p += kPointFloats * B;
       } else {
-        const float* s = src_pages + (size_t)i * 3 * TM + r;
-        const float* q = best_qn + (size_t)i * 6 * TM + r;
+        const int i = x / TM;
+        const float* s = src_pages + (size_t)i * 3 * TM + (x - i * TM);
+        const float* q = best_qn + (size_t)i * 6 * TM + (x - i * TM);
         sfk::p2p::add_moments(acc, R, t, prm, s[0], s[TM], s[2 * TM], q[0], q[TM], q[2 * TM],
-                              q[3 * TM], q[4 * TM], q[5 * TM], best_d2[(size_t)i * TM + r]);
+                              q[3 * TM], q[4 * TM], q[5 * TM], best_d2[x]);
       }
     }
     // block_sum's warp tree; each warp's partial into CTA 0's red
@@ -293,19 +302,17 @@ __global__ void __launch_bounds__(kThreads, 1) p2p_gn_cluster_kernel(
   }
 }
 
-// Threads of one block: TM a source tile, as many tiles side by side as fit.
-inline int groups(int nSt, int TM) { return sfk::grid::first_threads(nSt, TM) / TM; }
-
+// ops/cuda_lib.check_tile_src's rule: 32 to 4096 rows in steps of 32.
 inline bool bad_tiles(int nSt, int TM) {
-  return TM < 32 || TM > 1024 || TM % 32 || nSt < 1;
+  return TM < 32 || TM > 4096 || TM % 32 || nSt < 1;
 }
 
 constexpr int kNarrow = 256;  // K6's CTAs of at most this many threads take more registers
 
-// K6's launch for these tiles: C CTAs of `threads` (the one-block layout's
-// TM x G threads cut into whole warps: C the largest power of two <= 8
-// that divides its warps), the dynamic shared memory a CTA stages and
-// whether the matched set fits it.
+// K6's launch for these tiles: C CTAs of `threads` (the leader layout's
+// V = first_threads(nSt, TM) threads cut into whole warps: C the largest
+// power of two <= 8 that divides its warps), the dynamic shared memory a
+// CTA stages and whether its share of the matched set fits it.
 struct GnCluster {
   int dev, ctas, threads;
   size_t smem;
@@ -313,13 +320,13 @@ struct GnCluster {
 };
 
 cudaError_t gn_cluster(int nSt, int TM, GnCluster* c) {
-  const int G = groups(nSt, TM);
-  const int warps = TM * G / 32;
+  const int V = sfk::grid::first_threads(nSt, TM);
+  const int warps = V / 32;
   int C = kMaxCluster;
   while (warps % C) C /= 2;
   c->ctas = C;
-  c->threads = TM * G / C;
-  const int per_thread = (nSt + G - 1) / G;  // tiles a virtual thread owns at most
+  c->threads = V / C;
+  const int per_thread = (nSt * TM + V - 1) / V;  // points a virtual thread owns at most
   c->smem = (size_t)per_thread * kPointFloats * c->threads * sizeof(float);
   // the card's shared memory a block may opt into, less the kernel's own:
   // asked once a device in a host thread (a launch should not pay for it)
@@ -398,7 +405,7 @@ extern "C" int sfk_p2p_fused(const float* src_pages, const float* tgt_pages,
                              int* slot_row, void* ctl, int nSt, int TM, int TN,
                              const P2PParams* prm, cudaStream_t stream) {
   if (bad_tiles(nSt, TM)) return (int)cudaErrorInvalidValue;
-  const int threads = TM * groups(nSt, TM);
+  const int threads = sfk::grid::first_threads(nSt, TM);
   int blocks, per_sm;
   cudaError_t e = sfk::grid::grid_size((const void*)p2p_fused_kernel, threads, 0, &blocks, &per_sm);
   if (e != cudaSuccess) return (int)e;
@@ -416,7 +423,7 @@ extern "C" int sfk_p2p_fused(const float* src_pages, const float* tgt_pages,
 // blocks a multiprocessor could hold.
 extern "C" int sfk_p2p_grid(int nSt, int TM, int* blocks, int* threads, int* per_sm) {
   if (bad_tiles(nSt, TM)) return (int)cudaErrorInvalidValue;
-  *threads = TM * groups(nSt, TM);
+  *threads = sfk::grid::first_threads(nSt, TM);
   return (int)sfk::grid::grid_size((const void*)p2p_fused_kernel, *threads, 0, blocks, per_sm);
 }
 

@@ -82,8 +82,12 @@ __device__ __forceinline__ void add_moments(float (&v)[kNMom], const float* R, c
 }
 
 // The 29 moments under (S.R, S.t) on the matched set, into S.mom (every
-// thread must call it): thread x of group g = x / TM adds up point x % TM
-// of tiles g, g + G, ..., then the fixed-order block sum.
+// thread must call it): thread x adds up the points x, x + blockDim.x, ...
+// of the flat (tile, row) order, then the fixed-order block sum. With the
+// one-block layout's TM x G threads (TM <= 1024) that is point x % TM of
+// tiles x / TM, x / TM + G, ..., the order of the one-block kernels; past
+// 1024 rows the block has 1024 threads and a thread owns several rows of
+// a tile (grid_assoc.cuh's `first_threads`).
 __device__ inline void moments(Shared& S, const Tiles& T, const P2PParams& prm, float* red) {
   float R[9], t[3];
 #pragma unroll
@@ -92,13 +96,13 @@ __device__ inline void moments(Shared& S, const Tiles& T, const P2PParams& prm, 
   float v[kNMom];
 #pragma unroll
   for (int m = 0; m < kNMom; ++m) v[m] = 0.0f;
-  const int G = blockDim.x / T.TM;
-  const int r = threadIdx.x % T.TM;
-  for (int i = threadIdx.x / T.TM; i < T.nSt; i += G) {
-    const float* s = T.src + (size_t)i * 3 * T.TM;
+  for (int p = threadIdx.x; p < T.nSt * T.TM; p += blockDim.x) {
+    const int i = p / T.TM;
+    const int r = p - i * T.TM;
+    const float* s = T.src + (size_t)i * 3 * T.TM + r;
     const float* q = T.qn + (size_t)i * 6 * T.TM + r;
-    add_moments(v, R, t, prm, s[r], s[T.TM + r], s[2 * T.TM + r], q[0], q[T.TM], q[2 * T.TM],
-                q[3 * T.TM], q[4 * T.TM], q[5 * T.TM], T.d2[(size_t)i * T.TM + r]);
+    add_moments(v, R, t, prm, s[0], s[T.TM], s[2 * T.TM], q[0], q[T.TM], q[2 * T.TM],
+                q[3 * T.TM], q[4 * T.TM], q[5 * T.TM], T.d2[p]);
   }
   sfk::block_sum<kNMom>(v, red, S.mom);
 }

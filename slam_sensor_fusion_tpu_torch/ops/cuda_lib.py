@@ -33,6 +33,10 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
+#: the widest source tile the registration kernels take (K1-K7; the JAX
+#: package's stress configuration and its autosize rule use 4096)
+MAX_TILE_SRC = 4096
+
 _lib: ctypes.CDLL | None = None
 #: seconds the last build in this process took (0.0 before any build)
 build_seconds = 0.0
@@ -167,6 +171,15 @@ def grid_shape(fn, *shape: int, keys=("blocks", "threads", "per_sm")) -> dict:
 
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_tile_src(what: str, TM: int) -> None:
+    """The registration kernels' one tile-shape rule (K1-K7 on the card):
+    a source tile of 32 to MAX_TILE_SRC rows in steps of 32 (whole warps);
+    raise otherwise."""
+    if not (32 <= TM <= MAX_TILE_SRC and TM % 32 == 0):
+        raise ValueError(f"{what}: tile_src {TM} must be a multiple of 32 from 32 to "
+                         f"{MAX_TILE_SRC}")
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple, device) -> None:

@@ -45,7 +45,6 @@ from slam_sensor_fusion_tpu_torch.ops.icp import ICPResult, _icp_xla
 from slam_sensor_fusion_tpu_torch.ops.morton import tile_bboxes
 from slam_sensor_fusion_tpu_torch.ops.nn_gated import pair_tiles
 from slam_sensor_fusion_tpu_torch.ops.nn_pallas import (
-    MAX_TILE_SRC,
     _build_tile_pair_list,
     _tile_chunk,
     make_pages,
@@ -365,9 +364,7 @@ def _fused_core(
         )
     if dev.type != "cuda":
         raise ValueError(f"_fused_core: unsupported device {dev}")
-    if TM > MAX_TILE_SRC or TM % 32:
-        raise ValueError(
-            f"_fused_core: tile_src {TM} must be a multiple of 32, <= {MAX_TILE_SRC}")
+    cuda_lib.check_tile_src("_fused_core", TM)
     T_out = torch.empty((4, 4), dtype=f32, device=dev)
     stats = torch.empty((1, 128), dtype=f32, device=dev)
     # per-point scratch (matched x, y, z and the gate/alive weight): too big

@@ -433,8 +433,7 @@ def lio_superblock(
         return _outputs(*_kernel_plain(*[t for t, *_ in args], params))
     if dev.type != "cuda":
         raise ValueError(f"lio_superblock: unsupported device {dev}")
-    if TM > 1024 or TM % 32:
-        raise ValueError(f"lio_superblock: tile_src {TM} must be a multiple of 32, <= 1024")
+    cuda_lib.check_tile_src("lio_superblock", TM)
     poses = torch.empty((K, 4, 4), dtype=f32, device=dev)
     stats = torch.empty((K, 128), dtype=f32, device=dev)
     pose_n = torch.empty((4, 4), dtype=f32, device=dev)

@@ -25,9 +25,6 @@ from slam_sensor_fusion_tpu_torch.ops import cuda_lib
 
 _BIG = 3.0e38
 _FAR = 1.0e7  # sentinel coordinate for invalid points (d2 ~ 1e14 << _BIG)
-#: the widest source tile K1, K2 and K3 take (the JAX package's stress
-#: configuration and its autosize rule use 4096)
-MAX_TILE_SRC = 4096
 
 
 class PallasNNResult(NamedTuple):
@@ -164,8 +161,7 @@ def pair_nn(
         return pair_nn_plain(src_pages, tgt_pages, pair_start, pair_cnt, pair_tgt)
     if dev.type != "cuda":
         raise ValueError(f"pair_nn: unsupported device {dev}")
-    if TM > MAX_TILE_SRC:
-        raise ValueError(f"pair_nn: tile_src {TM} > {MAX_TILE_SRC}")
+    cuda_lib.check_tile_src("pair_nn", TM)
     d2 = torch.empty((nSt, 1, TM), dtype=f32, device=dev)
     idx = torch.empty((nSt, 1, TM), dtype=i32, device=dev)
     xyz = torch.empty((nSt, 3, TM), dtype=f32, device=dev)

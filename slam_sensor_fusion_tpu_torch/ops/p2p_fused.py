@@ -286,8 +286,7 @@ def _check(what: str, dev: torch.device, specs, TM: int) -> bool:
         return False
     if dev.type != "cuda":
         raise ValueError(f"{what}: unsupported device {dev}")
-    if TM > 1024 or TM % 32:
-        raise ValueError(f"{what}: tile_src {TM} must be a multiple of 32, <= 1024")
+    cuda_lib.check_tile_src(what, TM)
     return True
 
 

@@ -41,7 +41,7 @@ from slam_sensor_fusion_tpu_torch.ops import cuda_lib
 from slam_sensor_fusion_tpu_torch.ops import geometry as geo
 from slam_sensor_fusion_tpu_torch.ops import stochastic_filter as sf
 from slam_sensor_fusion_tpu_torch.ops.icp_fused import _icp_plain
-from slam_sensor_fusion_tpu_torch.ops.nn_pallas import MAX_TILE_SRC, _tile_chunk
+from slam_sensor_fusion_tpu_torch.ops.nn_pallas import _tile_chunk
 from slam_sensor_fusion_tpu_torch.utils.config import LocalizationConfig
 
 _BIG = 3.0e38
@@ -285,9 +285,7 @@ def _superblock_fine(*inputs, global_layout: bool = False):
         )
     if dev.type != "cuda":
         raise ValueError(f"superblock_fine: unsupported device {dev}")
-    if TM > MAX_TILE_SRC or TM % 32:
-        raise ValueError(
-            f"superblock_fine: tile_src {TM} must be a multiple of 32, <= {MAX_TILE_SRC}")
+    cuda_lib.check_tile_src("superblock_fine", TM)
     if TN % 32:
         raise ValueError(f"superblock_fine: tile_tgt {TN} not a multiple of 32")
     if TN * 16 + 4096 > 227 * 1024:

@@ -9,8 +9,10 @@ adds each segment's rows one at a time in row order. On the card
 `index_add_` adds with atomics in no fixed order, so the sums would move by
 ulps from run to run; `segment_sum_sorted` keeps the row order:
 
-- for CUDA tensors it launches csrc/voxel_segsum.cu (one thread an output
-  element, its rows found by binary search and added in order) or raises;
+- for CUDA tensors it launches csrc/voxel_segsum.cu (parallel over rows:
+  tiles staged in shared memory, each segment chained in row order by one
+  thread, a segment longer than its tile finished by its block) or
+  raises;
 - for CPU tensors it runs `segment_sum_sorted_plain`, which adds in the
   same order.
 """
@@ -55,8 +57,8 @@ def segment_sum_sorted(values: torch.Tensor, seg: torch.Tensor, n_out: int) -> t
     """The segment sums of `values` (S, C) float32 over the nondecreasing
     int32 ids `seg` (S,): (n_out, C), each row 0.0 plus its segment's rows
     in row order, as `segment_sum_sorted_plain`. CPU tensors run the plain
-    version; CUDA tensors launch the kernel (csrc/voxel_segsum.cu) or
-    raise."""
+    version; CUDA tensors launch the kernel (csrc/voxel_segsum.cu), which
+    takes C = 4 (every caller's (sum x, y, z, count)), or raise."""
     dev = values.device
     S, C = values.shape
     cuda_lib.require(values, "values", torch.float32, (S, C), dev)
@@ -65,9 +67,13 @@ def segment_sum_sorted(values: torch.Tensor, seg: torch.Tensor, n_out: int) -> t
         return segment_sum_sorted_plain(values, seg, n_out)
     if dev.type != "cuda":
         raise ValueError(f"segment_sum_sorted: unsupported device {dev}")
+    if C != 4:
+        raise ValueError(f"segment_sum_sorted: {C} columns, the kernel takes 4")
     out = torch.empty((n_out, C), dtype=torch.float32, device=dev)
     if n_out == 0:
         return out
+    if values.data_ptr() % 16:  # the kernel copies a row as one 16-byte word
+        values = values.clone()
     err = cuda_lib.lib().sfk_segment_sum_sorted(
         values.data_ptr(), seg.data_ptr(), S, C, n_out, out.data_ptr(),
         cuda_lib.stream_ptr(values),

@@ -49,6 +49,7 @@ from slam_sensor_fusion_tpu_torch.ops.superblock_fused import (
 )
 from torch_lio_world import (
     K7_SHAPES,
+    K7_WIDE,
     ODD_LIO,
     k7_case,
     k7_digest,
@@ -245,6 +246,10 @@ P2P_SHAPES = {
     "bench_empty_tile": dict(M=8192, N=32768, n_tgt=30000, tile_src=512, tile_tgt=1024,
                              min_corr=3000, empty_tile=5),
     "odd": dict(M=96, N=450, n_tgt=400, tile_src=96, tile_tgt=150, min_corr=20),
+    # past 1024 rows a tile (the leader's global layout): the bench scene's
+    # 8192 source rows in 4 tiles of 2048 and in 2 tiles of 4096
+    "wide2048": dict(M=8192, N=32768, n_tgt=30000, tile_src=2048, tile_tgt=1024, min_corr=3000),
+    "wide4096": dict(M=8192, N=32768, n_tgt=30000, tile_src=4096, tile_tgt=1024, min_corr=3000),
 }
 
 
@@ -275,7 +280,7 @@ def _assert_gn_outputs(got, want, min_corr):
 
 
 @pytest.mark.parametrize("fixed", [True, False], ids=["fixed", "fresh"])
-@pytest.mark.parametrize("shape", ["bench", "bench_empty_tile", "odd"])
+@pytest.mark.parametrize("shape", ["bench", "bench_empty_tile", "odd", "wide2048", "wide4096"])
 def test_p2p_fused_kernel_matches_plain(cuda_device, shape, fixed):
     config, core = _p2p_case(shape, cuda_device, fixed_correspondences=fixed)
     before = tpf._p2p_core.launches
@@ -286,7 +291,7 @@ def test_p2p_fused_kernel_matches_plain(cuda_device, shape, fixed):
     _assert_gn_outputs(got, want, P2P_SHAPES[shape]["min_corr"])
 
 
-@pytest.mark.parametrize("shape", ["bench", "odd"])
+@pytest.mark.parametrize("shape", ["bench", "odd", "wide2048", "wide4096"])
 def test_p2p_halves_match_plain_and_compose(cuda_device, shape):
     """K5 and K6 against their plain versions, and K6(K5(x)) against K4
     with fixed correspondences."""
@@ -365,6 +370,42 @@ def test_p2p_halves_launch_shapes(cuda_device):
     assert grid["blocks"] >= sms and grid["threads"] == 128, grid
     assert tpf.gn_cluster(16, 512) == {"ctas": 8, "threads": 128, "smem_bytes": 40960}
     assert tpf.gn_cluster(1, 96) == {"ctas": 1, "threads": 96, "smem_bytes": 3840}
+
+
+def test_p2p_wide_tiles_launch_shapes(cuda_device):
+    """Past 1024 rows a tile K4's leader and K7's are 1024 threads and K6's
+    cluster 8 CTAs of 128 (each virtual thread owning several rows of a
+    tile), each CTA staging its share of the matched set: 16 points of 10
+    floats a thread at 4 x 4096 rows, 32 at 16 x 2048 (phase 13's 32 768
+    rows a frame)."""
+    assert tpf.kernel_grid(4, 4096)["threads"] == 1024
+    assert tsb.kernel_grid(16, 2048)["threads"] == 1024
+    assert tpf.gn_cluster(4, 4096) == {"ctas": 8, "threads": 128, "smem_bytes": 81920}
+    assert tpf.gn_cluster(16, 2048) == {"ctas": 8, "threads": 128, "smem_bytes": 163840}
+
+
+@pytest.mark.parametrize("wrapper", ["core", "associate", "gn_corr", "lio"])
+def test_p2p_kernels_refuse_tiles_past_4096(cuda_device, wrapper):
+    """K4-K7 take tiles up to 4096 rows on the card and raise past that,
+    before any launch."""
+    config, core = _p2p_case("odd", cuda_device)
+    src = torch.zeros((1, 3, 4128), device=cuda_device)
+    d2 = torch.zeros((1, 1, 4128), device=cuda_device)
+    qn = torch.zeros((1, 6, 4128), device=cuda_device)
+    call = {
+        "core": lambda: tpf._p2p_core(src, *core[1:], config),
+        "associate": lambda: tpf._p2p_associate(src, *core[1:]),
+        "gn_corr": lambda: tpf._p2p_gn_corr(core[5], src, d2, qn, config),
+    }
+    if wrapper == "lio":
+        args, params = k7_case(ODD_LIO, cuda_device, imu_rate=7)
+        K = args[3].shape[0]
+        wide = torch.zeros((K, 1, 3, 4128), device=cuda_device)
+        call["lio"] = lambda: tsb.lio_superblock(
+            args[0][:, :1].contiguous(), args[1][:, :1].contiguous(), *args[2:17], wide,
+            args[18], params)
+    with pytest.raises(ValueError, match="4096"):
+        call[wrapper]()
 
 
 @pytest.mark.parametrize("n_tiles, tile_src, cluster", [
@@ -466,14 +507,8 @@ def test_p2p_kernels_unchanged_by_the_header_move(cuda_device):
     assert p2p_digest(cuda_device) == P2P_DIGEST
 
 
-@pytest.mark.parametrize("shape", ["bench", "odd"])
-def test_lio_superblock_kernel_matches_plain(cuda_device, shape):
-    """K7 against its plain version on one block: 16 frames of 10 IMU
-    samples at the LIO bench's width, and an odd shape (3 frames of 7
-    samples, source tiles of 96, target tiles of 200, fresh
-    correspondences, the constant measurement covariance)."""
-    config, imu_rate, min_corr = K7_SHAPES[shape]
-    args, params = k7_case(config, cuda_device, imu_rate=imu_rate)
+def _assert_k7_matches_plain(config, imu_rate, min_corr, device):
+    args, params = k7_case(config, device, imu_rate=imu_rate)
     before = tsb.lio_superblock.launches
     got = tsb.lio_superblock(*args, params)
     want = tsb.lio_superblock_plain(*args, params)
@@ -489,6 +524,23 @@ def test_lio_superblock_kernel_matches_plain(cuda_device, shape):
         torch.testing.assert_close(stats[:, lane], stats_p[:, lane], rtol=1e-4, atol=1e-6)
     assert torch.equal(stats[:, 9:], torch.zeros_like(stats[:, 9:]))
     assert stats_p[:, 1].min() >= min_corr
+
+
+@pytest.mark.parametrize("shape", ["bench", "odd"])
+def test_lio_superblock_kernel_matches_plain(cuda_device, shape):
+    """K7 against its plain version on one block: 16 frames of 10 IMU
+    samples at the LIO bench's width, and an odd shape (3 frames of 7
+    samples, source tiles of 96, target tiles of 200, fresh
+    correspondences, the constant measurement covariance)."""
+    _assert_k7_matches_plain(*K7_SHAPES[shape], cuda_device)
+
+
+@pytest.mark.parametrize("width", list(K7_WIDE))
+def test_lio_superblock_wide_tiles_match_plain(cuda_device, width):
+    """K7 past 1024 rows a tile (2 source tiles of 2048 and of 4096 a
+    frame, the leader's global layout) against its plain version on the
+    bench's first block, to K7's bounds."""
+    _assert_k7_matches_plain(*K7_WIDE[width], cuda_device)
 
 
 def test_lio_superblock_skips_padding_frames(cuda_device):
@@ -519,28 +571,56 @@ def test_lio_superblock_bits_equal_the_one_block_kernel(cuda_device):
 def _segsum_case(kind, device):
     """(values, seg, U): a group of 131072 sorted rows in ~30 000 segments
     of skewed lengths, or a tie-heavy one (one run of 10 000 rows, many
-    singletons, empty segments, rows aliased to U - 1 with zero payload)."""
+    singletons, empty segments, rows aliased to U - 1 with zero payload);
+    and the edges of the kernel's design (tiles of 512 rows, a long run
+    finished 256 rows a stage): runs across tile boundaries, a run of 5000
+    rows with scattered zero rows, runs of mixed +0.0 and -0.0, NaN payload
+    rows, and the first and last ids without rows (ids -1 before them and
+    U after them, which belong to no output)."""
     rng = np.random.default_rng(12)
     if kind == "group":
         U = 1 << 15
         lens = np.minimum(rng.geometric(0.25, U), 400)
         seg = np.repeat(np.arange(U), lens)[: 1 << 17]
-    else:
+    elif kind == "ties":
         U = 5000
         lens = rng.integers(0, 2, U)
         lens[1234] = 10_000
         seg = np.concatenate([np.repeat(np.arange(U), lens), np.full(777, U - 1)])
+    else:
+        U = 3000
+        lens = rng.integers(0, 4, U)
+        lens[[0, U - 1]] = 0  # the first and last ids have no rows
+        lens[[150, 151, 700]] = [511, 600, 5000]  # across one, two and ten tiles
+        seg = np.concatenate([np.full(5, -1), np.repeat(np.arange(U), lens), np.full(9, U)])
     vals = (rng.standard_normal((len(seg), 4)) * 40).astype(np.float32)
     if kind == "ties":
         vals[-777:] = 0.0
+    elif kind != "group":
+        long = np.flatnonzero(seg == 700)
+        vals[long[::3]] = 0.0  # zero rows inside the long run
+        vals[long[1::7]] = -0.0
+        signed = np.flatnonzero(seg == 151)
+        vals[signed] = np.where(rng.uniform(size=(len(signed), 1)) < 0.5, 0.0, -0.0)
+        vals[signed[::50], 1] = 2.5
+        vals[np.isin(seg, [3, 4, 5])] = -0.0  # ids whose rows are all -0.0
+        if kind == "nan":
+            vals[np.flatnonzero(seg == 700)[[17, 4000]], 2] = np.nan
+            vals[np.flatnonzero(seg == 150)[300]] = np.nan
+            vals[np.isin(seg, [9, 10])] = np.nan
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
     return to(vals), to(seg.astype(np.int32)), U
 
 
-@pytest.mark.parametrize("kind", ["group", "ties"])
+def _same_bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("kind", ["group", "ties", "edges", "nan"])
 def test_segment_sum_kernel_matches_plain(cuda_device, kind):
-    """The order-exact segment sum: bits equal the plain version's (each
-    segment's rows added in row order), one launch a call."""
+    """The order-exact segment sum: bits equal the plain version's on the
+    card (each segment's rows added in row order; NaN canonical there),
+    and the CPU run's (NaN where it has NaN), one launch a call."""
     from slam_sensor_fusion_tpu_torch.ops import voxel_segsum as vs
 
     vals, seg, U = _segsum_case(kind, cuda_device)
@@ -549,8 +629,13 @@ def test_segment_sum_kernel_matches_plain(cuda_device, kind):
     want = vs.segment_sum_sorted_plain(vals, seg, U)
     torch.cuda.synchronize()
     assert vs.segment_sum_sorted.launches == before + 1
-    assert torch.equal(got, want)
-    assert torch.equal(got.cpu(), vs.segment_sum_sorted_plain(vals.cpu(), seg.cpu(), U))
+    assert _same_bits(got, want)
+    cpu = vs.segment_sum_sorted_plain(vals.cpu(), seg.cpu(), U)
+    nan = torch.isnan(cpu)
+    assert torch.equal(torch.isnan(got.cpu()), nan) and _same_bits(got.cpu()[~nan], cpu[~nan])
+    assert (kind == "nan") == bool(nan.any())
+    if kind in ("edges", "nan"):  # the empty first and last ids, and the -0.0 ids
+        assert (got[[0, U - 1]] == 0).all() and not torch.signbit(got[[0, U - 1, 3, 4, 5]]).any()
 
 
 def test_voxel_stores_on_the_card_equal_each_other_and_the_cpu(cuda_device):

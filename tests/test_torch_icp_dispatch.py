@@ -99,11 +99,9 @@ UNSORTED = {
 
 @pytest.fixture(scope="module")
 def unsorted_world():
-    """tests/test_torch_slice.py's world. (On seed 6 the per-frame engine's
-    first two frames run all 10 ICP iterations unconverged and the two
-    packages part by 1e-3 m there, with equal counts and equally with a
-    presorted map: the lazy re-association's |err - last| < eps branch, not
-    the sort.)"""
+    """tests/test_torch_slice.py's world. (Seed 6 agrees too: frames 1-2
+    to 6e-7 m with equal counts in both engines; the first quantity that
+    parts is the first Kabsch step's rotation, by 3.6e-7 (ROADMAP §3).)"""
     seq, map_data = build_world(n_frames=9, seed=3)
     cfg = dataclasses.replace(SLICE_CONFIG, presorted_map=False)
     jcfg = jax_config(cfg)

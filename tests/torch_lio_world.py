@@ -180,6 +180,14 @@ def k7_case(config, device, imu_rate: int = 10, seed: int = 0):
 #: correspondences a frame must have for the comparison not to be vacuous)
 K7_SHAPES = {"bench": (BENCH_LIO, 10, 1000), "odd": (ODD_LIO, 7, 50)}
 
+#: K7 past 1024 rows a tile: BENCH_LIO's block registered on every 2nd scan
+#: point in 2 tiles of 2048, and on every point in 2 tiles of 4096
+K7_WIDE = {
+    str(TM): (BENCH_LIO._replace(reg_subsample=8192 // (2 * TM),
+                                 p2p=BENCH_LIO.p2p._replace(tile_src=TM)), 10, 1000)
+    for TM in (2048, 4096)
+}
+
 
 def k7_digest(device) -> str:
     """SHA-256 of `lio_superblock`'s outputs on the K7_SHAPES blocks, the
