@@ -182,6 +182,24 @@ check exits non-zero:
      boundary left out), one K2 launch a gated call and one
      voxel_segment_sum launch a downsample; prints each call's ms, the
      card's busy ms of it (profiler), its CPU ms and its bound.
+ 13. bench.py bench_kitti's own LIO settings (registration subsample 8)
+     through run_lio_superblocks at source tiles of 512, 2048 and 4096 rows
+     on its own 16 384-point fixture (129 frames) and on phase 10's
+     seq-00-density fixture (65 frames): ATE-RMSE < 0.3 m, zero overflow,
+     one K7 a block, the widths' trajectories within 1e-4 m in the first
+     block and 0.1 m over the run; K4-K7 against their plain versions at
+     2048 and 4096 rows; voxel_segment_sum on a seq-00 group.
+ 14. the prefix sum of the LIO cell normals in XLA's order
+     (ops/ordered_scan.cumsum_rows, csrc/ordered_scan.cu) against its plain
+     version on CPU copies, bit for bit: (N, 10) moments of masked clouds
+     at negative coordinates (-0.0 rows) at N = 1, 15, 16, 17, 257, 4097
+     and 2^20 + 3, phase 7's anchor (65 536 rows) and phase 13 (b)'s;
+     estimate_normals_cells on the card against the CPU at phase 13 (a)'s
+     first anchor (valid masks equal, unsigned gap <= 1e-5); the kernel's
+     ms by events and on the card alone beside torch.cumsum's on the same
+     tensor (which the port never calls), its plain version's and its
+     bound. Every LIO path of phases 6, 7, 10, 11 and 13 must have launched
+     it (each anchor refresh takes one).
 
 Phase 2 also holds K3 against its plain version (fresh and lazy, at the
 session's shapes), the per-frame superblock branch (K3 lazy) against K1 on
@@ -190,7 +208,7 @@ K6(K5(x)) against K4 on a steady-state frame of the LIO world (frame 33,
 the ring full) against the anchor its block starts with (with K5's scan
 and combine and K6's device time under the profiler), and K7 against
 its plain version on the block of frames 33-48 from the same state.
-Every kernel's launch count is set to 0 before each path of phases 3-12
+Every kernel's launch count is set to 0 before each path of phases 3-13
 and read after it.
 
 The line before the last is the kernels' JSON record (time, plain time,
@@ -203,7 +221,9 @@ K1-K5 and K7 their grids, K6 its cluster; K2 also gated_nn_pallas's time,
 CPU time, bound and busy device time; voxel_segment_sum its tie-heavy times, `index_add_`'s
 time as its library_ms, phase 9's frames/s, ms an insert and idle share
 of each store, and voxel_downsample's time, CPU time, bound and busy
-device time on a group); the last line is
+device time on a group; cumsum_rows its device time, torch.cumsum's as
+its library_ms, and its times at phase 13 (b)'s anchor and 2^20 + 3
+rows); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -315,6 +335,11 @@ FLEET11_FRAMES = 32  # after the startup frame: 4 superblocks
 BATCHED11_FRAMES = 9  # phase 11's per-frame fleet
 SP11_FRAMES = 32  # phase 11's map-sharded steady state
 SP_TOL = 1e-4
+#: phase 14: the scan's lengths (N x 10 moments), its launches' names in
+#: the profiler, and the bound on the card's cell normals against the CPU's
+SCAN_LENGTHS = (1, 15, 16, 17, 257, 4097, 2**20 + 3)
+SCAN_KERNELS = ("scan_up_kernel", "scan_down_kernel")
+NORMALS_CARD_TOL = 1e-5  # 1 - |n . n'|
 #: K1 and K4 must spread each association over at least this many SMs
 MIN_GRID_BLOCKS = 16
 
@@ -1143,7 +1168,8 @@ def phase10(dev, tag, name, kernels, record, launches):
     from slam_sensor_fusion_tpu_torch.utils.config import MappingConfig
 
     t_phase = time.perf_counter()
-    by_name = dict(zip(("K1", "K2", "K3", "K4", "K5", "K6", "K7", "voxel_segment_sum"), kernels))
+    by_name = dict(zip(("K1", "K2", "K3", "K4", "K5", "K6", "K7", "voxel_segment_sum",
+                        "cumsum_rows"), kernels))
     pair_nn, lio_superblock = by_name["K2"], by_name["K7"]
     segment_sum_sorted = by_name["voxel_segment_sum"]
     out = {}
@@ -2162,6 +2188,8 @@ def phase13(dev, tag, name, kernels, record, seq00) -> dict:
             # K7 a block by CUDA events: the second block, from the first's state
             mid, _ = lio.run_lio_superblocks(state0, *[a[:R] for a in arrays], cfg,
                                              scan_tau=tau[:R])
+            # phase 14's inputs: (a)'s first anchor, (b)'s after one block
+            out.setdefault(f"anchor_{fx}", ((state0 if fx == "a" else mid), cfg))
             k7_in, k7_pairs = lio_block_inputs(lio, cfg, mid, arrays, tau, R, dev)
             params = lio._superblock_params(cfg)
             k7_ms = time_ms(lambda: k7(*k7_in, params), 3)
@@ -2219,6 +2247,94 @@ def phase13(dev, tag, name, kernels, record, seq00) -> dict:
     print(f"phase 13 bench_kitti LIO at wide tiles: {time.perf_counter() - t_phase:.1f} s [{tag}]",
           flush=True)
     return out
+
+
+def scan_moments(n: int, seed: int, dev) -> torch.Tensor:
+    """(n, 10) cell-normal moments of a masked cloud around (-140, 60, -2)
+    m, its first rows masked: masked rows at negative coordinates are
+    -0.0, as the LIO anchor's are."""
+    from slam_sensor_fusion_tpu_torch.ops.point_to_plane import _cell_moments
+
+    rng = np.random.default_rng(seed)
+    pts = (rng.normal(0.0, 12.0, (n, 3)) + [-140.0, 60.0, -2.0]).astype(np.float32)
+    mask = rng.uniform(size=n) < 0.7
+    mask[:5] = False
+    return _cell_moments(torch.from_numpy(pts).to(dev), torch.from_numpy(mask).to(dev))
+
+
+def time_scan(x: torch.Tensor) -> dict:
+    """cumsum_rows on `x` (N, 10) on the card: ms by CUDA events and on the
+    card alone (profiler), its plain version's ms on the card, its bound
+    (each element read and written once; one addition an element up and
+    one down), and torch.cumsum's ms by events and on the card alone."""
+    from slam_sensor_fusion_tpu_torch.ops.ordered_scan import cumsum_rows, cumsum_rows_plain
+
+    out = cumsum_rows(x)
+    return dict(
+        ms=time_ms(lambda: cumsum_rows(x), 20),
+        device_ms=device_ms(lambda: cumsum_rows(x), 20, SCAN_KERNELS),
+        plain_ms=time_ms(lambda: cumsum_rows_plain(x), 3),
+        bound=bound(2 * x.numel(), nbytes(x, out)),
+        lib_ms=time_ms(lambda: torch.cumsum(x, dim=0), 20),
+        # "" matches every kernel the call launches
+        lib_device_ms=device_ms(lambda: torch.cumsum(x, dim=0), 20, ("",)),
+    )
+
+
+def phase14(dev, tag, anchor7, r13) -> dict:
+    """The prefix sum of the LIO cell normals in XLA's order on the card:
+    bit-equal to its plain version on CPU copies at SCAN_LENGTHS and at
+    phase 7's and phase 13 (b)'s anchor moments; estimate_normals_cells
+    on the card against the CPU at phase 13 (a)'s first anchor; the
+    kernel's times. Returns the numbers for the kernels' record."""
+    from slam_sensor_fusion_tpu_torch.ops import point_to_plane as pp
+    from slam_sensor_fusion_tpu_torch.ops.ordered_scan import cumsum_rows, cumsum_rows_plain
+
+    t_phase = time.perf_counter()
+    st_b, _ = r13["anchor_b"]
+    cases = {f"{n} rows": scan_moments(n, n, dev) for n in SCAN_LENGTHS}
+    cases["phase 7 anchor"] = pp._cell_moments(*anchor7)
+    cases["phase 13 (b) anchor"] = pp._cell_moments(st_b.anchor_points, st_b.anchor_mask)
+    err = 0.0
+    for what, x in cases.items():
+        got = cumsum_rows(x).cpu()
+        want = cumsum_rows_plain(x.cpu())
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        n_neg = int(torch.signbit(x).logical_and(x == 0).sum())
+        print(f"cumsum_rows, {what} ({x.shape[0]} x {x.shape[1]}, {n_neg} elements -0.0): bits "
+              f"equal its plain version on the CPU: {same} [{tag}]", flush=True)
+        if not same:
+            fail(f"cumsum_rows, {what}: {int((got.view(torch.int32) != want.view(torch.int32)).sum())}"
+                 f" of {got.numel()} elements differ from its plain version")
+        err = max(err, (got - want).abs().max().item())
+
+    st_a, cfg_a = r13["anchor_a"]
+    normals = [pp.estimate_normals_cells(pts, msk, cfg_a.normal_voxel,
+                                         max_planarity=cfg_a.normal_planarity)
+               for pts, msk in [(st_a.anchor_points, st_a.anchor_mask),
+                                (st_a.anchor_points.cpu(), st_a.anchor_mask.cpu())]]
+    (n_c, v_c), (n_h, v_h) = [(n.cpu(), v.cpu()) for n, v in normals]
+    flips = int((v_c != v_h).sum())
+    gap = float((1.0 - (n_c * n_h).sum(-1).abs())[v_h].max()) if bool(v_h.any()) else 0.0
+    print(f"estimate_normals_cells at phase 13 (a)'s first anchor ({st_a.anchor_points.shape[0]} "
+          f"rows, {int(st_a.anchor_mask.sum())} live, {int(v_h.sum())} valid normals): the card "
+          f"against the CPU, valid flags differing {flips}, max unsigned gap {gap:.3e} (tolerance "
+          f"{NORMALS_CARD_TOL}) [{tag}]", flush=True)
+    if flips or not gap <= NORMALS_CARD_TOL:
+        fail(f"estimate_normals_cells on the card: {flips} valid flags differ from the CPU's, "
+             f"gap {gap}")
+
+    times = {"anchor": time_scan(cases["phase 7 anchor"]),
+             "seq00": time_scan(cases["phase 13 (b) anchor"]),
+             "1m": time_scan(cases[f"{SCAN_LENGTHS[-1]} rows"])}
+    for what, c in times.items():
+        print(f"cumsum_rows ({what}): {c['ms']:.4f} ms by events, {c['device_ms']} ms on the card "
+              f"alone, plain {c['plain_ms']:.3f} ms, bound {c['bound'][0]:.5f} ms ({c['bound'][1]}); "
+              f"torch.cumsum {c['lib_ms']:.4f} ms, {c['lib_device_ms']} ms on the card alone "
+              f"[{tag}]", flush=True)
+    print(f"phase 14 ordered scan: {time.perf_counter() - t_phase:.1f} s [{tag}]", flush=True)
+    return dict(err=err, normals_gap=gap, times=times,
+                rows={k: int(v.shape[0]) for k, v in cases.items()})
 
 
 def main() -> None:
@@ -2279,11 +2395,12 @@ def main() -> None:
         sorted_voxel_map_insert,
     )
     from slam_sensor_fusion_tpu_torch.ops.voxel_segsum import segment_sum_sorted
+    from slam_sensor_fusion_tpu_torch.ops.ordered_scan import cumsum_rows
     from slam_sensor_fusion_tpu_torch.utils import mapdata, native
     from slam_sensor_fusion_tpu_torch.utils.config import MappingConfig
 
     kernels = (superblock_fine, pair_nn, _fused_core, p2p._p2p_core, p2p._p2p_associate,
-               p2p._p2p_gn_corr, lio_superblock, segment_sum_sorted)
+               p2p._p2p_gn_corr, lio_superblock, segment_sum_sorted, cumsum_rows)
 
     # ---- 1. build ----
     t0 = time.perf_counter()
@@ -3366,9 +3483,21 @@ def main() -> None:
     # their plain versions past 1024 rows ----
     r13 = phase13(dev, tag, name, kernels, record, p10.pop("kseq"))
 
+    # ---- 14. the LIO cell normals' prefix sum in XLA's order (cumsum_rows)
+    # against its plain version, the card's normals against the CPU's ----
+    r14 = phase14(dev, tag, (lstate_w.anchor_points, lstate_w.anchor_mask), r13)
+
     for kernel in kernels:
         if not sum(launches[kernel].values()):
             fail(f"{kernel.__name__} never launched on a main path")
+    # every LIO path refreshes its anchor, each refresh one scan
+    lio_paths = [p for p in launches[cumsum_rows] if p.startswith(("lio", "kitti_lio"))
+                 and p not in ("lio_split", "lio_sp1", "lio_sp4")]
+    idle = [p for p in lio_paths if not launches[cumsum_rows][p]]
+    print(f"cumsum_rows launches by LIO path: { {p: launches[cumsum_rows][p] for p in lio_paths} } "
+          f"[{tag}]", flush=True)
+    if idle:
+        fail(f"cumsum_rows never launched on the LIO paths {idle}")
     print(f"total {time.perf_counter() - t_start:.1f} s [{tag}]", flush=True)
 
     x = wide["16x4096"]
@@ -3482,6 +3611,18 @@ def main() -> None:
                 ("ms", "ms"), ("device_ms", "device_ms"), ("plain_ms", "plain_ms"),
                 ("library_ms", "lib_ms"), ("library_device_ms", "lib_device_ms")]},
             bound_ms_seq00_group=r13["segsum"]["bound"][0]),
+        row(cumsum_rows, "cumsum_rows", "slam_sensor_fusion_tpu_torch/csrc/ordered_scan.cu",
+            "none: XLA's reduce-window cumsum, slam_sensor_fusion_tpu/ops/point_to_plane.py:333",
+            r14["err"], r14["times"]["anchor"]["ms"], r14["times"]["anchor"]["plain_ms"],
+            r14["times"]["anchor"]["bound"], library_ms=r14["times"]["anchor"]["lib_ms"],
+            device_ms=r14["times"]["anchor"]["device_ms"],
+            library_device_ms=r14["times"]["anchor"]["lib_device_ms"], rows=r14["rows"],
+            normals_gap_card_cpu=r14["normals_gap"],
+            **{f"{key}_{what}": (c[src] if key != "bound_ms" else c["bound"][0])
+               for what, c in r14["times"].items() if what != "anchor"
+               for key, src in [("ms", "ms"), ("device_ms", "device_ms"), ("plain_ms", "plain_ms"),
+                                ("bound_ms", ""), ("library_ms", "lib_ms"),
+                                ("library_device_ms", "lib_device_ms")]}),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -142,6 +142,8 @@ def _declare(so: ctypes.CDLL) -> None:
     so.sfk_lio_grid.restype = I
     so.sfk_segment_sum_sorted.argtypes = [P] * 2 + [I] * 3 + [P, P]
     so.sfk_segment_sum_sorted.restype = I
+    so.sfk_cumsum_rows.argtypes = [P, I, I, P, P, I, P]
+    so.sfk_cumsum_rows.restype = I
 
 
 def check(err: int, what: str) -> None:

@@ -39,6 +39,7 @@ from slam_sensor_fusion_tpu_torch.ops.nn_pallas import (
     make_pages,
     pair_nn,
 )
+from slam_sensor_fusion_tpu_torch.ops.ordered_scan import cumsum_rows
 
 
 class PointToPlaneConfig(NamedTuple):
@@ -250,6 +251,21 @@ def _smallest_eigvec3(cov: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, to
     return vec, lam_min, lam_mid
 
 
+def _cell_moments(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(N, 10) per-point moments of the cell normals, masked: count, sums,
+    xx yy zz xy xz yz (a masked row at a negative coordinate gives -0.0)."""
+    w = mask.to(points.dtype)
+    x, y, z = points[:, 0] * w, points[:, 1] * w, points[:, 2] * w
+    return torch.stack(
+        [
+            w, x, y, z,
+            x * points[:, 0], y * points[:, 1], z * points[:, 2],
+            x * points[:, 1], x * points[:, 2], y * points[:, 2],
+        ],
+        dim=1,
+    )
+
+
 def estimate_normals_cells(
     points: torch.Tensor,
     mask: torch.Tensor,
@@ -268,10 +284,12 @@ def estimate_normals_cells(
     `sort_by_morton(..., isotropic=True)`.
 
     The moments are differences of float32 prefix sums over the whole
-    cloud at world coordinates, exactly as the JAX package takes them; the
-    scan's summation order differs between backends, so normals agree
-    between them to about 1e-3, while the counts (sums of 0/1) and so the
-    valid mask are exact."""
+    cloud at world coordinates, exactly as the JAX package takes them: the
+    sums reach ~1e6 while a cell's variance is ~1e-2, so the scan's order
+    of addition decides thin cells' normals. `ordered_scan.cumsum_rows`
+    adds in XLA's order (on the card, a kernel bit-equal to the CPU's), so
+    the normals agree with the JAX package's to the 3x3 eigen-solve's
+    rounding and the valid mask is equal."""
     N = points.shape[0]
     dev = points.device
     lo, hi = cloud_box(Cloud(points, mask), isotropic=True)
@@ -283,17 +301,7 @@ def estimate_normals_cells(
     drop = 3 * (_BITS - lvl)
     cell = codes >> drop  # codes are non-negative
 
-    w = mask.float()
-    x, y, z = points[:, 0] * w, points[:, 1] * w, points[:, 2] * w
-    mom = torch.stack(
-        [
-            w, x, y, z,
-            x * points[:, 0], y * points[:, 1], z * points[:, 2],
-            x * points[:, 1], x * points[:, 2], y * points[:, 2],
-        ],
-        dim=1,
-    )  # (N, 10): cnt, sums, xx yy zz xy xz yz
-    csum = torch.cumsum(mom, dim=0)
+    csum = cumsum_rows(_cell_moments(points, mask))
 
     idx = torch.arange(N, device=dev)
     boundary = cell[1:] != cell[:-1]

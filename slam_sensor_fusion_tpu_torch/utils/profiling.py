@@ -105,6 +105,7 @@ def kernel_launches() -> dict[str, int]:
     from slam_sensor_fusion_tpu_torch.ops.icp_fused import _fused_core
     from slam_sensor_fusion_tpu_torch.ops.lio_superblock_fused import lio_superblock
     from slam_sensor_fusion_tpu_torch.ops.nn_pallas import pair_nn
+    from slam_sensor_fusion_tpu_torch.ops.ordered_scan import cumsum_rows
     from slam_sensor_fusion_tpu_torch.ops.superblock_fused import superblock_fine
     from slam_sensor_fusion_tpu_torch.ops.voxel_segsum import segment_sum_sorted
 
@@ -117,4 +118,5 @@ def kernel_launches() -> dict[str, int]:
         "K6": p2p._p2p_gn_corr.launches,
         "K7": lio_superblock.launches,
         "voxel_segment_sum": segment_sum_sorted.launches,
+        "cumsum_rows": cumsum_rows.launches,
     }

@@ -28,7 +28,9 @@ version bit for bit, and the sorted and hash stores on the card equal each
 other and their CPU runs bit for bit. K1 takes a filter queue of any size
 (12 here) to the same bounds, with its digest at the default 4 unchanged.
 Map-sharded ICP at 4 shards on the card has the CPU run's counts and T to
-1e-4."""
+1e-4. The LIO cell normals' prefix sum in XLA's order (cumsum_rows) equals
+its plain version bit for bit, and the cell normals on the card the CPU's
+to 1e-5 with equal valid masks."""
 
 import dataclasses
 
@@ -560,8 +562,12 @@ def test_lio_superblock_skips_padding_frames(cuda_device):
 
 
 #: `k7_digest` of K7 as the one-block kernel computed it, before its
-#: association spread over a cooperative grid (NVIDIA H100 80GB HBM3)
-K7_DIGEST = "eab418046232a8a8fe7e96ac5f09dca7cf34684bc4749467bb8727e3b91bfe02"
+#: association spread over a cooperative grid (NVIDIA H100 80GB HBM3). Its
+#: inputs pass through the port's anchor refresh, so the value moved when
+#: the cell normals' prefix sum took XLA's order (ops/ordered_scan): on
+#: those inputs the kernel of the commit before that change gave these
+#: same bits, in one chip call
+K7_DIGEST = "d9a603765ce66bcc312face1591fde9a9a0c28c4699d2966fa13874c21e26a5c"
 
 
 def test_lio_superblock_bits_equal_the_one_block_kernel(cuda_device):
@@ -730,3 +736,59 @@ def test_voxel_downsample_on_the_card_matches_the_cpu(cuda_device, origin):
     card, cpu = runs
     assert torch.equal(card.points.cpu(), cpu.points) and torch.equal(card.mask.cpu(), cpu.mask)
     assert bool(cpu.mask.all())  # more voxels than rows: the first 16384 kept
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 257, 4097, 2**20 + 3])
+def test_cumsum_rows_kernel_matches_plain(cuda_device, n):
+    """The prefix sum in XLA's order: bits equal its plain version on the
+    card and on the CPU, -0.0 rows included (a one-row scan keeps its
+    -0.0), one launch a call."""
+    from slam_sensor_fusion_tpu_torch.ops import ordered_scan as os_
+    from slam_sensor_fusion_tpu_torch.ops.point_to_plane import _cell_moments
+
+    rng = np.random.default_rng(n)
+    pts = (rng.normal(0.0, 12.0, (n, 3)) + [-140.0, 60.0, -2.0]).astype(np.float32)
+    mask = rng.uniform(size=n) < 0.7
+    mask[:5] = False
+    x = _cell_moments(torch.from_numpy(pts).to(cuda_device), torch.from_numpy(mask).to(cuda_device))
+    before = os_.cumsum_rows.launches
+    got = os_.cumsum_rows(x)
+    want = os_.cumsum_rows_plain(x)
+    torch.cuda.synchronize()
+    assert os_.cumsum_rows.launches == before + 1
+    assert _same_bits(got, want)
+    assert _same_bits(got.cpu(), os_.cumsum_rows_plain(x.cpu()))
+    assert bool(torch.signbit(got[:5]).any()) == (n == 1)
+
+
+def test_estimate_normals_cells_on_the_card_matches_the_cpu(cuda_device):
+    """The cell normals on the card (the scan kernel, then the same tensor
+    code) against the CPU's: valid masks equal, unsigned gap 3e-5 (found
+    1.1e-5 on an H100: 100-160 m from the origin the float32 moments leave
+    some cells' covariances indefinite, where the float32 eigen-solve is
+    itself 4.7e-6 from float64's, and the card's arccos, cos and sqrt
+    round otherwise than the CPU's)."""
+    from slam_sensor_fusion_tpu_torch.ops import ordered_scan as os_
+    from slam_sensor_fusion_tpu_torch.ops import point_to_plane as tpp
+    from slam_sensor_fusion_tpu_torch.ops.cloud import Cloud
+    from slam_sensor_fusion_tpu_torch.ops.morton import sort_by_morton
+
+    # ground and walls every 10 m, 140 m from the origin, Morton-sorted as
+    # the LIO anchor is
+    rng = np.random.default_rng(15)
+    pts = rng.uniform(0, 1, (65536, 3)) * [60.0, 60.0, 0.3] + [100.0, -80.0, 1.0]
+    walls = rng.uniform(size=65536) < 0.4
+    pts[walls, 2] = rng.uniform(0, 4, walls.sum())
+    pts[walls, 1] = np.round(pts[walls, 1] / 10.0) * 10.0 + rng.normal(0, 0.02, walls.sum())
+    mask = rng.uniform(size=65536) < 0.9
+    s = sort_by_morton(Cloud(torch.from_numpy(pts.astype(np.float32)), torch.from_numpy(mask)),
+                       isotropic=True)
+    p, m = s.points, s.mask
+    before = os_.cumsum_rows.launches
+    n_c, v_c = tpp.estimate_normals_cells(p.to(cuda_device), m.to(cuda_device), 1.2,
+                                          max_planarity=0.25)
+    torch.cuda.synchronize()
+    assert os_.cumsum_rows.launches == before + 1
+    n_h, v_h = tpp.estimate_normals_cells(p, m, 1.2, max_planarity=0.25)
+    assert torch.equal(v_c.cpu(), v_h) and int(v_h.sum()) > 1000
+    assert float((1.0 - (n_c.cpu() * n_h).sum(-1).abs())[v_h].max()) <= 3e-5

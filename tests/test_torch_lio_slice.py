@@ -6,15 +6,21 @@ JAX side runs K4 in interpret mode), one frame continued from a JAX
 against each other, and the config converter.
 
 Tolerances, as found at this size (tests/torch_lio_world.SMALL_LIO):
- * from a shared anchor (the first block, and the frame continued from the
-   JAX state) poses agree to 2e-4 m (found 5e-5: `se3_log`'s cancelling
-   translation coefficient moves the deskewed scan by ~1e-5 m), rmse to
-   1e-3, n_correspondences to 0.5% (found EQUAL), the GPS gate EQUAL;
- * after the port's own anchor refresh, poses agree to 1e-2 m (found 6e-3
-   over the second block, 2e-3 on its first frame) and rmse to 5e-3: the
-   cell normals come from a float32 cumulative sum whose rounding differs
-   between the backends (tests/test_torch_lio_normals.py), and the filter
-   carries the difference on;
+ * the refreshed anchor's cell normals take their moments from a prefix
+   sum in XLA's order (ops/ordered_scan), so they agree with the JAX
+   package's to the eigen-solve's last ulp (tests/test_torch_lio_normals.py)
+   and n_correspondences and the GPS gate are EQUAL on every frame;
+ * one frame from a shared state agrees to 1.5e-6 m (found 4.8e-7 with
+   `lio_step`, 4.2e-7 with `run_lio_blocks`, which refreshes the anchor);
+ * over `run_lio_blocks`' 8 frames poses agree to 2e-4 m in the first
+   block (found 1.1e-4) and 3e-3 m over the run (found 1.07e-3), rmse to
+   1e-3 and 5e-3: the IMU propagation's `so3_exp` rounds `cos` of the
+   ~4e-4 rad a sample differently (torch's is an ulp off XLA's), the
+   rotations part by ~5e-7 a frame, and the fixed association of frame 2
+   turns that into 4.7e-5 m, as the JAX package does when given the
+   port's rotation (ROADMAP §3); the final state's position to 3e-3 m
+   (found 1.07e-3), velocity to 8e-3 m/s (found 2.7e-3), the ring to 1e-2
+   m (found 3.1e-3);
  * the multi-launch backends (dense sweep, K2) to 1e-3 m on one frame
    (found 4.5e-4: the dense sweep's expanded distance picks other
    neighbours among near ties over 4 fresh associations)."""
@@ -89,10 +95,9 @@ def test_run_lio_blocks_matches_jax(runs):
     d = np.abs(out_t.world_T_body.numpy() - out_j.world_T_body).max(axis=(1, 2))
     print("pose diff per frame", d)
     assert d[:4].max() < 2e-4, d
-    assert d.max() < 1e-2, d
+    assert d.max() < 3e-3, d
     n_j, n_t = out_j.n_correspondences, out_t.n_correspondences.numpy()
-    print("n_correspondences", n_j, n_t)
-    assert (np.abs(n_t - n_j) <= 0.005 * n_j).all()
+    np.testing.assert_array_equal(n_t, n_j)
     assert (n_t > 1500).all()
     np.testing.assert_allclose(out_t.rmse.numpy()[:4], out_j.rmse[:4], rtol=0, atol=1e-3)
     np.testing.assert_allclose(out_t.rmse.numpy(), out_j.rmse, rtol=0, atol=5e-3)
@@ -109,8 +114,7 @@ def test_final_state_matches_jax(runs):
     assert (fin_t.slot, fin_t.frame) == (int(fin_j.slot), int(fin_j.frame)) == (9, 9)
     np.testing.assert_array_equal(fin_t.ring_mask.numpy(), fin_j.ring_mask)
     m = fin_j.ring_mask
-    # a pose 1e-2 m and 1e-3 rad off moves a point at 25 m by 3e-2 m
-    np.testing.assert_allclose(fin_t.ring.numpy()[m], fin_j.ring[m], rtol=0, atol=5e-2)
+    np.testing.assert_allclose(fin_t.ring.numpy()[m], fin_j.ring[m], rtol=0, atol=1e-2)
     # slots 1-4 were written before the refresh (slot 0 again by frame 8)
     first = slice(SMALL_LIO.slot_points, 5 * SMALL_LIO.slot_points)
     np.testing.assert_allclose(fin_t.ring.numpy()[first], fin_j.ring[first], rtol=0, atol=3e-3)
@@ -118,8 +122,8 @@ def test_final_state_matches_jax(runs):
     print("final p diff", np.abs(e_t.p.numpy() - e_j.p).max(), "v diff",
           np.abs(e_t.v.numpy() - e_j.v).max(), "P rel diff",
           np.abs(e_t.P.numpy() - e_j.P).max() / np.abs(e_j.P).max())
-    np.testing.assert_allclose(e_t.p.numpy(), e_j.p, rtol=0, atol=1e-2)
-    np.testing.assert_allclose(e_t.v.numpy(), e_j.v, rtol=0, atol=2e-2)
+    np.testing.assert_allclose(e_t.p.numpy(), e_j.p, rtol=0, atol=3e-3)
+    np.testing.assert_allclose(e_t.v.numpy(), e_j.v, rtol=0, atol=8e-3)
     P = e_j.P
     np.testing.assert_allclose(e_t.P.numpy(), P, rtol=0, atol=1e-3 * np.abs(P).max())
     np.testing.assert_array_equal(fin_t.anchor_mask.numpy(), fin_j.anchor_mask)
@@ -129,7 +133,8 @@ def test_final_state_matches_jax(runs):
 def test_frame_continued_from_jax_state(runs, entry):
     """A JAX LIOState taken mid-run (after the first block) continues in
     the port through `lio_state_from_numpy`; both compute the same next
-    frame: `lio_step` keeps the JAX anchor; `run_lio_blocks` refreshes it."""
+    frame to 1.5e-6 m with equal counts: `lio_step` keeps the JAX anchor;
+    `run_lio_blocks` refreshes it."""
     core = [a[4:5] for a in runs["frames"]]
     *args, tau = core
     mid_j = jax.tree.map(jnp.asarray, runs["mid_j"])
@@ -139,19 +144,16 @@ def test_frame_continued_from_jax_state(runs, entry):
         _, want = jl.lio_step(mid_j, *[jnp.asarray(a[0]) for a in args], runs["cfg_j"],
                               jnp.asarray(tau[0]))
         _, got = tl.lio_step(st_t, *[t(a[0]) for a in args], SMALL_LIO, t(tau[0]))
-        tol = 2e-4
     else:
         _, want = jl.run_lio_blocks(mid_j, *[jnp.asarray(a) for a in args], runs["cfg_j"],
                                     scan_tau=jnp.asarray(tau))
         _, got = tl.run_lio_blocks(st_t, *[t(a) for a in args], SMALL_LIO, scan_tau=t(tau))
         want = jax.tree.map(lambda x: x[0], want)
         got = tl.LIOOutput(*[None if x is None else x[0] for x in got])
-        tol = 1e-2
     d = np.abs(got.world_T_body.numpy() - np.asarray(want.world_T_body)).max()
     print(entry, "pose diff", d)
-    assert d < tol
-    n = int(want.n_correspondences)
-    assert abs(int(got.n_correspondences) - n) <= 0.005 * n
+    assert d < 1.5e-6
+    assert int(got.n_correspondences) == int(want.n_correspondences)
     assert bool(got.gps_accepted) == bool(want.gps_accepted)
     assert bool(got.refreshed) == bool(want.refreshed)
 
