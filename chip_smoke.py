@@ -340,6 +340,20 @@ SP_TOL = 1e-4
 SCAN_LENGTHS = (1, 15, 16, 17, 257, 4097, 2**20 + 3)
 SCAN_KERNELS = ("scan_up_kernel", "scan_down_kernel")
 NORMALS_CARD_TOL = 1e-5  # 1 - |n . n'|
+#: phase 15: inputs a function of xla_math's bit check (2^24), the chunk its
+#: plain version runs in on the host, the kernel's name in the profiler, the
+#: double operations of one sincos (reduction, two polynomials: ~40 fma and
+#: products, counted as two each) and of one atan2 (float: ~30), and the
+#: float64 peak outside the tensor cores (NVIDIA H100 SXM data sheet, 700 W)
+XM_INPUTS = 1 << 24
+XM_CHUNK = 1 << 21
+XM_KERNEL = "xla_math_kernel"
+XM_FLOP = {"sincos": 80, "atan2": 30, "acos": 34, "fma": 2}
+PEAK_F64_FLOPS = 34e12
+#: phase 15: the bound on phase 7's first block card against CPU (m): the
+#: host path is the same bits on both, K7 sums in another order than its
+#: plain version (3.4e-8 found)
+XM_CARD_CPU_GAP = 1e-5
 #: K1 and K4 must spread each association over at least this many SMs
 MIN_GRID_BLOCKS = 16
 
@@ -907,6 +921,8 @@ def prime_below(n: int) -> int:
 def zero_counts(*kernels) -> None:
     for k in kernels:
         k.launches = 0
+        if hasattr(k, "launches_by"):
+            k.launches_by = {}
 
 
 def build_map_world(n_frames: int, scan_cap: int):
@@ -1169,7 +1185,7 @@ def phase10(dev, tag, name, kernels, record, launches):
 
     t_phase = time.perf_counter()
     by_name = dict(zip(("K1", "K2", "K3", "K4", "K5", "K6", "K7", "voxel_segment_sum",
-                        "cumsum_rows"), kernels))
+                        "cumsum_rows", "xla_math"), kernels))
     pair_nn, lio_superblock = by_name["K2"], by_name["K7"]
     segment_sum_sorted = by_name["voxel_segment_sum"]
     out = {}
@@ -2337,6 +2353,282 @@ def phase14(dev, tag, anchor7, r13) -> dict:
                 rows={k: int(v.shape[0]) for k, v in cases.items()})
 
 
+def xla_math_inputs(fn: str, n: int, seed: int = 0) -> list[np.ndarray]:
+    """Float32 inputs of xla_math's elementwise function `fn`
+    (tests/test_torch_cuda.py has the same): seeded angles in [-pi, pi] and
+    magnitudes of 1e-8 to 1e6 of either sign ([-1, 1] for acos), random bit
+    patterns (subnormals, infinities and NaNs among them), and the special
+    values."""
+    rng = np.random.default_rng(seed)
+    special = np.array([0.0, -0.0, 1e-45, -1e-45, 1e-39, -3e-39, 1.17e-38, np.inf, -np.inf,
+                        np.nan, 1.0, -1.0, 0.78539816, 120.0, -120.0, 119.99999, 3.4e38,
+                        2.0**-12, 2.0**-29, 2.0**25], np.float32)
+    q = (n - special.size) // 3
+    bits = rng.integers(0, 2**32, q, dtype=np.uint64).astype(np.uint32).view(np.float32)
+    if fn == "acos":
+        a = rng.uniform(-1.0, 1.0, 2 * q)
+    else:
+        a = np.concatenate([rng.uniform(-np.pi, np.pi, q),
+                            np.sign(rng.normal(size=q)) * 10.0 ** rng.uniform(-8, 6, q)])
+    x = np.concatenate([special, a.astype(np.float32), bits])
+    x = np.concatenate([x, rng.uniform(-np.pi, np.pi, n - x.size).astype(np.float32)])
+    return [x] + [rng.permutation(x) for _ in range({"atan2": 1, "fma": 2}.get(fn, 0))]
+
+
+def xla_math_bound(fn: str, ins, outs) -> tuple[float, str]:
+    """xla_math's least time on the card for an elementwise function: each
+    input read and each output written once over the memory rate, or its
+    double operations over the float64 peak, whichever is larger."""
+    n = ins[0].numel()
+    t_ops, t_bytes = n * XM_FLOP[fn] / PEAK_F64_FLOPS, nbytes(*ins, *outs) / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean milliseconds of a call of `fn` replayed from one CUDA graph of
+    `reps` calls: the card's own time, with no host issue between the
+    launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def recorded_launch_ms(fn, reps: int, name: str) -> tuple[float | None, int]:
+    """torch.profiler over `reps` calls of `fn` (one launch of the kernel
+    `name` each, after a warm-up): (the mean device ms of the launches it
+    recorded, how many it recorded). The profiler may record only some of
+    the launches (it did on an H100 under CUPTI), and `device_ms`, which
+    divides by `reps`, then reads low or None."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
+    n = sum(e.count for e in hits)
+    us = sum(e.self_device_time_total for e in hits)
+    return (us / 1e3 / n if n else None), n
+
+
+def xla_cases(lio_block, anchor, dev) -> dict:
+    """xla_math's functions at the shapes the LIO paths give them, on the
+    card: name -> (call, inputs, flops, library call or None). The inputs
+    come from phase 7's first block (its state, IMU packets, scans and
+    timestamps) and phase 14's anchor, through the port's own functions."""
+    from slam_sensor_fusion_tpu_torch.models import ekf, lio
+    from slam_sensor_fusion_tpu_torch.ops import deskew as dk
+    from slam_sensor_fusion_tpu_torch.ops import geometry as geo
+    from slam_sensor_fusion_tpu_torch.ops import point_to_plane as tpp
+    from slam_sensor_fusion_tpu_torch.ops import xla_math as xm
+
+    state, arrays, tau, cfg = lio_block
+    e0 = state.ekf_state
+    sp, gy, ac, dts = arrays[0], arrays[2], arrays[3], arrays[4]
+    R_blk, t_blk = lio._dead_reckon(e0, gy, ac, dts)  # (R, 3, 3), (R, 3)
+    prev_R = torch.cat([e0.R[None], R_blk[:-1]])
+    prev_t = torch.cat([e0.p[None], t_blk[:-1]])
+    rel = geo.make_T(xm.mm3(prev_R.transpose(-1, -2), R_blk),
+                     xm.mv3(prev_R.transpose(-1, -2), t_blk - prev_t))
+    xi = dk.se3_log(rel)  # (R, 6): each frame's twist
+    rsub = cfg.reg_subsample
+    th = (tau[0] - 1.0) * xm.sqrtf(xm.norm2(xi[0, 3:]))
+    seg = tpp._cell_segments(anchor[0], anchor[1], cfg.normal_voxel)
+    P, cov6 = e0.P, state.anchor_P6 if state.anchor_P6 is not None else e0.P[:6, :6]
+    one = torch.ones(1, device=dev)
+    w = (gy[0, 0] - e0.bg) * dts[0, 0]
+    R = geo.so3_exp(w)
+    n_pts = sp.shape[1]
+    return {
+        "sincos (8192, one frame's deskew angles)": (xm.sincosf, [th], 80, None),
+        "atan2 scalar y": (xm.atan2f, [one * 0.25, th], 30, torch.atan2),
+        "atan2 scalar x": (xm.atan2f, [th, one * -0.5], 30, torch.atan2),
+        "acos (3,)": (xm.acosf, [torch.clamp(t_blk[0] / 20.0, -1.0, 1.0)], 34, torch.acos),
+        "fma (6, 6), scalar a (the registration covariance)":
+            (xm.fma32, [one * 1.7, cov6.contiguous(), cov6 * 0.01], 2, None),
+        "fma (15, 15), scalar b": (xm.fma32, [P, one * 0.01, P.T.contiguous()], 2, None),
+        "fma (3,), scalar a and c": (xm.fma32, [one * 0.5, e0.v, one * -0.25], 2, None),
+        "fma (3, 3), scalar c": (xm.fma32, [R, prev_R[1], one * 1e-3], 2, None),
+        "norm2 (16, 512, 3) (gated_nn's tiles)":
+            (xm.norm2, [sp[0].reshape(-1, 512, 3)], 5, lambda p: torch.linalg.vecdot(p, p)),
+        "mm (3, 3)": (xm.mm3, [R, prev_R[1]], 45, torch.matmul),
+        "mm (16, 3, 3) batched, transposed": (xm.mm3, [prev_R.transpose(-1, -2), R_blk], 45 * 16,
+                                              torch.matmul),
+        "mv (16, 3, 3) (16, 3)": (xm.mv3, [prev_R.transpose(-1, -2), t_blk - prev_t], 15 * 16,
+                                  lambda A, v: torch.matmul(A, v[..., None])),
+        "mm_lanes (15, 15) (15, 15)^T": (xm.mm_lanes, [P, P.T], 2 * 15**3, torch.matmul),
+        "mm_lanes (15, 6) (6, 6)": (xm.mm_lanes, [P[:, :6].contiguous(), cov6.contiguous()],
+                                    2 * 15 * 36, torch.matmul),
+        "so3_exp (3,)": (geo.so3_exp, [w], 120, None),
+        "so3_exp (16, 10, 3)": (geo.so3_exp, [(gy - e0.bg) * dts[..., None]], 120 * gy[..., 0].numel(),
+                                None),
+        "so3_log (3, 3)": (geo.so3_log, [R_blk[3]], 60, None),
+        "se3_exp (6,)": (geo.se3_exp, [xi[1] * 3.0], 200, None),
+        "se3_log (4, 4)": (dk.se3_log, [rel[2]], 200, None),
+        "se3_log (16, 4, 4)": (dk.se3_log, [rel], 200 * rel.shape[0], None),
+        f"deskew ({n_pts}, one frame)": (dk.deskew, [sp[0], tau[0], xi[0]], 150 * n_pts, None),
+        f"deskew ({sp.shape[0]}, {n_pts // rsub}, 3), the prologue's":
+            (dk.deskew, [sp[:, ::rsub], tau[:, ::rsub], xi], 150 * sp[:, ::rsub, 0].numel(), None),
+        f"cell_normals ({seg.shape[0]}, the anchor's)":
+            (tpp._cell_eigen, [seg], 250 * seg.shape[0], None),
+        f"propagate ({gy.shape[1]} samples)":
+            (lambda *a: ekf.flat_state(ekf.propagate_batch(ekf.unflat_state(a[0]), *a[1:],
+                                                           ekf.EKFConfig())),
+             [ekf.flat_state(e0), gy[0], ac[0], dts[0]], 4 * 15**3 * gy.shape[1], None),
+        f"dead_reckon ({gy.shape[0]} x {gy.shape[1]})":
+            (lambda *a: lio._dead_reckon(ekf.unflat_state(a[0]), *a[1:]),
+             [ekf.flat_state(e0), gy, ac, dts], 150 * gy[..., 0].numel(), None),
+    }
+
+
+def phase15(dev, tag, launches, launches_by, lio_block, anchor) -> dict:
+    """XLA's float32 math on the card (ops/xla_math, csrc/xla_math.cu): each
+    elementwise function bit-equal to its plain version on the host over
+    XM_INPUTS inputs; every function of the kernel at the shapes the LIO
+    paths give it (scalar operands, small matrices, a frame's deskew, the
+    anchor's cell normals, an IMU packet, a block's dead reckoning)
+    bit-equal to its plain version on the same inputs on the CPU, with its
+    ms by events and on the card alone (the profiler, and a CUDA graph's
+    replay), its bound, its plain version's ms and a library call's; the
+    elementwise functions' times at 8192 and XM_INPUTS values; the
+    launches along each LIO path by function; and phase 7's first LIO block
+    on the card and on the CPU from one state (the worst pose gap, a
+    finding). Returns the kernel's record."""
+    from slam_sensor_fusion_tpu_torch.models import lio
+    from slam_sensor_fusion_tpu_torch.ops import xla_math as xm
+    from slam_sensor_fusion_tpu_torch.parallel.dryrun import _to
+
+    def same_bits(got, want) -> int:
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        want = want if isinstance(want, (tuple, list)) else (want,)
+        n_bad = 0
+        for g, w in zip(got, want):
+            g, w = g.cpu(), w.cpu()
+            if g.shape != w.shape:
+                return max(g.numel(), w.numel())
+            same = (g.view(torch.int32) == w.view(torch.int32)) | (g.isnan() & w.isnan())
+            n_bad += int((~same).sum())
+        return n_bad
+
+    t_phase = time.perf_counter()
+    out = {"bits_equal": {}, "times": {}, "cases": {}}
+    for fn in ("sincos", "atan2", "acos", "fma"):
+        host = [torch.from_numpy(a) for a in xla_math_inputs(fn, XM_INPUTS, seed=len(fn))]
+        got = xm.xla_math(fn, *[a.to(dev) for a in host])
+        got = got if fn == "sincos" else (got,)
+        n_bad = 0
+        for i in range(0, XM_INPUTS, XM_CHUNK):
+            want = xm.xla_math(fn, *[a[i:i + XM_CHUNK] for a in host])
+            n_bad += same_bits([g[i:i + XM_CHUNK] for g in got], want)
+        out["bits_equal"][fn] = n_bad == 0
+        print(f"xla_math {fn}: {XM_INPUTS} inputs (angles, magnitudes to 1e6, random bits, "
+              f"+-0, subnormals, +-inf, NaN), {n_bad} differ from the plain version's bits "
+              f"[{tag}]", flush=True)
+        if n_bad:
+            fail(f"xla_math {fn}: {n_bad} of {XM_INPUTS} results differ from the plain version")
+
+    # every function at the LIO paths' shapes, against the CPU's plain run
+    for name, (call, ins, flops, lib) in xla_cases(lio_block, anchor, dev).items():
+        before = xm.xla_math.launches
+        got = call(*ins)
+        torch.cuda.synchronize()
+        n_launch = xm.xla_math.launches - before
+        host = [a.cpu() for a in ins]
+        want = call(*host)
+        n_bad = same_bits(got, want)
+        outs = list(got) if isinstance(got, (tuple, list)) else [got]
+        prof = recorded_launch_ms(lambda: call(*ins), 20, XM_KERNEL)
+        c = dict(bad=n_bad, launches=n_launch, ms=time_ms(lambda: call(*ins), 20),
+                 device_ms=prof[0], recorded=prof[1], graph_ms=graph_ms(lambda: call(*ins), 20),
+                 plain_ms=time_ms(lambda: call(*host), 3),
+                 bound=bound(flops, nbytes(*ins, *outs)),
+                 lib_ms=time_ms(lambda: lib(*ins), 20) if lib is not None else None)
+        out["cases"][name] = c
+        print(f"xla_math {name}: {n_bad} of {sum(o.numel() for o in outs)} differ from the "
+              f"plain version's bits, {n_launch} launch(es); {c['ms']:.4f} ms by events, "
+              f"{c['device_ms']} ms on the card alone (profiler, a recorded launch's mean: "
+              f"{c['recorded']} of 20 recorded), {c['graph_ms']:.5f} ms (a CUDA graph's replay), bound {c['bound'][0]:.6f} ms ({c['bound'][1]}), plain "
+              f"(host) {c['plain_ms']:.3f} ms, library {c['lib_ms']} ms [{tag}]", flush=True)
+        if n_bad:
+            fail(f"xla_math {name}: {n_bad} results differ from the plain version")
+        if n_launch != 1:
+            fail(f"xla_math {name}: {n_launch} launches, expected one")
+
+    # the elementwise functions' times at an LIO call's size (one frame's
+    # deskew) and at the check's size; the library's on the same tensor
+    # give other bits
+    for size in (8192, XM_INPUTS):
+        for fn in ("sincos", "atan2", "acos", "fma"):
+            ins = [torch.from_numpy(a).to(dev) for a in xla_math_inputs(fn, size, seed=7)]
+            res = xm.xla_math(fn, *ins)
+            outs = list(res) if fn == "sincos" else [res]
+            lib = {"sincos": lambda: (torch.sin(ins[0]), torch.cos(ins[0])),
+                   "atan2": lambda: torch.atan2(ins[0], ins[1]),
+                   "acos": lambda: torch.acos(ins[0]),
+                   "fma": lambda: torch.addcmul(ins[2], ins[0], ins[1])}[fn]
+            host = [a.cpu() for a in ins]
+            run = lambda: xm.xla_math(fn, *ins)  # noqa: E731
+            prof = recorded_launch_ms(run, 20, XM_KERNEL)
+            c = dict(ms=time_ms(run, 20), device_ms=prof[0], recorded=prof[1],
+                     graph_ms=graph_ms(run, 20),
+                     plain_ms=time_ms(lambda: xm.xla_math(fn, *[a[:XM_CHUNK] for a in host]), 1)
+                     * max(1, size // XM_CHUNK),
+                     bound=xla_math_bound(fn, ins, outs), lib_ms=time_ms(lib, 20),
+                     lib_device_ms=device_ms(lib, 20, ("",)), lib_graph_ms=graph_ms(lib, 20))
+            out["times"][f"{fn} {size}"] = c
+            print(f"xla_math {fn} on {size} values: {c['ms']:.4f} ms by events, {c['device_ms']} ms "
+                  f"on the card alone (profiler, a recorded launch's mean: {c['recorded']} of 20 "
+                  f"recorded), {c['graph_ms']:.5f} ms (a CUDA graph's replay), bound "
+                  f"{c['bound'][0]:.6f} ms ({c['bound'][1]}), plain (host) {c['plain_ms']:.3f} ms, "
+                  f"torch's {fn} {c['lib_ms']:.4f} ms by events, {c['lib_device_ms']} ms on the "
+                  f"card alone (profiler), {c['lib_graph_ms']:.5f} ms (a CUDA graph's replay) "
+                  f"[{tag}]", flush=True)
+
+    lio_paths = {p: n for p, n in launches.items() if p.startswith(("lio", "kitti_lio"))}
+    print(f"xla_math launches by LIO path: {lio_paths} [{tag}]", flush=True)
+    print(f"xla_math launches by path and function: "
+          f"{ {p: by for p, by in launches_by.items() if by} } [{tag}]", flush=True)
+    idle = [p for p in ("lio_blocks", "lio_session", "lio_chunk", "lio_superblocks",
+                        "lio_fleet", "kitti_lio") if not launches.get(p)]
+    if idle:
+        fail(f"xla_math never launched on the LIO paths {idle}")
+    out["launches"] = lio_paths
+    out["launches_by"] = launches_by
+
+    # phase 7's first block on the card and on the CPU from one state
+    state, arrays, tau, cfg = lio_block
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        _, o = lio.run_lio_superblocks(_to(state, d), *[a.to(d) for a in arrays], cfg,
+                                       scan_tau=tau.to(d))
+        runs.append(o.world_T_body.cpu())
+    gap = float((runs[0] - runs[1]).abs().max())
+    out["card_cpu_gap"] = gap
+    print(f"phase 7's first LIO block ({tau.shape[0]} frames) on the card and on the CPU from one "
+          f"state: worst pose entry gap {gap:.3e} (bound {XM_CARD_CPU_GAP}) [{tag}]", flush=True)
+    if not gap < XM_CARD_CPU_GAP:
+        fail(f"phase 7's first block: card and CPU part by {gap} >= {XM_CARD_CPU_GAP}")
+    print(f"phase 15 XLA's float32 math: {time.perf_counter() - t_phase:.1f} s [{tag}]", flush=True)
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # ---- 0. the device ----
@@ -2396,11 +2688,12 @@ def main() -> None:
     )
     from slam_sensor_fusion_tpu_torch.ops.voxel_segsum import segment_sum_sorted
     from slam_sensor_fusion_tpu_torch.ops.ordered_scan import cumsum_rows
+    from slam_sensor_fusion_tpu_torch.ops.xla_math import xla_math
     from slam_sensor_fusion_tpu_torch.utils import mapdata, native
     from slam_sensor_fusion_tpu_torch.utils.config import MappingConfig
 
     kernels = (superblock_fine, pair_nn, _fused_core, p2p._p2p_core, p2p._p2p_associate,
-               p2p._p2p_gn_corr, lio_superblock, segment_sum_sorted, cumsum_rows)
+               p2p._p2p_gn_corr, lio_superblock, segment_sum_sorted, cumsum_rows, xla_math)
 
     # ---- 1. build ----
     t0 = time.perf_counter()
@@ -2766,10 +3059,12 @@ def main() -> None:
     print(f"phase 2 kernels vs plain: {time.perf_counter() - t0:.1f} s [{tag}]", flush=True)
 
     launches = {k: {} for k in kernels}
+    xla_by = {}  # xla_math's launches by path and function
 
     def record(path: str) -> None:
         for k in kernels:
             launches[k][path] = k.launches
+        xla_by[path] = dict(xla_math.launches_by)
 
     # ---- 3. the main path ----
     t0 = time.perf_counter()
@@ -3487,6 +3782,14 @@ def main() -> None:
     # against its plain version, the card's normals against the CPU's ----
     r14 = phase14(dev, tag, (lstate_w.anchor_points, lstate_w.anchor_mask), r13)
 
+    # ---- 15. XLA's float32 elementwise math (xla_math) against its plain
+    # version, its launches along the LIO paths, phase 7's first block on
+    # the card and on the CPU ----
+    R15 = lcfg.refresh_every
+    r15 = phase15(dev, tag, launches[xla_math], xla_by,
+                  (lstate0, [a[:R15] for a in larrays], ltau[:R15], lcfg),
+                  (lstate_w.anchor_points, lstate_w.anchor_mask))
+
     for kernel in kernels:
         if not sum(launches[kernel].values()):
             fail(f"{kernel.__name__} never launched on a main path")
@@ -3623,6 +3926,28 @@ def main() -> None:
                for key, src in [("ms", "ms"), ("device_ms", "device_ms"), ("plain_ms", "plain_ms"),
                                 ("bound_ms", ""), ("library_ms", "lib_ms"),
                                 ("library_device_ms", "lib_device_ms")]}),
+        row(xla_math, "xla_math", "slam_sensor_fusion_tpu_torch/csrc/xla_math.cu",
+            "none: XLA's sin / cos (glibc sinf / cosf), atan2 (glibc atan2f) and arccos "
+            "rewrite, slam_sensor_fusion_tpu/ops/geometry.py:180-210",
+            0.0 if all(r15["bits_equal"].values()) else None,
+            r15["times"]["sincos 8192"]["ms"], r15["times"]["sincos 8192"]["plain_ms"],
+            r15["times"]["sincos 8192"]["bound"],
+            library_ms=r15["times"]["sincos 8192"]["lib_ms"],
+            device_ms=r15["times"]["sincos 8192"]["device_ms"],
+            graph_ms=r15["times"]["sincos 8192"]["graph_ms"],
+            library_device_ms=r15["times"]["sincos 8192"]["lib_device_ms"],
+            card_cpu_first_block_gap=r15["card_cpu_gap"],
+            launches_by_path_and_function={p: by for p, by in r15["launches_by"].items() if by},
+            lio_shapes={name: dict(bits_differ=c["bad"], ms=c["ms"], device_ms=c["device_ms"],
+                                   graph_ms=c["graph_ms"], plain_ms=c["plain_ms"],
+                                   bound_ms=c["bound"][0], library_ms=c["lib_ms"])
+                        for name, c in r15["cases"].items()},
+            **{f"{key}_{what.replace(' ', '_')}": (c[src] if key != "bound_ms" else c["bound"][0])
+               for what, c in r15["times"].items() if what != "sincos 8192"
+               for key, src in [("ms", "ms"), ("device_ms", "device_ms"), ("graph_ms", "graph_ms"),
+                                ("plain_ms", "plain_ms"), ("bound_ms", ""),
+                                ("library_ms", "lib_ms"), ("library_device_ms", "lib_device_ms"),
+                                ("library_graph_ms", "lib_graph_ms")]}),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -23,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from slam_sensor_fusion_tpu_torch.ops import geometry
+from slam_sensor_fusion_tpu_torch.ops import xla_math as xm
 
 GRAVITY = 9.80665
 
@@ -69,6 +70,7 @@ class _Constants(NamedTuple):
     q_rate: torch.Tensor  # (15,) process noise per second
     H_pose: torch.Tensor  # (6, 15) selects (p, theta)
     H_gps: torch.Tensor  # (3, 15) selects p
+    imu: torch.Tensor  # (18,) g_w, q_rate: csrc/xla_math.cu's IMU constants
 
 
 @functools.lru_cache(maxsize=None)
@@ -81,20 +83,23 @@ def _constants(config: EKFConfig, device: torch.device) -> _Constants:
     H_pose = torch.zeros((6, 15), **f32)
     H_pose[0:3, 0:3] = eye3
     H_pose[3:6, 6:9] = eye3
+    g_w = torch.tensor([0.0, 0.0, -GRAVITY], **f32)
+    q_rate = _blocks3(
+        0.0,
+        config.accel_noise**2,
+        config.gyro_noise**2,
+        config.gyro_bias_walk**2,
+        config.accel_bias_walk**2,
+        device=device,
+    )
     return _Constants(
-        g_w=torch.tensor([0.0, 0.0, -GRAVITY], **f32),
+        g_w=g_w,
         eye3=eye3,
         eye15=torch.eye(15, **f32),
-        q_rate=_blocks3(
-            0.0,
-            config.accel_noise**2,
-            config.gyro_noise**2,
-            config.gyro_bias_walk**2,
-            config.accel_bias_walk**2,
-            device=device,
-        ),
+        q_rate=q_rate,
         H_pose=H_pose,
         H_gps=H_pose[0:3].clone(),
+        imu=torch.cat([g_w, q_rate]),
     )
 
 
@@ -131,25 +136,28 @@ def propagate(
     dt: torch.Tensor,
     config: EKFConfig,
 ) -> EKFState:
-    """One IMU strapdown step + covariance propagation."""
+    """One IMU strapdown step + covariance propagation, rounded as XLA
+    compiles the JAX function's scan body on the CPU (ops/xla_math): the
+    position and velocity updates as fused multiply-adds, the 3x3 products
+    as fma chains, the 15 x 15 products in the library GEMM's order."""
     c = _constants(config, state.p.device)
     w = gyro - state.bg
     f = accel - state.ba
-    a_w = state.R @ f + c.g_w
+    a_w = xm.mv3(state.R, f) + c.g_w
 
-    p_new = state.p + state.v * dt + 0.5 * a_w * dt * dt
-    v_new = state.v + a_w * dt
-    R_new = state.R @ geometry.so3_exp(w * dt)
+    p_new = xm.fma32(a_w * (dt * 0.5), dt, xm.fma32(state.v, dt, state.p))
+    v_new = xm.fma32(a_w, dt, state.v)
+    R_new = xm.mm3(state.R, geometry.so3_exp(w * dt))
 
     # discrete error-state transition (first order)
     F = c.eye15.clone()
     F[0:3, 3:6] = c.eye3 * dt
-    F[3:6, 6:9] = -state.R @ geometry.skew(f) * dt
+    F[3:6, 6:9] = xm.mm3(-state.R, geometry.skew(f)) * dt
     F[3:6, 12:15] = -state.R * dt
     F[6:9, 6:9] = geometry.so3_exp(-w * dt)
     F[6:9, 9:12] = -c.eye3 * dt
 
-    P_new = F @ state.P @ F.T + torch.diag(c.q_rate * dt)
+    P_new = xm.mm_lanes(xm.mm_lanes(F, state.P), F.T) + torch.diag(c.q_rate * dt)
     return EKFState(p_new, v_new, R_new, state.bg, state.ba, P_new)
 
 
@@ -163,11 +171,36 @@ def propagate_batch(
     """`propagate` over an IMU packet: gyro/accel (K, 3), dt (K,).
 
     Samples with dt == 0 are no-ops (padding), so fixed-size packets work.
+    On the card the whole packet is one launch of csrc/xla_math.cu (one
+    block: the covariance products a thread an entry, the mean on one
+    thread), bit-equal to this loop, its plain version.
     """
+    if xm.on_card(state.P):
+        c = _constants(config, state.P.device)
+        out = torch.empty(xm.IMU_STATE, dtype=torch.float32, device=state.P.device)
+        xm.launch("propagate", [flat_state(state), imu_rows(gyro, accel, dt), c.imu],
+                  [out], params=(gyro.shape[0],))
+        return unflat_state(out)
     for k in range(gyro.shape[0]):
         new = propagate(state, gyro[k], accel[k], dt[k], config)
         state = _select(dt[k] > 0, new, state)
     return state
+
+
+def flat_state(state: EKFState) -> torch.Tensor:
+    """The state as csrc/xla_math.cu's IMU functions read it: p, v, R, bg,
+    ba, P in one float32 vector of xla_math.IMU_STATE values."""
+    return torch.cat([state.p, state.v, state.R.reshape(9), state.bg, state.ba,
+                      state.P.reshape(225)])
+
+
+def unflat_state(x: torch.Tensor) -> EKFState:
+    return EKFState(x[0:3], x[3:6], x[6:15].view(3, 3), x[15:18], x[18:21], x[21:].view(15, 15))
+
+
+def imu_rows(gyro: torch.Tensor, accel: torch.Tensor, dt: torch.Tensor) -> torch.Tensor:
+    """IMU samples (..., 3), (..., 3), (...) as (n, 7) rows: gyro, accel, dt."""
+    return torch.cat([gyro.reshape(-1, 3), accel.reshape(-1, 3), dt.reshape(-1, 1)], 1)
 
 
 def _inject(state: EKFState, dx: torch.Tensor) -> EKFState:
@@ -175,31 +208,40 @@ def _inject(state: EKFState, dx: torch.Tensor) -> EKFState:
     return EKFState(
         p=state.p + dx[0:3],
         v=state.v + dx[3:6],
-        R=state.R @ geometry.so3_exp(dx[6:9]),
+        R=xm.mm3(state.R, geometry.so3_exp(dx[6:9])),
         bg=state.bg + dx[9:12],
         ba=state.ba + dx[12:15],
         P=state.P,
     )
 
 
+def _mm(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A @ B for the filter's matrix products, rounded as XLA's CPU
+    compiler does inside the JAX functions: the library GEMM's lane order
+    (`xla_math.mm_lanes`) where 4 or more terms are summed, the inline fma
+    chain (`xla_math.mm3`) over 3."""
+    return xm.mm_lanes(A, B) if A.shape[-1] >= 4 else xm.mm3(A, B)
+
+
 def _joseph(P: torch.Tensor, K: torch.Tensor, H: torch.Tensor, Rm: torch.Tensor) -> torch.Tensor:
     eye = torch.eye(15, dtype=torch.float32, device=P.device)
-    A = eye - K @ H
-    return A @ P @ A.T + K @ Rm @ K.T
+    A = eye - _mm(K, H)
+    return _mm(_mm(A, P), A.T) + _mm(_mm(K, Rm), K.T)
 
 
 def update_pose_cov(state: EKFState, T_meas: torch.Tensor, Rm: torch.Tensor) -> EKFState:
     """Full-pose update with an explicit (6, 6) measurement covariance
     (e.g. the registration's own GN covariance, LIOConfig.icp_cov_mode
-    "gn")."""
+    "gn"). Its products round as the JAX function's do (`_mm`); the (6, 6)
+    inverse is torch's LAPACK, not jaxlib's."""
     r_p = T_meas[:3, 3] - state.p
-    r_th = geometry.so3_log(state.R.T @ T_meas[:3, :3])
+    r_th = geometry.so3_log(xm.mm3(state.R.T, T_meas[:3, :3]))
     r = torch.cat([r_p, r_th])
 
     H = _constants(EKFConfig(), state.p.device).H_pose
-    S = H @ state.P @ H.T + Rm
-    K = state.P @ H.T @ torch.linalg.inv(S)
-    dx = K @ r
+    S = _mm(_mm(H, state.P), H.T) + Rm
+    K = _mm(_mm(state.P, H.T), torch.linalg.inv(S))
+    dx = xm.mv3(K, r)
     new = _inject(state, dx)
     return new._replace(P=_joseph(state.P, K, H, Rm))
 
@@ -236,13 +278,13 @@ def update_gps(
         Rm = pos_cov.float()
     r = pos_meas - state.p
     H = c.H_gps
-    S = H @ state.P @ H.T + Rm
+    S = _mm(_mm(H, state.P), H.T) + Rm
     S_inv = torch.linalg.inv(S)
-    chi2 = r @ S_inv @ r
+    chi2 = xm.mv3(xm.mv3(S_inv.T, r)[None], r)[0]
     accept = chi2 <= config.gps_chi2_gate
 
-    K = state.P @ H.T @ S_inv
-    dx = K @ r
+    K = _mm(_mm(state.P, H.T), S_inv)
+    dx = xm.mv3(K, r)
     updated = _inject(state, dx)._replace(P=_joseph(state.P, K, H, Rm))
     return _select(accept, updated, state), accept
 

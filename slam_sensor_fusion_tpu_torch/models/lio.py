@@ -35,6 +35,7 @@ from slam_sensor_fusion_tpu_torch.models import ekf
 from slam_sensor_fusion_tpu_torch.models.pipeline_fast import _transformed_tile_boxes
 from slam_sensor_fusion_tpu_torch.ops import cloud as cl
 from slam_sensor_fusion_tpu_torch.ops import geometry
+from slam_sensor_fusion_tpu_torch.ops import xla_math as xm
 from slam_sensor_fusion_tpu_torch.ops.deskew import deskew, se3_log
 from slam_sensor_fusion_tpu_torch.ops.icp_fused import SOURCE_SENTINEL
 from slam_sensor_fusion_tpu_torch.ops.lio_superblock_fused import (
@@ -244,7 +245,7 @@ def _prior_and_scan(
     prior_T = ekf.pose_matrix(e)
     if scan_tau is not None:
         prev_T = ekf.pose_matrix(state.ekf_state)
-        xi = se3_log(geometry.inv_T(prev_T) @ prior_T)
+        xi = se3_log(xm.mm3(geometry.inv_T(prev_T), prior_T))
         scan_points = deskew(scan_points, scan_tau, xi)
     return e, prior_T, scan_points
 
@@ -296,7 +297,7 @@ def _frame_step(
                 ]
             )
         )
-        Rm = sigma2 * reg.cov_pose + floor
+        Rm = xm.fma32(sigma2, reg.cov_pose, floor)  # XLA contracts it
         if config.gn_anchor_cov:
             Rm = Rm + state.anchor_P6
         e = ekf.update_pose_cov(e, reg.transformation, Rm)
@@ -447,13 +448,23 @@ def _dead_reckon(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Mean-only IMU integration over a block's packets (gyro, accel
     (K, Ki, 3), dts (K, Ki)): the poses (R (K, 3, 3), t (K, 3)) at each frame
-    boundary, biases frozen at block start, Rodrigues `geometry.so3_exp`.
+    boundary, biases frozen at block start, Rodrigues `geometry.so3_exp`,
+    rounded as `ekf.propagate`'s mean is (ops/xla_math).
 
     The block's pair prologue builds its lists at these predictions; the
     kernel's propagation starts from each frame's POSTERIOR, so the realized
     prior differs by the accumulated GN/GPS corrections, which the per-frame
     `superstep_slack` dilation budgets. The sample loop issues a few small
-    operations a sample and reads nothing back."""
+    operations a sample and reads nothing back; on the card it is one launch
+    of csrc/xla_math.cu (one thread's chain), bit-equal to it."""
+    if xm.on_card(e0.R):
+        K = dts.shape[0]
+        Rs = torch.empty((K, 3, 3), dtype=torch.float32, device=e0.R.device)
+        ts = torch.empty((K, 3), dtype=torch.float32, device=e0.R.device)
+        consts = ekf._constants(ekf.EKFConfig(), e0.p.device).imu
+        xm.launch("dead_reckon", [ekf.flat_state(e0), ekf.imu_rows(gyro, accel, dts), consts],
+                  [Rs, ts], params=(K, dts.shape[1]))
+        return Rs, ts
     g_w = ekf._constants(ekf.EKFConfig(), e0.p.device).g_w
     # every sample's rotation increment at once; the chain stays sequential
     steps = geometry.so3_exp((gyro - e0.bg) * dts[..., None])
@@ -463,10 +474,10 @@ def _dead_reckon(
     for k in range(dts.shape[0]):
         for j in range(dts.shape[1]):
             dd = dts[k, j]
-            a_w = R @ f[k, j] + g_w
-            p = p + v * dd + 0.5 * a_w * dd * dd
-            v = v + a_w * dd
-            R = R @ steps[k, j]
+            a_w = xm.mv3(R, f[k, j]) + g_w
+            p = xm.fma32(a_w * (dd * 0.5), dd, xm.fma32(v, dd, p))
+            v = xm.fma32(a_w, dd, v)
+            R = xm.mm3(R, steps[k, j])
         Rs.append(R)
         ts.append(p)
     return torch.stack(Rs), torch.stack(ts)
@@ -506,8 +517,9 @@ def _block_prologue(st: LIOState, cache: CachedP2PTarget, sp, sm, tau, gy, ac, d
     if tau is not None:
         prev_R = torch.cat([e0.R[None], pred_R[:-1]])
         prev_t = torch.cat([e0.p[None], pred_t[:-1]])
-        rel_R = torch.einsum("kji,kjl->kil", prev_R, pred_R)
-        rel_t = torch.einsum("kji,kj->ki", prev_R, pred_t - prev_t)
+        prev_Rt = prev_R.transpose(-1, -2)
+        rel_R = xm.mm3(prev_Rt, pred_R)
+        rel_t = xm.mv3(prev_Rt, pred_t - prev_t)
         xi = se3_log(geometry.make_T(rel_R, rel_t))  # (R, 6)
     # registration on every rsub-th point of the (Morton-pre-sorted) scan;
     # FINE sub-box gating against the cache's sub-boxes

@@ -144,6 +144,8 @@ def _declare(so: ctypes.CDLL) -> None:
     so.sfk_segment_sum_sorted.restype = I
     so.sfk_cumsum_rows.argtypes = [P, I, I, P, P, I, P]
     so.sfk_cumsum_rows.restype = I
+    so.sfk_xla_math.argtypes = [I, P, P, P, I, P, P, P, ctypes.c_longlong, P, P]
+    so.sfk_xla_math.restype = I
 
 
 def check(err: int, what: str) -> None:

@@ -16,23 +16,31 @@ import numpy as np
 import torch
 
 from slam_sensor_fusion_tpu_torch.ops import geometry
+from slam_sensor_fusion_tpu_torch.ops import xla_math as xm
 
 
 def se3_log(T: torch.Tensor) -> torch.Tensor:
-    """Twist [rho, phi] of a rigid transform (inverse of geometry.se3_exp)."""
+    """Twist [rho, phi] of a rigid transform (inverse of geometry.se3_exp),
+    rounded as XLA compiles the JAX function on the CPU (ops/xla_math):
+    V^-1 = fma(a, K^2, fma(-1/2, K, I)) an entry, rho its fma chain with t.
+    One launch of csrc/xla_math.cu on the card."""
+    if xm.on_card(T):
+        out = torch.empty(T.shape[:-2] + (6,), dtype=T.dtype, device=T.device)
+        xm.launch("se3_log", [xm.rows(T, 16)], [out], n=out.numel() // 6)
+        return out
     phi = geometry.so3_log(T[..., :3, :3])
-    theta2 = (phi * phi).sum(dim=-1)
-    theta = torch.sqrt(torch.clamp(theta2, min=1e-24))
+    theta2 = xm.norm2(phi)
+    theta = xm.sqrtf(torch.clamp(theta2, min=1e-24))
     K = geometry.skew(phi)
+    sin, cos = xm.sincosf(theta)
     # V^{-1} = I - K/2 + (1/theta^2)(1 - theta sin / (2(1-cos))) K^2
     a = torch.where(
         theta2 > 1e-12,
-        (1.0 - theta * torch.sin(theta) / (2.0 * (1.0 - torch.cos(theta)))) / theta2,
+        (1.0 - theta * sin / (2.0 * (1.0 - cos))) / theta2,
         1.0 / 12.0,
     )
-    eye = torch.eye(3, dtype=T.dtype, device=T.device).expand(K.shape)
-    V_inv = eye - 0.5 * K + a[..., None, None] * (K @ K)
-    rho = torch.einsum("...ij,...j->...i", V_inv, T[..., :3, 3])
+    V_inv = xm.rodrigues(torch.full_like(a, -0.5), a, K, xm.mm3(K, K))
+    rho = xm.mv3(V_inv, T[..., :3, 3])
     return torch.cat([rho, phi], dim=-1)
 
 
@@ -53,35 +61,63 @@ def deskew(
         R(th) p = p + sin(th) (k x p) + (1 - cos(th)) k x (k x p)
         t(th)   = s [ r0 + (1-cos th)/th (k x r0)
                          + (th - sin th)/th  k x (k x r0) ],  s = tau - 1
+
+    The arithmetic is the JAX function's as XLA compiles it on the CPU
+    (ops/xla_math): glibc's sinf / cosf; each cross-product component
+    fma(x, y, -(u v)); R(th) p as fma(1 - cos, k x (k x p), fma(sin, k x p,
+    p)); t as fma(sB, k x (k x r0), fma(s, r0, sA (k x r0))); divisions by
+    constants as products. One launch of csrc/xla_math.cu on the card, a
+    thread a point.
     """
+    if xm.on_card(points):
+        return _deskew_card(points, tau, frame_twist)
     rho0 = frame_twist[..., :3]
     phi0 = frame_twist[..., 3:]
-    th0 = torch.sqrt(torch.clamp((phi0 * phi0).sum(dim=-1), min=1e-24))
+    th0 = xm.sqrtf(torch.clamp(xm.norm2(phi0), min=1e-24))
     k = phi0 / th0[..., None]
 
     s = tau - 1.0  # (..., N) <= 0
     th = s * th0[..., None]  # signed angle about k
-    sin = torch.sin(th)
-    cos = torch.cos(th)
+    sin, cos = xm.sincosf(th)
     # (1-cos th)/th and (th-sin th)/th, series-safe at th ~ 0
     small = th.abs() < 1e-4
     d = torch.where(small, 1.0, th)
     A = torch.where(small, 0.5 * th, (1.0 - cos) / d)
-    B = torch.where(small, th * th / 6.0, (th - sin) / d)
+    B = torch.where(small, th * th * _SIXTH, (th - sin) / d)
 
-    kp = k[..., None, :].expand(points.shape)
-    kxp = torch.linalg.cross(kp, points)  # (..., N, 3)
-    kkp = torch.linalg.cross(kp, kxp)
-    Rp = points + sin[..., None] * kxp + (1.0 - cos)[..., None] * kkp
+    kc = [k[..., i, None] for i in range(3)]  # (..., 1) each
+    pc = [points[..., i] for i in range(3)]  # (..., N) each
+    kxp = xm.cross3(kc, pc)
+    kkp = xm.cross3(kc, kxp)
+    omc = 1.0 - cos
+    Rp = [xm.fma32(omc, kkp[i], xm.fma32(sin, kxp[i], pc[i])) for i in range(3)]
 
-    kxr = torch.linalg.cross(k, rho0)  # fixed (..., 3)
-    kkr = torch.linalg.cross(k, kxr)
-    t = (
-        s[..., None] * rho0[..., None, :]
-        + (s * A)[..., None] * kxr[..., None, :]
-        + (s * B)[..., None] * kkr[..., None, :]
-    )
-    return Rp + t
+    rc = [rho0[..., i, None] for i in range(3)]
+    kxr = xm.cross3(kc, rc)  # fixed (..., 1) each
+    kkr = xm.cross3(kc, kxr)
+    sA, sB = s * A, s * B
+    t = [xm.fma32(sB, kkr[i].expand_as(sB),
+                  xm.fma32(s, rc[i].expand_as(s), sA * kxr[i])) for i in range(3)]
+    return torch.stack([Rp[i] + t[i] for i in range(3)], dim=-1)
+
+
+#: `th * th / 6.0` as XLA rewrites it: a product with the float32 1/6
+_SIXTH = 1.0 / 6.0
+
+
+def _deskew_card(points: torch.Tensor, tau: torch.Tensor, twist: torch.Tensor) -> torch.Tensor:
+    """`deskew` on the card: points (..., N, 3), tau (..., N) and twists
+    (..., 6) broadcast to one batch; one twist for every frame is read in
+    place (stride 0)."""
+    N = points.shape[-2]
+    batch = torch.broadcast_shapes(points.shape[:-2], tau.shape[:-1], twist.shape[:-1])
+    pts = xm.rows(points.expand(batch + (N, 3)), 3)
+    ta = tau.expand(batch + (N,)).reshape(-1).contiguous()
+    one = twist.numel() == 6
+    tw = xm.rows(twist if one else twist.expand(batch + (6,)), 6)
+    out = torch.empty(batch + (N, 3), dtype=points.dtype, device=points.device)
+    xm.launch("deskew", [pts, ta, tw], [out], n=pts.shape[0], params=(N, 0 if one else 6))
+    return out
 
 
 # ---------------------------------------------------------------------------

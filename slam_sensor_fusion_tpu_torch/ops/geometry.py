@@ -3,16 +3,25 @@
 Poses are (..., 4, 4) float32 homogeneous matrices, exactly like the
 reference — the pipeline even blends them element-wise because the
 reference does (localization_node.cpp:329).
+
+`rot_z`, `so3_exp`, `so3_log` and `se3_exp` round as the JAX package's
+jitted functions do on the CPU (ops/xla_math: glibc's sinf / cosf,
+XLA's arccos, correctly rounded sqrt, XLA's fused multiply-adds). On the
+card `so3_exp`, `so3_log` and `se3_exp` are one launch each of
+csrc/xla_math.cu, bit-equal to the tensor ops below, which are their plain
+versions on the CPU.
 """
 
 from __future__ import annotations
 
 import torch
 
+from slam_sensor_fusion_tpu_torch.ops import xla_math as xm
+
 
 def rot_z(yaw: torch.Tensor) -> torch.Tensor:
     """Rotation about +Z by ``yaw`` radians. Works on scalars or batches."""
-    c, s = torch.cos(yaw), torch.sin(yaw)
+    s, c = xm.sincosf(yaw)
     zero = torch.zeros_like(c)
     one = torch.ones_like(c)
     return torch.stack(
@@ -46,8 +55,7 @@ def rotation(T: torch.Tensor) -> torch.Tensor:
 def inv_T(T: torch.Tensor) -> torch.Tensor:
     """Inverse of a rigid transform without a general 4x4 solve."""
     Rt = T[..., :3, :3].transpose(-1, -2)
-    t = T[..., :3, 3]
-    return make_T(Rt, -torch.einsum("...ij,...j->...i", Rt, t))
+    return make_T(Rt, -xm.mv3(Rt, T[..., :3, 3]))
 
 
 def transform_points(T: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
@@ -139,27 +147,38 @@ def skew(v: torch.Tensor) -> torch.Tensor:
     )
 
 
-def _eye3_like(K: torch.Tensor) -> torch.Tensor:
-    return torch.eye(3, dtype=K.dtype, device=K.device).expand(K.shape)
+#: the series branches' divisions by constants, as XLA rewrites them:
+#: multiplications by the float32 reciprocals
+_SIXTH = 1.0 / 6.0
+_TWENTYFOURTH = 1.0 / 24.0
+_ONE_TWENTIETH = 1.0 / 120.0
 
 
 def so3_exp(w: torch.Tensor) -> torch.Tensor:
-    """Rodrigues: exp of (..., 3) rotation vectors, stable near 0."""
-    theta2 = (w * w).sum(dim=-1)
-    theta = torch.sqrt(torch.clamp(theta2, min=1e-24))
-    a = torch.where(theta2 > 1e-12, torch.sin(theta) / theta, 1.0 - theta2 / 6.0)
-    b = torch.where(
-        theta2 > 1e-12, (1.0 - torch.cos(theta)) / theta2, 0.5 - theta2 / 24.0
-    )
+    """Rodrigues: exp of (..., 3) rotation vectors, stable near 0. The
+    series branch's `theta2 / 6` is XLA's multiply by the float32 1/6."""
+    if xm.on_card(w):
+        out = torch.empty(w.shape[:-1] + (3, 3), dtype=w.dtype, device=w.device)
+        xm.launch("so3_exp", [xm.rows(w, 3)], [out], n=out.numel() // 9)
+        return out
+    theta2 = xm.norm2(w)
+    theta = xm.sqrtf(torch.clamp(theta2, min=1e-24))
+    sin, cos = xm.sincosf(theta)
+    a = torch.where(theta2 > 1e-12, sin / theta, 1.0 - theta2 * _SIXTH)
+    b = torch.where(theta2 > 1e-12, (1.0 - cos) / theta2, 0.5 - theta2 * _TWENTYFOURTH)
     K = skew(w)
-    return _eye3_like(K) + a[..., None, None] * K + b[..., None, None] * (K @ K)
+    return xm.rodrigues(a, b, K, xm.mm3(K, K))
 
 
 def so3_log(R: torch.Tensor) -> torch.Tensor:
     """Rotation vector of (..., 3, 3) rotations (principal branch)."""
+    if xm.on_card(R):
+        out = torch.empty(R.shape[:-1], dtype=R.dtype, device=R.device)
+        xm.launch("so3_log", [xm.rows(R, 9)], [out], n=out.numel() // 3)
+        return out
     tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
     cos_t = torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0)
-    theta = torch.arccos(cos_t)
+    theta = xm.acosf(cos_t)
     v = torch.stack(
         [
             R[..., 2, 1] - R[..., 1, 2],
@@ -169,7 +188,7 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
         dim=-1,
     )
     scale = torch.where(
-        theta > 1e-6, theta / (2.0 * torch.sin(torch.clamp(theta, min=1e-12))), 0.5
+        theta > 1e-6, theta / (2.0 * xm.sinf(torch.clamp(theta, min=1e-12))), 0.5
     )
     return v * scale[..., None]
 
@@ -206,19 +225,21 @@ def kabsch(src: torch.Tensor, tgt: torch.Tensor, weights: torch.Tensor) -> torch
 
 def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     """exp of (..., 6) twists [rho, phi] -> (..., 4, 4) rigid transforms."""
+    if xm.on_card(xi):
+        out = torch.empty(xi.shape[:-1] + (4, 4), dtype=xi.dtype, device=xi.device)
+        xm.launch("se3_exp", [xm.rows(xi, 6)], [out], n=out.numel() // 16)
+        return out
     rho, phi = xi[..., :3], xi[..., 3:]
     R = so3_exp(phi)
-    theta2 = (phi * phi).sum(dim=-1)
-    theta = torch.sqrt(torch.clamp(theta2, min=1e-24))
+    theta2 = xm.norm2(phi)
+    theta = xm.sqrtf(torch.clamp(theta2, min=1e-24))
     K = skew(phi)
-    b = torch.where(
-        theta2 > 1e-12, (1.0 - torch.cos(theta)) / theta2, 0.5 - theta2 / 24.0
-    )
+    sin, cos = xm.sincosf(theta)
+    b = torch.where(theta2 > 1e-12, (1.0 - cos) / theta2, 0.5 - theta2 * _TWENTYFOURTH)
     c = torch.where(
         theta2 > 1e-12,
-        (theta - torch.sin(theta)) / (theta2 * theta),
-        1.0 / 6.0 - theta2 / 120.0,
+        (theta - sin) / (theta2 * theta),
+        _SIXTH - theta2 * _ONE_TWENTIETH,
     )
-    V = _eye3_like(K) + b[..., None, None] * K + c[..., None, None] * (K @ K)
-    t = torch.einsum("...ij,...j->...i", V, rho)
-    return make_T(R, t)
+    V = xm.rodrigues(b, c, K, xm.mm3(K, K))
+    return make_T(R, xm.mv3(V, rho))

@@ -21,7 +21,7 @@ from typing import NamedTuple
 import torch
 
 from slam_sensor_fusion_tpu_torch.ops.morton import bbox_pair_dist2, tile_bboxes
-from slam_sensor_fusion_tpu_torch.ops.nn_pallas import _dot3
+from slam_sensor_fusion_tpu_torch.ops import xla_math as xm
 
 _BIG = 3.0e38
 
@@ -115,12 +115,6 @@ def build_visit_lists(
     return pair_tiles(lo_s, hi_s, cnt_s, lo_t, hi_t, radius2, max_visits)
 
 
-def _norm2(p: torch.Tensor) -> torch.Tensor:
-    """|p|^2 over the last axis as fma(z, z, fma(y, y, x * x))."""
-    x, y, z = p[..., 0], p[..., 1], p[..., 2]
-    return _dot3(x, y, z, x, y, z)
-
-
 def gated_nn(
     src: torch.Tensor,
     src_mask: torch.Tensor,
@@ -138,7 +132,7 @@ def gated_nn(
     (min, argmin) under a strict `<`, so an exact tie keeps the earlier
     visit; within a tile the first row wins. Distances are the expanded
     (|s|^2 - 2 s.t) + |t|^2 rebased on `center`, each norm the fused
-    multiply-add chain XLA's fusion makes of it (`_dot3`), the cross term a
+    multiply-add chain XLA's fusion makes of it (`xla_math.norm2`), the cross term a
     batched product: on the CPU the same bits as the JAX function. Exact
     within the gate for any order; points without an admissible neighbour
     report d2 >= gate."""
@@ -149,7 +143,7 @@ def gated_nn(
         src, src_mask, tgt, tgt_mask, radius2, tile_src, tile_tgt, max_visits
     )
     src_tiles = (src - center[None, :]).float().reshape(nSt, tile_src, 3)
-    s_norm = _norm2(src_tiles)  # (nSt, TM)
+    s_norm = xm.norm2(src_tiles)  # (nSt, TM)
     tgt_tiles = (tgt - center[None, :]).float().reshape(-1, tile_tgt, 3)
     tmask_tiles = tgt_mask.reshape(-1, tile_tgt)
     best_d2 = torch.full((nSt, tile_src), _BIG, dtype=torch.float32, device=dev)
@@ -161,7 +155,7 @@ def gated_nn(
         t = tgt_tiles[tile_ids]  # (nSt, TN, 3)
         live = j < counts  # (nSt,)
         cross = torch.bmm(src_tiles, t.transpose(1, 2))  # (nSt, TM, TN)
-        t_norm = _norm2(t)  # (nSt, TN)
+        t_norm = xm.norm2(t)  # (nSt, TN)
         d2 = s_norm[:, :, None] - 2.0 * cross + t_norm[:, None, :]
         ok = tmask_tiles[tile_ids] & live[:, None]
         d2 = torch.where(ok[:, None, :], d2, _BIG)

@@ -22,6 +22,7 @@ from typing import NamedTuple
 import torch
 
 from slam_sensor_fusion_tpu_torch.ops import cuda_lib
+from slam_sensor_fusion_tpu_torch.ops import xla_math as xm
 
 _BIG = 3.0e38
 _FAR = 1.0e7  # sentinel coordinate for invalid points (d2 ~ 1e14 << _BIG)
@@ -82,16 +83,6 @@ def _tile_chunk(TN: int, TM: int) -> int:
     return max(1, (1 << 24) // (TN * TM))
 
 
-def _dot3(ax, ay, az, bx, by, bz):
-    """a.b as the fused multiply-add chain fma(az, bz, fma(ay, by, ax*bx)):
-    how XLA evaluates the JAX kernel's K=3 contractions, and what K2 does
-    with `__fmaf_rn`. Each fma is exact in float64 (a float32 product
-    fits), then rounded once to float32."""
-    p = ax * bx
-    p = (ay.double() * by.double() + p.double()).float()
-    return (az.double() * bz.double() + p.double()).float()
-
-
 def pair_nn_plain(
     src_pages: torch.Tensor,  # (nSt, 3, TM)
     tgt_pages: torch.Tensor,  # (nTt, 3, TN)
@@ -101,7 +92,7 @@ def pair_nn_plain(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2 written as masked distance sweeps: per source tile, the expanded
     d2 = (|t|^2 - 2 t.s) + |s|^2 against each admitted target tile (each
-    product sum a fused multiply-add chain, `_dot3`), first argmin within
+    product sum a fused multiply-add chain, `xla_math.dot3`), first argmin within
     a tile, strict `<` across tiles in visit order, d2 clamped at 0.
     Returns d2 (nSt,1,TM), idx (nSt,1,TM) int32 and the winner
     coordinates xyz (nSt,3,TM) in the pages' frame."""
@@ -118,14 +109,14 @@ def pair_nn_plain(
     for i in range(nSt):
         s = src_pages[i]
         sx, sy, sz = s[0], s[1], s[2]
-        s_norm = _dot3(sx, sy, sz, sx, sy, sz)
+        s_norm = xm.dot3(sx, sy, sz, sx, sy, sz)
         best, bidx, bxyz = d2_out[i, 0], idx_out[i, 0], xyz_out[i]
         for c0 in range(0, cnts[i], chunk):
             js = pair_tgt[starts[i] + c0 : starts[i] + min(cnts[i], c0 + chunk)].long()
             t = tgt_pages[js]  # (C, 3, TN)
             tx, ty, tz = t[:, 0, :, None], t[:, 1, :, None], t[:, 2, :, None]
-            t_norm = _dot3(tx, ty, tz, tx, ty, tz)
-            cross = _dot3(tx, ty, tz, sx, sy, sz)  # (C, TN, TM)
+            t_norm = xm.dot3(tx, ty, tz, tx, ty, tz)
+            cross = xm.dot3(tx, ty, tz, sx, sy, sz)  # (C, TN, TM)
             d2 = (t_norm - 2.0 * cross) + s_norm
             tile_min, arg = d2.min(dim=1)  # first row on ties
             cmin, carg = tile_min.min(dim=0)  # first tile on ties

@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from slam_sensor_fusion_tpu_torch.ops import geometry
+from slam_sensor_fusion_tpu_torch.ops import xla_math as xm
 from slam_sensor_fusion_tpu_torch.ops.cloud import Cloud
 from slam_sensor_fusion_tpu_torch.ops.morton import (
     _BITS,
@@ -204,51 +205,90 @@ def _smallest_eigvec3(cov: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, to
     """Analytic smallest eigenpair of symmetric (..., 3, 3) matrices: the
     trigonometric eigenvalue formula and the largest of the three row cross
     products of (A - lam_min I). Returns (eigvec (..., 3), lam_min,
-    lam_mid)."""
+    lam_mid).
+
+    Rounded as XLA compiles the JAX function inside the jitted normals on
+    the CPU (ops/xla_math): divisions by 3 and 6 as products, the sums of
+    squares, determinant and cross products as fused multiply-add chains,
+    p^3 as p2 * sqrt(p2), XLA's arccos and glibc's cosf, correctly rounded
+    square roots."""
     a00 = cov[..., 0, 0]
     a11 = cov[..., 1, 1]
     a22 = cov[..., 2, 2]
     a01 = cov[..., 0, 1]
     a02 = cov[..., 0, 2]
     a12 = cov[..., 1, 2]
-    q = (a00 + a11 + a22) / 3.0
+    f = xm.fma32
+    q = (a00 + a11 + a22) * _THIRD
     b00, b11, b22 = a00 - q, a11 - q, a22 - q
-    p2 = (b00 * b00 + b11 * b11 + b22 * b22) / 6.0 + (
-        a01 * a01 + a02 * a02 + a12 * a12
-    ) / 3.0
-    p = torch.sqrt(torch.clamp(p2, min=1e-30))
+    s1 = f(b22, b22, f(b00, b00, b11 * b11))
+    s2 = f(a12, a12, f(a01, a01, a02 * a02))
+    p2 = torch.clamp(f(s2, torch.full_like(s2, _THIRD), s1 * _SIXTH), min=1e-30)
+    p = xm.sqrtf(p2)
     # det(B)/2 with B = (A - qI)/p
-    detB = (
-        b00 * (b11 * b22 - a12 * a12)
-        - a01 * (a01 * b22 - a12 * a02)
-        + a02 * (a01 * a12 - b11 * a02)
-    ) / (p * p * p)
-    r = torch.clamp(detB / 2.0, -1.0, 1.0)
-    phi = torch.arccos(r) / 3.0
-    lam_max = q + 2.0 * p * torch.cos(phi)
-    lam_min = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)
+    detB = f(a02, f(a01, a12, -(b11 * a02)),
+             f(b00, f(b11, b22, -(a12 * a12)), -(a01 * f(a01, b22, -(a12 * a02))))) / (p2 * p)
+    r = torch.clamp(detB * 0.5, -1.0, 1.0)
+    phi = xm.acosf(r) * _THIRD
+    lam_max = f(p * 2.0, xm.cosf(phi), q)
+    lam_min = f(p * 2.0, xm.cosf(phi + 2.0 * math.pi / 3.0), q)
     lam_mid = 3.0 * q - lam_max - lam_min
-    c0 = torch.stack([a00 - lam_min, a01, a02], dim=-1)
-    c1 = torch.stack([a01, a11 - lam_min, a12], dim=-1)
-    c2 = torch.stack([a02, a12, a22 - lam_min], dim=-1)
-    x01 = torch.linalg.cross(c0, c1)
-    x02 = torch.linalg.cross(c0, c2)
-    x12 = torch.linalg.cross(c1, c2)
-    n01 = (x01 * x01).sum(dim=-1)
-    n02 = (x02 * x02).sum(dim=-1)
-    n12 = (x12 * x12).sum(dim=-1)
+    c0 = (a00 - lam_min, a01, a02)
+    c1 = (a01, a11 - lam_min, a12)
+    c2 = (a02, a12, a22 - lam_min)
+    x01, x02, x12 = xm.cross3(c0, c1), xm.cross3(c0, c2), xm.cross3(c1, c2)
+    n01, n02, n12 = xm.sumsq3(*x01), xm.sumsq3(*x02), xm.sumsq3(*x12)
+    x01, x02, x12 = (torch.stack(x, dim=-1) for x in (x01, x02, x12))
     best = torch.where(
         (n01 >= n02)[..., None] & (n01 >= n12)[..., None],
         x01,
         torch.where((n02 >= n12)[..., None], x02, x12),
     )
-    nrm = torch.sqrt(torch.maximum(n01, torch.maximum(n02, n12)))
-    vec = best / torch.clamp(torch.sqrt((best * best).sum(dim=-1)), min=1e-20)[..., None]
+    nrm = xm.sqrtf(torch.maximum(n01, torch.maximum(n02, n12)))
+    vec = best / torch.clamp(xm.sqrtf(xm.norm2(best)), min=1e-20)[..., None]
     # fully degenerate (isotropic) matrices: arbitrary unit vector
     up = torch.zeros_like(vec)
     up[..., 2] = 1.0
     vec = torch.where((nrm > 1e-20)[..., None], vec, up)
     return vec, lam_min, lam_mid
+
+
+#: divisions by constants as XLA rewrites them: products with the float32
+#: reciprocals
+_THIRD = 1.0 / 3.0
+_SIXTH = 1.0 / 6.0
+
+
+def _cell_eigen(seg: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Each point's cell covariance from its cell moments (N, 10: count,
+    sums, xx yy zz xy xz yz), then its smallest eigenpair
+    (`_smallest_eigvec3`): (normals, lam_min, lam_mid). One launch of
+    csrc/xla_math.cu on the card, a thread a point; these tensor ops are
+    its plain version."""
+    if xm.on_card(seg):
+        n = seg.shape[0]
+        normals = torch.empty((n, 3), dtype=seg.dtype, device=seg.device)
+        lam_min, lam_mid = torch.empty_like(seg[:, 0]), torch.empty_like(seg[:, 0])
+        xm.launch("cell_normals", [xm.rows(seg, 10)], [normals, lam_min, lam_mid], n=n)
+        return normals, lam_min, lam_mid
+    c = torch.clamp(seg[:, 0], min=1.0)
+    mx, my, mz = seg[:, 1] / c, seg[:, 2] / c, seg[:, 3] / c
+    # E[ab] - E[a] E[b] as XLA contracts it: fma(-E[a], E[b], E[ab])
+    cxx = xm.fma32(-mx, mx, seg[:, 4] / c)
+    cyy = xm.fma32(-my, my, seg[:, 5] / c)
+    czz = xm.fma32(-mz, mz, seg[:, 6] / c)
+    cxy = xm.fma32(-mx, my, seg[:, 7] / c)
+    cxz = xm.fma32(-mx, mz, seg[:, 8] / c)
+    cyz = xm.fma32(-my, mz, seg[:, 9] / c)
+    cov = torch.stack(
+        [
+            torch.stack([cxx, cxy, cxz], dim=-1),
+            torch.stack([cxy, cyy, cyz], dim=-1),
+            torch.stack([cxz, cyz, czz], dim=-1),
+        ],
+        dim=-2,
+    ) + 1e-9 * torch.eye(3, dtype=torch.float32, device=seg.device)[None]
+    return _smallest_eigvec3(cov)
 
 
 def _cell_moments(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -290,6 +330,19 @@ def estimate_normals_cells(
     adds in XLA's order (on the card, a kernel bit-equal to the CPU's), so
     the normals agree with the JAX package's to the 3x3 eigen-solve's
     rounding and the valid mask is equal."""
+    seg = _cell_segments(points, mask, cell_size)
+    cnt = seg[:, 0]
+    normals, lam_min, lam_mid = _cell_eigen(seg)
+    valid = mask & (cnt >= min_cell_points)
+    if max_planarity is not None:
+        valid = valid & (lam_min < max_planarity * torch.clamp(lam_mid, min=1e-12))
+    return normals, valid
+
+
+def _cell_segments(points: torch.Tensor, mask: torch.Tensor, cell_size: float) -> torch.Tensor:
+    """Each point's cell moments (N, 10: count, sums, xx yy zz xy xz yz) in
+    a Morton-sorted cloud: differences of the prefix sums at the runs'
+    boundaries (`estimate_normals_cells`)."""
     N = points.shape[0]
     dev = points.device
     lo, hi = cloud_box(Cloud(points, mask), isotropic=True)
@@ -314,30 +367,7 @@ def estimate_normals_cells(
 
     seg_hi = csum[end]
     seg_lo = torch.where((start > 0)[:, None], csum[torch.clamp(start - 1, min=0)], 0.0)
-    seg = seg_hi - seg_lo  # (N, 10) per-point cell moments
-    cnt = seg[:, 0]
-    c = torch.clamp(cnt, min=1.0)
-    mx, my, mz = seg[:, 1] / c, seg[:, 2] / c, seg[:, 3] / c
-    cxx = seg[:, 4] / c - mx * mx
-    cyy = seg[:, 5] / c - my * my
-    czz = seg[:, 6] / c - mz * mz
-    cxy = seg[:, 7] / c - mx * my
-    cxz = seg[:, 8] / c - mx * mz
-    cyz = seg[:, 9] / c - my * mz
-    cov = torch.stack(
-        [
-            torch.stack([cxx, cxy, cxz], dim=-1),
-            torch.stack([cxy, cyy, cyz], dim=-1),
-            torch.stack([cxz, cyz, czz], dim=-1),
-        ],
-        dim=-2,
-    ) + 1e-9 * torch.eye(3, dtype=torch.float32, device=dev)[None]
-
-    normals, lam_min, lam_mid = _smallest_eigvec3(cov)
-    valid = mask & (cnt >= min_cell_points)
-    if max_planarity is not None:
-        valid = valid & (lam_min < max_planarity * torch.clamp(lam_mid, min=1e-12))
-    return normals, valid
+    return seg_hi - seg_lo
 
 
 def point_to_plane_align(

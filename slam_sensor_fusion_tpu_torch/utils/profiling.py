@@ -108,6 +108,7 @@ def kernel_launches() -> dict[str, int]:
     from slam_sensor_fusion_tpu_torch.ops.ordered_scan import cumsum_rows
     from slam_sensor_fusion_tpu_torch.ops.superblock_fused import superblock_fine
     from slam_sensor_fusion_tpu_torch.ops.voxel_segsum import segment_sum_sorted
+    from slam_sensor_fusion_tpu_torch.ops.xla_math import xla_math
 
     return {
         "K1": superblock_fine.launches,
@@ -119,4 +120,5 @@ def kernel_launches() -> dict[str, int]:
         "K7": lio_superblock.launches,
         "voxel_segment_sum": segment_sum_sorted.launches,
         "cumsum_rows": cumsum_rows.launches,
+        "xla_math": xla_math.launches,
     }

@@ -1,5 +1,5 @@
 """bench_kitti's LIO through both packages on the CPU from one initial
-state: the ATE-RMSE of each.
+state: the ATE-RMSE of each, and how far apart their poses are.
 
     JAX_PLATFORMS=cpu PYTHONPATH=.:tests python tests/kitti_lio_ate.py [--frames 64]
 
@@ -11,7 +11,7 @@ frame run), through `run_lio_superblocks` with deskew in each package,
 both starting from the port's `init_state` (the JAX side's K7 in Pallas
 interpret mode, the port's K7 its plain version). Prints one JSON line:
 each package's ATE-RMSE against the fixture's poses, the worst pose
-difference between them in the first block and over the run, and how many
+difference between them in the first block, in each block and over the run, and how many
 of the first anchor's valid cell normals differ by more than 1e-3 in
 direction. A minute or more of interpret-mode Pallas: not a tier-1 test.
 """
@@ -74,7 +74,10 @@ def main() -> None:
         "frames": n, "ate_rmse_m_port": cs.ate_rmse(est_t, poses[1:]),
         "ate_rmse_m_jax": cs.ate_rmse(est_j, poses[1:]),
         "pose_diff_first_block": float(d[:cfg.refresh_every].max()),
-        "pose_diff_run": float(d.max()), "valid_normals": int(valid.sum()),
+        "pose_diff_run": float(d.max()),
+        "pose_diff_by_block": [float(d[i:i + cfg.refresh_every].max())
+                               for i in range(0, n, cfg.refresh_every)],
+        "valid_normals": int(valid.sum()),
         "valid_masks_equal": bool(np.array_equal(a_t[3].numpy(), valid)),
         "normals_apart_1e-3": int((gap > 1e-3).sum()), "normals_max_gap": float(gap.max()),
     }), flush=True)

@@ -368,4 +368,5 @@ def test_profiling(tmp_path):
         ("Memcpy HtoD", 3.0, 1), ("k1", 2.0, 2)]
     assert profiling.summarize_trace(str(tmp_path / "dev"), top=1) == [("Memcpy HtoD", 3.0, 1)]
     assert set(profiling.kernel_launches()) == {"K1", "K2", "K3", "K4", "K5", "K6", "K7",
-                                                 "voxel_segment_sum", "cumsum_rows"}
+                                                 "voxel_segment_sum", "cumsum_rows",
+                                                 "xla_math"}

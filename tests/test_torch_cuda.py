@@ -53,11 +53,13 @@ from torch_lio_world import (
     K7_SHAPES,
     K7_WIDE,
     ODD_LIO,
+    XLA_MATH_CASES,
     k7_case,
     k7_digest,
     p2p_core_inputs,
     p2p_digest,
     p2p_scene,
+    xla_math_cases,
 )
 from torch_world import (  # noqa: F401
     K1_SCENES,
@@ -563,11 +565,13 @@ def test_lio_superblock_skips_padding_frames(cuda_device):
 
 #: `k7_digest` of K7 as the one-block kernel computed it, before its
 #: association spread over a cooperative grid (NVIDIA H100 80GB HBM3). Its
-#: inputs pass through the port's anchor refresh, so the value moved when
-#: the cell normals' prefix sum took XLA's order (ops/ordered_scan): on
-#: those inputs the kernel of the commit before that change gave these
-#: same bits, in one chip call
-K7_DIGEST = "d9a603765ce66bcc312face1591fde9a9a0c28c4699d2966fa13874c21e26a5c"
+#: inputs are a fixture (torch_lio_world.K7_INPUTS), so it moves only when
+#: K7 does. Before the fixture they came out of the port's host path and
+#: the value moved with it (the cell normals' prefix sum in XLA's order, the
+#: host path in XLA's float32 rounding); each time, and on the fixture, the
+#: kernel of the commit before the change gave these same bits, in one chip
+#: call
+K7_DIGEST = "456f963ef1a709d10f12f6b942b6b52e77eff8b63185d74920c1b4afe8aee558"
 
 
 def test_lio_superblock_bits_equal_the_one_block_kernel(cuda_device):
@@ -792,3 +796,82 @@ def test_estimate_normals_cells_on_the_card_matches_the_cpu(cuda_device):
     n_h, v_h = tpp.estimate_normals_cells(p, m, 1.2, max_planarity=0.25)
     assert torch.equal(v_c.cpu(), v_h) and int(v_h.sum()) > 1000
     assert float((1.0 - (n_c.cpu() * n_h).sum(-1).abs())[v_h].max()) <= 3e-5
+
+
+def xla_math_inputs(fn: str, n: int, seed: int = 0) -> list[np.ndarray]:
+    """Float32 inputs of `xla_math`'s function `fn`: seeded angles in
+    [-pi, pi] and magnitudes of 1e-8 to 1e6 of either sign ([-1, 1] for
+    acos), random bit patterns, and the special values (+-0, subnormals,
+    +-inf, NaN, the branch points of the reductions)."""
+    rng = np.random.default_rng(seed)
+    special = np.array([0.0, -0.0, 1e-45, -1e-45, 1e-39, -3e-39, 1.17e-38, np.inf, -np.inf,
+                        np.nan, 1.0, -1.0, 0.78539816, 120.0, -120.0, 119.99999, 3.4e38,
+                        2.0**-12, 2.0**-29, 2.0**25], np.float32)
+    q = (n - special.size) // 3
+    bits = rng.integers(0, 2**32, q, dtype=np.uint64).astype(np.uint32).view(np.float32)
+    if fn == "acos":
+        a = rng.uniform(-1.0, 1.0, 2 * q)
+    else:
+        a = np.concatenate([rng.uniform(-np.pi, np.pi, q),
+                            np.sign(rng.normal(size=q)) * 10.0 ** rng.uniform(-8, 6, q)])
+    x = np.concatenate([special, a.astype(np.float32), bits])
+    return [x] + [rng.permutation(x) for _ in range({"atan2": 1, "fma": 2}.get(fn, 0))]
+
+
+def _same_or_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bits equal, or both NaN (the card's arithmetic returns its canonical
+    NaN, the CPU's propagates the operand's)."""
+    a, b = a.cpu(), b.cpu()
+    return bool(((a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())).all())
+
+
+@pytest.mark.parametrize("fn", ["sincos", "atan2", "acos", "fma"])
+def test_xla_math_kernel_bits_equal_plain(cuda_device, fn):
+    """csrc/xla_math.cu equals ops/xla_math's plain versions bit for bit
+    (NaN where NaN) on 2^20 inputs a function, special values included,
+    in one launch a call; an input of one element broadcasts."""
+    from slam_sensor_fusion_tpu_torch.ops import xla_math as xm
+
+    host = [torch.from_numpy(a) for a in xla_math_inputs(fn, 1 << 20)]
+    before = xm.xla_math.launches
+    got = xm.xla_math(fn, *[a.to(cuda_device) for a in host])
+    torch.cuda.synchronize()
+    assert xm.xla_math.launches == before + 1
+    want = xm.xla_math(fn, *host)
+    if fn != "sincos":
+        got, want = (got,), (want,)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and _same_or_nan(g, w)
+    if fn in ("fma", "atan2"):  # each operand of one element, read in place
+        for j in range(len(host)):
+            ins = [a[:1] if k == j else a for k, a in enumerate(host)]
+            got = xm.xla_math(fn, *[a.to(cuda_device) for a in ins])
+            assert _same_or_nan(got, xm.xla_math(fn, *ins))
+
+
+@pytest.mark.parametrize("name", XLA_MATH_CASES)
+def test_xla_math_composites_bits_equal_plain(cuda_device, name):
+    """Each composite function of csrc/xla_math.cu (the small products,
+    so3 / se3, deskew, the cell normals, the IMU propagation, the dead
+    reckoning) equals its plain version on the CPU bit for bit, in one
+    launch a call."""
+    from slam_sensor_fusion_tpu_torch.ops import xla_math as xm
+
+    call, host = xla_math_cases()[name]
+    before = xm.xla_math.launches
+    got = call(*[a.to(cuda_device) for a in host])
+    torch.cuda.synchronize()
+    assert xm.xla_math.launches == before + 1
+    want = call(*host)
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.shape == w.shape and _same_or_nan(g, w)
+
+
+def test_xla_math_refuses_other_tensors(cuda_device):
+    """A CUDA tensor that is neither float32 nor a float64 reference
+    raises: no quiet fallback."""
+    from slam_sensor_fusion_tpu_torch.ops import xla_math as xm
+
+    with pytest.raises(ValueError):
+        xm.sinf(torch.ones(4, dtype=torch.float16, device=cuda_device))

@@ -10,13 +10,19 @@ the largest of three row cross products): |n . n'| > 1 - tol.
    cloud at world coordinates): the prefix sums reach ~1e6 while a cell's
    variance is ~1e-2, so the scan's order of addition decides the normals
    of thin cells. The port adds in XLA's order (ops/ordered_scan,
-   tests/test_torch_ordered_scan.py), so every valid normal agrees with
-   the JAX package's to the 3x3 eigen-solve's last-ulp rounding: gap
-   < 1e-6 (found 1.8e-7 within 12 m of the origin and shifted by (40, 30,
-   0) m, 2.4e-7 shifted by (140, -60, 2) m), with EQUAL valid masks, the
-   planarity gate's too. Against the same formula in float64, the port is
-   no further than the JAX package is."""
+   tests/test_torch_ordered_scan.py) and rounds the covariance and the 3x3
+   eigen-solve as XLA compiles them inside the jitted normals, as the LIO
+   path runs them (fma(-E[a], E[b], E[ab]), the solve's fused chains,
+   XLA's arccos, glibc's cosf, correctly rounded sqrt: ops/xla_math), so
+   every valid normal agrees with the jitted JAX function's: gap < 1e-6
+   (found 1.8e-7 within 12 m of the origin and shifted by (40, 30, 0) m,
+   1.2e-7 shifted by (140, -60, 2) m; ~95% of the components bit-equal),
+   with EQUAL valid masks, the planarity gate's too. The JAX function run
+   op by op (eager, no fusion, no contraction) rounds otherwise. Against
+   the same formula in float64, the port is no further than the JAX
+   package is."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -78,7 +84,8 @@ def test_estimate_normals_tiled_matches_jax(chunk):
                          ids=["origin", "shifted", "far"])
 def test_estimate_normals_cells_matches_jax(shift):
     pts, mask = _ring(2, radius=12.0, shift=shift)
-    n_j, v_j = jp.estimate_normals_cells(jnp.asarray(pts), jnp.asarray(mask), 1.8)
+    n_j, v_j = jax.jit(lambda p, m: jp.estimate_normals_cells(p, m, 1.8))(
+        jnp.asarray(pts), jnp.asarray(mask))
     n_t, v_t = tp.estimate_normals_cells(t(pts), t(mask), 1.8)
     n_64, _ = tp.estimate_normals_cells(t(pts).double(), t(mask), 1.8)
     np.testing.assert_array_equal(v_t.numpy(), np.asarray(v_j))
@@ -98,7 +105,8 @@ def test_estimate_normals_cells_matches_jax(shift):
 def test_estimate_normals_cells_planarity_gate():
     pts, mask = _ring(3, radius=12.0)
     _, v_all = tp.estimate_normals_cells(t(pts), t(mask), 1.8)
-    _, v_j = jp.estimate_normals_cells(jnp.asarray(pts), jnp.asarray(mask), 1.8, max_planarity=0.25)
+    _, v_j = jax.jit(lambda p, m: jp.estimate_normals_cells(p, m, 1.8, max_planarity=0.25))(
+        jnp.asarray(pts), jnp.asarray(mask))
     _, v_t = tp.estimate_normals_cells(t(pts), t(mask), 1.8, max_planarity=0.25)
     # the gate compares two float32 eigenvalues of equal moments: none flips
     np.testing.assert_array_equal(v_t.numpy(), np.asarray(v_j))

@@ -6,6 +6,8 @@ packages."""
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -189,8 +191,38 @@ K7_WIDE = {
 }
 
 
+#: K7_DIGEST's inputs: `k7_case`'s arguments on the K7_SHAPES blocks as the
+#: port's host path on the CPU built them (anchor refresh, dead reckoning,
+#: deskew, pages, pair lists), written once by `save_k7_inputs`, so the
+#: digest moves only when K7 itself does
+K7_INPUTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "k7_inputs.npz")
+
+
+def save_k7_inputs(path: str = K7_INPUTS) -> None:
+    """Write `k7_case`'s arguments on the K7_SHAPES blocks (built on the
+    CPU) to `path`."""
+    arrays = {}
+    for name, (config, imu_rate, _) in K7_SHAPES.items():
+        args, _ = k7_case(config, torch.device("cpu"), imu_rate=imu_rate)
+        arrays.update({f"{name}_{i:02d}": a.numpy() for i, a in enumerate(args)})
+    np.savez_compressed(path, **arrays)
+
+
+def load_k7_inputs(device) -> dict:
+    """K7_INPUTS on `device`: name -> (K7's arguments, its params)."""
+    from slam_sensor_fusion_tpu_torch.models import lio as tl
+
+    with np.load(K7_INPUTS) as f:
+        out = {}
+        for name, (config, _, _) in K7_SHAPES.items():
+            keys = sorted(k for k in f.files if k.startswith(name + "_"))
+            out[name] = ([torch.from_numpy(f[k]).to(device) for k in keys],
+                         tl._superblock_params(config))
+    return out
+
+
 def k7_digest(device) -> str:
-    """SHA-256 of `lio_superblock`'s outputs on the K7_SHAPES blocks, the
+    """SHA-256 of `lio_superblock`'s outputs on K7_INPUTS' blocks, the
     bench block with frames 0, 7 and 15 invalid, and the odd block with
     every frame invalid: a kernel that rounds one bit differently, or takes
     another tile on a tie, changes it."""
@@ -199,8 +231,7 @@ def k7_digest(device) -> str:
     from slam_sensor_fusion_tpu_torch.ops import lio_superblock_fused as tsb
 
     h = hashlib.sha256()
-    for name, (config, imu_rate, _) in K7_SHAPES.items():
-        args, params = k7_case(config, device, imu_rate=imu_rate)
+    for name, (args, params) in load_k7_inputs(device).items():
         valid = args[3]
         blocks = [valid.clone()]
         if name == "bench":
@@ -237,3 +268,61 @@ def p2p_digest(device) -> str:
             for x in outs:
                 h.update(x.detach().cpu().numpy().tobytes())
     return h.hexdigest()
+
+
+def xla_math_cases() -> dict:
+    """Seeded inputs of xla_math's composite functions at the LIO path's
+    shapes (tests/test_torch_cuda.py on the card, and
+    tests/test_torch_xla_math_host.py with the kernel's source built for
+    the host): name -> (call, inputs on the CPU)."""
+    from slam_sensor_fusion_tpu_torch.models import ekf, lio
+    from slam_sensor_fusion_tpu_torch.ops import deskew as dk
+    from slam_sensor_fusion_tpu_torch.ops import geometry as geo
+    from slam_sensor_fusion_tpu_torch.ops import point_to_plane as tpp
+    from slam_sensor_fusion_tpu_torch.ops import xla_math as xm
+
+    rng = np.random.default_rng(3)
+
+    def f32(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(np.float32))
+
+    mag = np.concatenate([10.0 ** rng.uniform(-9, 0.5, 250), np.zeros(3), np.full(3, np.pi)])
+    w = torch.from_numpy((f32(256, 3).numpy() / np.linalg.norm(f32(256, 3).numpy(), axis=1,
+                                                                keepdims=True)
+                          * mag[:, None]).astype(np.float32))
+    R = geo.so3_exp(w)
+    xi = torch.cat([f32(256, 3, scale=2.0), w], 1)
+    T = geo.se3_exp(xi)
+    A = f32(15, 15, scale=0.1)
+    st = ekf.EKFState(f32(3, scale=10.0), f32(3), geo.so3_exp(f32(3)), f32(3, scale=1e-3),
+                      f32(3, scale=1e-2), A @ A.T + 0.01 * torch.eye(15))
+    gy, ac = f32(4, 10, 3, scale=0.3), f32(4, 10, 3) + torch.tensor([0.0, 0.0, 9.8])
+    dt = torch.full((4, 10), 0.01)
+    dt[1, 5:] = 0.0
+    pts = torch.from_numpy((rng.normal(size=(3000, 3)) * [20, 20, 0.3]).astype(np.float32))
+    seg = tpp._cell_segments(pts, torch.ones(3000, dtype=torch.bool), 1.8)
+    return {
+        "norm2": (xm.norm2, [f32(16, 512, 3, scale=30.0)]),
+        "mm": (xm.mm3, [R[:16], R[16:32].transpose(-1, -2)]),
+        "mv": (xm.mv3, [R[:16], f32(16, 3)]),
+        "mm_lanes": (xm.mm_lanes, [st.P, st.P.T]),
+        "mm_lanes 15x6x6": (xm.mm_lanes, [st.P[:, :6].contiguous(), A[:6, :6].contiguous()]),
+        "so3_exp": (geo.so3_exp, [w]),
+        "so3_log": (geo.so3_log, [R]),
+        "se3_exp": (geo.se3_exp, [xi]),
+        "se3_log": (dk.se3_log, [T]),
+        "deskew": (dk.deskew, [f32(4, 512, 3, scale=30.0), torch.rand(4, 512), xi[:4] * 0.1]),
+        "deskew one twist": (dk.deskew, [f32(8192, 3, scale=30.0), torch.rand(8192), xi[5] * 0.1]),
+        "cell_normals": (tpp._cell_eigen, [seg]),
+        "propagate": (lambda *a: ekf.flat_state(
+            ekf.propagate_batch(ekf.unflat_state(a[0]), *a[1:], ekf.EKFConfig())),
+            [ekf.flat_state(st), gy[0], ac[0], dt[1]]),
+        "dead_reckon": (lambda *a: lio._dead_reckon(ekf.unflat_state(a[0]), *a[1:]),
+                        [ekf.flat_state(st), gy, ac, dt]),
+    }
+
+
+#: the names of `xla_math_cases`
+XLA_MATH_CASES = ["norm2", "mm", "mv", "mm_lanes", "mm_lanes 15x6x6", "so3_exp", "so3_log",
+                  "se3_exp", "se3_log", "deskew", "deskew one twist", "cell_normals",
+                  "propagate", "dead_reckon"]
