@@ -200,6 +200,35 @@ check exits non-zero:
      tensor (which the port never calls), its plain version's and its
      bound. Every LIO path of phases 6, 7, 10, 11 and 13 must have launched
      it (each anchor refresh takes one).
+ 15. XLA's float32 math (ops/xla_math, csrc/xla_math.cu) bit-equal to its
+     plain version on 2^24 inputs a function and at the LIO paths' shapes,
+     one launch a function call; phase 7's first block on the card against
+     the CPU within 1e-5 m.
+ 16. the LIO's default configuration on phase 6's world: LIOConfig()'s
+     voxel normals, whose per-cell moments are one voxel_segment_sum launch
+     (each cell's rows in row order, as the JAX package's scatter-add),
+     and its "pallas" registration (K2 on a pair list, every GN
+     iteration). (a) At phase 7's anchor and moved by ~40 m and ~140 m, at
+     1.8 m and 0.75 m cells: the moments bit-equal to the CPU's and on two
+     card runs; the voxel and tiled normals' valid masks equal to the
+     CPU's, 1 - |n . n'| < 1e-5 on every valid point. (b) K2 against its
+     plain version at the LIO's 512 x 1024 and 256 x 512 tiles on phase
+     6's frame 33. Then run_lio_blocks on "pallas" and on the dense sweep
+     ("xla", TF32 off) with voxel normals, 64 frames twice each, (c) the
+     first 16-frame block of "pallas" on the card against the port on the
+     CPU from one state (poses 1e-4 m, frame 0's n_correspondences equal)
+     and the dense sweep's frame 0 on the card against the CPU (the rows
+     whose winner changed); the tiled normals on "pallas" (32 frames);
+     LIOSession on LIOConfig()'s registration and normals at phase 6's
+     scan capacity (33 pushes); run_lio_superblocks (K7) with voxel
+     normals, 64 frames twice, (e) zero pair overflow; fleet_run_lio on
+     LIOConfig() itself, 2 robots x 33 frames, each equal to its own run.
+     (d) ATE-RMSE < 0.3 m on every run; exact K2 launches a frame (GN
+     iterations + 1), the segment sum and K7 launched on their paths.
+     Prints scans/s of the second passes, a refresh's segment sum, eigh
+     and host syncs (the whole refresh's and each part's), K2's ms a
+     frame, device operations a frame and the idle share of a profiled
+     block.
 
 Phase 2 also holds K3 against its plain version (fresh and lazy, at the
 session's shapes), the per-frame superblock branch (K3 lazy) against K1 on
@@ -208,7 +237,7 @@ K6(K5(x)) against K4 on a steady-state frame of the LIO world (frame 33,
 the ring full) against the anchor its block starts with (with K5's scan
 and combine and K6's device time under the profiler), and K7 against
 its plain version on the block of frames 33-48 from the same state.
-Every kernel's launch count is set to 0 before each path of phases 3-13
+Every kernel's launch count is set to 0 before each path of phases 3-16
 and read after it.
 
 The line before the last is the kernels' JSON record (time, plain time,
@@ -354,6 +383,19 @@ PEAK_F64_FLOPS = 34e12
 #: host path is the same bits on both, K7 sums in another order than its
 #: plain version (3.4e-8 found)
 XM_CARD_CPU_GAP = 1e-5
+#: phase 16, the LIO's default configuration (LIOConfig()'s voxel normals,
+#: the "pallas" and "xla" registration backends) on phase 6's world: 1
+#: seeding frame + 4 blocks of 16 (run_lio_blocks, run_lio_superblocks);
+#: 1 + 32 for the tiled normals, LIOSession and the fleet
+P16_FRAMES = 65
+P16_SHORT_FRAMES = 33
+#: phase 7's anchor moved by ~40 m and ~140 m: the cells' moments at world
+#: coordinates (tests/test_torch_lio_normals.py's shifts)
+P16_SHIFTS = {"anchor": (0.0, 0.0, 0.0), "shifted": (40.0, 30.0, 0.0),
+              "far": (140.0, -60.0, 2.0)}
+#: the first 16-frame block on the card against the port on the CPU from
+#: one state (m)
+P16_CARD_CPU_TOL = 1e-4
 #: K1 and K4 must spread each association over at least this many SMs
 MIN_GRID_BLOCKS = 16
 
@@ -2629,6 +2671,463 @@ def phase15(dev, tag, launches, launches_by, lio_block, anchor) -> dict:
     return out
 
 
+def sync_count(fn) -> int:
+    """The host synchronisations `fn` makes, counted by torch's sync debug
+    mode's warnings."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def hold_normals(what, got, want, tag) -> dict:
+    """The card's normals (n, valid) against the CPU's: valid flags equal,
+    1 - |n . n'| within NORMALS_CARD_TOL on every valid point."""
+    (n_k, v_k), (n_h, v_h) = (x.cpu() for x in got), want
+    flips = int((v_k != v_h).sum())
+    gap = (1.0 - (n_k * n_h).sum(-1).abs())[v_h]
+    r = dict(flips=flips, valid=int(v_h.sum()), gap=float(gap.max()) if gap.numel() else 0.0)
+    print(f"{what}: the card against the CPU, valid flags differing {flips} of {r['valid']} "
+          f"valid; 1 - |n.n'| max {r['gap']:.3e} (bound {NORMALS_CARD_TOL}) [{tag}]", flush=True)
+    if flips or not r["gap"] < NORMALS_CARD_TOL:
+        fail(f"{what}: the card's normals part from the CPU's: {r}")
+    return r
+
+
+def check_voxel_cells(pts, msk, voxel, what, tag) -> dict:
+    """(a) `estimate_normals` at `voxel` on the card twice and on the CPU:
+    the sort, cell ids and the cells' moments bit for bit, then the
+    normals (`hold_normals`)."""
+    from slam_sensor_fusion_tpu_torch.ops import point_to_plane as pp
+
+    card = [pp._voxel_moments(pts, msk, voxel) for _ in range(2)]
+    host = pp._voxel_moments(pts.cpu(), msk.cpu(), voxel)
+    for k, name in enumerate(("order", "cell ids", "sorted mask")):
+        if not (torch.equal(card[0][k], card[1][k]) and torch.equal(card[0][k].cpu(), host[k])):
+            fail(f"voxel normals, {what}: the {name} differ between runs or from the CPU")
+    moments = {}
+    for m0, m1, mh, name in zip(card[0][3], card[1][3], host[3], ("sums", "counts", "products")):
+        b0, b1, bh = (m.cpu().contiguous().view(torch.int32) for m in (m0, m1, mh))
+        moments[name] = (int((b0 != b1).sum()), int((b0 != bh).sum()), bh.numel())
+    print(f"voxel moments, {what}, {voxel} m cells ({int(host[2].sum())} live rows, "
+          f"{int(host[1][host[2]].max()) + 1 if bool(host[2].any()) else 0} cells): elements "
+          f"differing (card run 2, the CPU) of all: {moments} [{tag}]", flush=True)
+    if any(a or b for a, b, _ in moments.values()):
+        fail(f"voxel moments, {what}: the card's are not the same bits on two runs and as the CPU's")
+    return hold_normals(f"voxel normals, {what}, {voxel} m cells",
+                        pp.estimate_normals(pts, msk, voxel),
+                        pp.estimate_normals(pts.cpu(), msk.cpu(), voxel), tag)
+
+
+def check_tiled(pts, msk, chunk, what, tag) -> dict:
+    """`estimate_normals_tiled` on the card against the CPU (`hold_normals`)."""
+    from slam_sensor_fusion_tpu_torch.ops import point_to_plane as pp
+
+    return hold_normals(f"tiled normals, {what}, chunks of {chunk}",
+                        pp.estimate_normals_tiled(pts, msk, chunk),
+                        pp.estimate_normals_tiled(pts.cpu(), msk.cpu(), chunk), tag)
+
+
+def voxel_segsum_args(pts, msk, voxel) -> tuple:
+    """The (values, ids, n_out) that `estimate_normals`' moments hand the
+    segment sum, caught on their way in (one launch)."""
+    from slam_sensor_fusion_tpu_torch.ops import point_to_plane as pp
+
+    seen, real = [], pp.segment_sum_sorted
+
+    def catch(values, seg, n_out):
+        seen.append((values, seg, n_out))
+        return real(values, seg, n_out)
+
+    pp.segment_sum_sorted = catch
+    try:
+        pp._voxel_moments(pts, msk, voxel)
+    finally:
+        pp.segment_sum_sorted = real
+    return seen[0]
+
+
+def k2_lio_inputs(scan, mask, anchor, prior, p2p_cfg):
+    """K2's inputs as `point_to_plane_align`'s "pallas" branch builds them
+    for one frame at its prior (the pair list of n_source_tiles * 8 slots
+    against the anchor's pages), and the frame's pair demand (the admitted
+    tile pairs, at most `max_visits` a source tile, before the list
+    truncates them to its slots, as the JAX package's list does)."""
+    from slam_sensor_fusion_tpu_torch.ops import point_to_plane as pp
+    from slam_sensor_fusion_tpu_torch.ops.geometry import transform_points
+    from slam_sensor_fusion_tpu_torch.ops.morton import tile_bboxes
+    from slam_sensor_fusion_tpu_torch.ops.nn_gated import pair_tiles
+    from slam_sensor_fusion_tpu_torch.ops.nn_pallas import make_pages
+
+    pairs, tgt_pages = pp._k2_lists(scan, mask, *anchor, prior, p2p_cfg)
+    pts0 = transform_points(prior, scan)
+    src_pages = make_pages(pts0, mask, prior[:3, 3], p2p_cfg.tile_src)
+    search_r2 = (math.sqrt(p2p_cfg.max_correspondence_dist_sq) + p2p_cfg.reassoc_margin) ** 2
+    lo_s, hi_s, cnt_s = tile_bboxes(pts0, mask, p2p_cfg.tile_src)
+    lo_t, hi_t, _ = tile_bboxes(*anchor, p2p_cfg.tile_tgt)
+    _, counts, _ = pair_tiles(lo_s, hi_s, cnt_s, lo_t, hi_t, search_r2, p2p_cfg.max_visits)
+    return (src_pages, tgt_pages, *pairs), int(counts.sum())
+
+
+def phase16(dev, tag, name, kernels, record, w6) -> dict:
+    """The LIO's default configuration on the card: LIOConfig()'s voxel
+    normals and its "pallas" registration (K2 on a pair list, every GN
+    iteration), the dense sweep ("xla") and the tiled normals, on phase 6's
+    world; LIOSession on LIOConfig()'s own registration and normals at
+    phase 6's scan capacity; run_lio_superblocks (K7) with voxel normals;
+    the 2-robot fleet on LIOConfig() itself. Returns the numbers for the
+    kernels' record."""
+    from slam_sensor_fusion_tpu_torch.models import lio
+    from slam_sensor_fusion_tpu_torch.models.lio import LIOConfig
+    from slam_sensor_fusion_tpu_torch.models.session import LIOSession
+    from slam_sensor_fusion_tpu_torch.ops import point_to_plane as pp
+    from slam_sensor_fusion_tpu_torch.ops.lio_superblock_fused import lio_superblock
+    from slam_sensor_fusion_tpu_torch.ops.nn import nearest_neighbor
+    from slam_sensor_fusion_tpu_torch.ops.nn_pallas import pair_nn, pair_nn_plain
+    from slam_sensor_fusion_tpu_torch.ops.voxel_segsum import segment_sum_sorted
+    from slam_sensor_fusion_tpu_torch.parallel import lio_fleet
+    from slam_sensor_fusion_tpu_torch.parallel.mesh import tree_index, tree_map
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        fail("phase 16: TF32 is on; the dense sweep must run in float32")
+    lcfg, sp, sm, poses, v0 = w6["lcfg"], w6["sp"], w6["sm"], w6["poses"], w6["v0"]
+    arrays, tau, gt = w6["arrays"], w6["tau"], w6["gt"]
+    st7 = w6["state7"]
+    pts7, msk7 = st7.anchor_points, st7.anchor_mask
+    # the configurations: phase 6's with voxel normals on each back end,
+    # and LIOConfig()'s own
+    p_cfg = lcfg._replace(normal_est="voxel", p2p=lcfg.p2p._replace(nn_backend="pallas"))
+    x_cfg = p_cfg._replace(p2p=p_cfg.p2p._replace(nn_backend="xla"))
+    t_cfg = p_cfg._replace(normal_est="tiled")
+    d_cfg = LIOConfig()
+    s_cfg = d_cfg._replace(scan_capacity=lcfg.scan_capacity)
+    b_cfg = lcfg._replace(normal_est="voxel")
+    print(f"phase 16 configurations: registration {p_cfg.p2p.nn_backend} / "
+          f"{x_cfg.p2p.nn_backend} at {p_cfg.p2p.tile_src} x {p_cfg.p2p.tile_tgt} tiles, "
+          f"{p_cfg.p2p.num_iterations} GN iterations, voxel normals at {p_cfg.normal_voxel} m; "
+          f"LIOConfig(): {d_cfg.p2p.nn_backend} at {d_cfg.p2p.tile_src} x {d_cfg.p2p.tile_tgt}, "
+          f"{d_cfg.p2p.num_iterations} iterations, {d_cfg.normal_est} normals at "
+          f"{d_cfg.normal_voxel} m, refresh every {d_cfg.refresh_every}, scans of "
+          f"{d_cfg.scan_capacity}; TF32 off [{tag}]", flush=True)
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def init(cfg):
+        st = lio.init_state(cfg, up(sp[0]), up(sm[0]), up(poses[0]))
+        return st._replace(ekf_state=st.ekf_state._replace(v=up(v0)))
+
+    def frames(n, device=dev):
+        return [a[:n].to(device) for a in arrays], tau[:n].to(device)
+
+    def hold_ate(what, est, n_corr, n):
+        if not (np.isfinite(est).all() and (n_corr > 0).all()):
+            fail(f"{what}: non-finite pose or a frame without correspondences")
+        ate = ate_rmse(est, gt[:n])
+        if not ate < LIO_ATE_LIMIT:
+            fail(f"{what}: ATE-RMSE {ate} >= {LIO_ATE_LIMIT}")
+        return ate
+
+    out = {"runs": {}}
+    # ---- (a) the voxel moments and normals at phase 7's anchor and moved
+    # by ~40 m and ~140 m: bit-equal to the CPU's and from run to run ----
+    normals = {}
+    for where, shift in P16_SHIFTS.items():
+        pts = pts7 + torch.tensor(shift, dtype=torch.float32, device=dev)
+        for voxel in (p_cfg.normal_voxel, d_cfg.normal_voxel):
+            normals[f"voxel {voxel} {where}"] = check_voxel_cells(pts, msk7, voxel, where, tag)
+        normals[f"tiled {where}"] = check_tiled(pts, msk7, t_cfg.normal_chunk, where, tag)
+    out["normals"] = normals
+
+    # ---- a refresh's parts on phase 7's ring: the segment sum (against its
+    # plain version and index_add_), the eigen-solve, the host syncs ----
+    N7 = pts7.shape[0]
+    vals, ids, n_ids = voxel_segsum_args(pts7, msk7, p_cfg.normal_voxel)
+    seg_case = check_segsum(vals, ids, n_ids)
+    sums, cnts, sq = pp._voxel_moments(pts7, msk7, p_cfg.normal_voxel)[3]
+    c = torch.clamp(cnts, min=1.0)
+    mean = sums / c[:, None]
+    cov = (sq / c[:, None, None] - mean[:, :, None] * mean[:, None, :]
+           + 1e-9 * torch.eye(3, device=dev)[None])
+    eigh_ms = time_ms(lambda: pp._eigh(cov), 5)
+    eigh_dev = device_ms(lambda: pp._eigh(cov), 5, ("",))
+    ring = (st7.ring, st7.ring_mask, st7.ekf_state.p)
+    refresh = {k: time_ms(lambda c=c_: lio._refresh_anchor(*ring, c), 3)
+               for k, c_ in (("voxel", p_cfg), ("tiled", t_cfg), ("cells", lcfg))}
+    syncs = {k: sync_count(lambda c=c_: lio._refresh_anchor(*ring, c))
+             for k, c_ in (("voxel", p_cfg), ("tiled", t_cfg), ("cells", lcfg))}
+    syncs["eigh"] = sync_count(lambda: pp._eigh(cov))
+    # the voxel refresh's parts, each counted on two calls in a row (a
+    # first-call sync reads on the first only)
+    anchor = lio.sort_by_morton(lio.cl.Cloud(st7.ring, st7.ring_mask), isotropic=False)
+    a_pts, a_msk, v = anchor.points, anchor.mask, p_cfg.normal_voxel
+    a_nrm, a_nvl = pp.estimate_normals(a_pts, a_msk, v)
+    asub = p_cfg.anchor_subsample
+    parts = {
+        "sort": lambda: lio.sort_by_morton(lio.cl.Cloud(st7.ring, st7.ring_mask), isotropic=False),
+        "moments": lambda: pp._voxel_moments(a_pts, a_msk, v),
+        "eigh": lambda: pp._eigh(cov),
+        "estimate_normals": lambda: pp.estimate_normals(a_pts, a_msk, v),
+        "pages": lambda: lio.build_cached_p2p_target(
+            a_pts[::asub], a_msk[::asub], a_nrm[::asub], a_nvl[::asub], ring[2],
+            p_cfg.p2p.tile_tgt, gate_sub=p_cfg.gate_sub_tgt),
+        "refresh": lambda: lio._refresh_anchor(*ring, p_cfg),
+    }
+    syncs["voxel parts"] = {k: [sync_count(f), sync_count(f)] for k, f in parts.items()}
+    print(f"voxel normals' refresh on phase 7's ring ({N7} rows): segment sum of "
+          f"{vals.shape[0]} rows x 4 into {4 * (N7 + 1)} ids {seg_case['ms']:.4f} ms by events, "
+          f"{seg_case['device_ms']} ms on the card alone, bound {seg_case['bound'][0]:.5f} ms "
+          f"({seg_case['bound'][1]}), plain {seg_case['plain_ms']:.2f} ms, index_add_ "
+          f"{seg_case['lib_ms']:.4f} ms ({seg_case['lib_device_ms']} on the card; "
+          f"{seg_case['lib_diff']} elements differ); eigh of {cov.shape[0]} 3 x 3 "
+          f"{eigh_ms:.3f} ms by events, {eigh_dev} ms of device time; the whole refresh "
+          f"{', '.join(f'{k} {v:.3f} ms' for k, v in refresh.items())}; host syncs a refresh "
+          f"{syncs} [{tag}]", flush=True)
+    out.update(segsum=seg_case, eigh_ms=eigh_ms, eigh_device_ms=eigh_dev, refresh_ms=refresh,
+               syncs=syncs)
+
+    # ---- (b) K2 against its plain version at the LIO's shapes: a steady
+    # frame (phase 6's frame 33 at its prior, against phase 7's anchor) ----
+    k2 = {}
+    for p2p_cfg in (p_cfg.p2p, s_cfg.p2p):
+        label = f"{p2p_cfg.tile_src}x{p2p_cfg.tile_tgt}"
+        k2_in, demand = k2_lio_inputs(w6["scan"], w6["mask"], (pts7, msk7), w6["prior"], p2p_cfg)
+        err = check_k2(k2_in, name)
+        TM, TN = k2_in[0].shape[-1], k2_in[1].shape[-1]
+        k2[label] = dict(
+            err=err, demand=demand, slots=int(k2_in[4].shape[0]),
+            pairs=int(k2_in[3].sum()),
+            ms=time_ms(lambda: pair_nn(*k2_in), 20),
+            device_ms=device_ms(lambda: pair_nn(*k2_in), 20, K2_KERNELS),
+            plain_ms=time_ms(lambda: pair_nn_plain(*k2_in), 2),
+            bound=bound(int(k2_in[3].sum()) * TM * TN * FLOP_PER_DISTANCE,
+                        nbytes(*k2_in) + nbytes(*pair_nn(*k2_in))))
+        c2 = k2[label]
+        print(f"K2 at the LIO's {label} tiles (src {tuple(k2_in[0].shape)}, tgt "
+              f"{tuple(k2_in[1].shape)}): {c2['ms']:.4f} ms a call by events, "
+              f"{c2['device_ms']} ms on the card alone, plain {c2['plain_ms']:.3f} ms, bound "
+              f"{c2['bound'][0]:.4f} ms ({c2['bound'][1]}); pair demand {demand}, in the list "
+              f"{c2['pairs']} of {c2['slots']} slots [{tag}]", flush=True)
+    out["k2"] = k2
+
+    # ---- the per-frame loop on K2 ("pallas") and on the dense sweep
+    # ("xla"), voxel normals, two passes each ----
+    for label, cfg in (("pallas", p_cfg), ("xla", x_cfg)):
+        n = P16_FRAMES - 1
+        st0 = init(cfg)
+        args, tau_n = frames(n)
+        zero_counts(*kernels)
+        rates = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, o = lio.run_lio_blocks(st0, *args, cfg, scan_tau=tau_n)
+            torch.cuda.synchronize()
+            rates.append(n / (time.perf_counter() - t1))
+        record(f"p16_blocks_{label}")
+        est, n_corr = o.world_T_body.cpu().numpy(), o.n_correspondences.cpu().numpy()
+        ate = hold_ate(f"run_lio_blocks, {label}, voxel normals", est, n_corr, n)
+        k2_n, seg_n = pair_nn.launches, segment_sum_sorted.launches
+        want_k2 = 2 * n * (cfg.p2p.num_iterations + 1) if label == "pallas" else 0
+        if k2_n != want_k2 or not seg_n:
+            fail(f"run_lio_blocks, {label}: K2 launched {k2_n} times (expected {want_k2}), the "
+                 f"segment sum {seg_n} times")
+        out["runs"][f"blocks_{label}"] = dict(ate=ate, scans_s=rates, k2=k2_n, segsum=seg_n)
+        print(f"run_lio_blocks, {label}, voxel normals: {n} frames twice, {rates[1]:.1f} scans/s "
+              f"(second pass; first {rates[0]:.1f}), ATE-RMSE {ate:.4f} m, n_corr mean "
+              f"{n_corr.mean():.0f}, launches K2 {k2_n}, segment sum {seg_n} [{tag}]", flush=True)
+
+        # (c) the first block on the card against the port on the CPU, from
+        # one state; the dense sweep at frame 0: the winners that part
+        nb = lcfg.refresh_every if label == "pallas" else 1
+        args_b, tau_b = frames(nb)
+        args_h, tau_h = frames(nb, cpu)
+        _, ok = lio.run_lio_blocks(st0, *args_b, cfg, scan_tau=tau_b)
+        st0_h = tree_map(lambda x: x.cpu(), st0)
+        _, oh = lio.run_lio_blocks(st0_h, *args_h, cfg, scan_tau=tau_h)
+        gap = (ok.world_T_body.cpu() - oh.world_T_body).abs().amax(dim=(1, 2))
+        nk, nh = ok.n_correspondences.cpu(), oh.n_correspondences
+        c_res = dict(frames=nb, gap=float(gap.max()), n_corr_card=nk.tolist(),
+                     n_corr_cpu=nh.tolist())
+        if label == "xla":
+            _, prior, scan = lio._prior_and_scan(st0, args_b[0][0], args_b[2][0], args_b[3][0],
+                                                 args_b[4][0], cfg, tau_b[0])
+            _, prior_h, scan_h = lio._prior_and_scan(st0_h, args_h[0][0], args_h[2][0],
+                                                     args_h[3][0], args_h[4][0], cfg, tau_h[0])
+            d2k, ik = nearest_neighbor(scan, args_b[1][0], st0.anchor_points, st0.anchor_mask,
+                                       prior[:3, 3])
+            d2h, ih = nearest_neighbor(scan_h, args_h[1][0], st0_h.anchor_points,
+                                       st0_h.anchor_mask, prior_h[:3, 3])
+            live = args_h[1][0]
+            moved = (ik.cpu() != ih) & live
+            c_res.update(winners_changed=int(moved.sum()), rows=int(live.sum()),
+                         d2_gap_changed=float((d2k.cpu() - d2h)[moved].abs().max())
+                         if bool(moved.any()) else 0.0,
+                         d2_gap=float((d2k.cpu() - d2h)[live].abs().max()))
+        out["runs"][f"blocks_{label}"]["card_cpu"] = c_res
+        print(f"run_lio_blocks, {label}: the first {nb} frame(s) on the card against the CPU "
+              f"from one state: max |pose| gap {c_res['gap']:.3e} m, n_corr card {nk.tolist()} "
+              f"CPU {nh.tolist()}"
+              + (f"; the dense sweep at frame 0's prior: {c_res['winners_changed']} of "
+                 f"{c_res['rows']} rows' winners changed (their d2 gap max "
+                 f"{c_res['d2_gap_changed']:.3e}), d2 gap max {c_res['d2_gap']:.3e}"
+                 if label == "xla" else "") + f" [{tag}]", flush=True)
+        if label == "pallas" and (not c_res["gap"] <= P16_CARD_CPU_TOL or int(nk[0]) != int(nh[0])):
+            fail(f"run_lio_blocks, pallas: the card's first block parts from the CPU's: {c_res}")
+
+        if label == "pallas":
+            # one block under the profiler: K2 a frame, device operations, idle
+            busy, wall, on_dev = profiled_pass(
+                lambda: lio.run_lio_blocks(st0, *args_b, cfg, scan_tau=tau_b))
+            k2_dev = sum(e.self_device_time_total for e in on_dev
+                         if any(k in e.key for k in K2_KERNELS)) / 1e3
+            n_ops = sum(e.count for e in on_dev)
+            prof = dict(busy_ms=busy, wall_ms=wall, idle=idle_share(busy, wall),
+                        k2_ms_a_frame=k2_dev / nb, ops_a_frame=n_ops / nb)
+            out["runs"]["blocks_pallas"]["profile"] = prof
+            print(f"run_lio_blocks, pallas, one block of {nb} frames under the profiler: device "
+                  f"busy {busy / nb:.3f} ms a frame of the block's own {wall / nb:.3f} ms (idle "
+                  f"{prof['idle']}), K2 {prof['k2_ms_a_frame']:.4f} ms a frame, "
+                  f"{prof['ops_a_frame']:.0f} device operations a frame [{tag}]", flush=True)
+
+    # ---- the tiled normals on K2 ----
+    n = P16_SHORT_FRAMES - 1
+    st0 = init(t_cfg)
+    args, tau_n = frames(n)
+    zero_counts(*kernels)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, o = lio.run_lio_blocks(st0, *args, t_cfg, scan_tau=tau_n)
+    torch.cuda.synchronize()
+    rate = n / (time.perf_counter() - t1)
+    record("p16_blocks_tiled")
+    ate = hold_ate("run_lio_blocks, pallas, tiled normals", o.world_T_body.cpu().numpy(),
+                   o.n_correspondences.cpu().numpy(), n)
+    if pair_nn.launches != n * (t_cfg.p2p.num_iterations + 1):
+        fail(f"run_lio_blocks, tiled normals: K2 launched {pair_nn.launches} times")
+    out["runs"]["blocks_tiled"] = dict(ate=ate, scans_s=[rate], k2=pair_nn.launches)
+    print(f"run_lio_blocks, pallas, tiled normals: {n} frames, {rate:.1f} scans/s (one pass), "
+          f"ATE-RMSE {ate:.4f} m, K2 launches {pair_nn.launches} [{tag}]", flush=True)
+
+    # ---- LIOSession on LIOConfig()'s registration and normals ----
+    n = P16_SHORT_FRAMES
+    zero_counts(*kernels)
+    sess = LIOSession(s_cfg, sp[0], sm[0], poses[0], device=dev)
+    sess.state = sess.state._replace(ekf_state=sess.state.ekf_state._replace(v=up(v0)))
+    lat, est, n_corr = [], [], []
+    for k in range(n):
+        t1 = time.perf_counter()
+        gy, ac, dt_k, gps, gvar = (a[k] for a in w6["imu_gps"])
+        r = sess.push(sp[k + 1], sm[k + 1], gy, ac, dt_k, gps, float(gvar), True,
+                      tau=w6["taus"][k + 1])
+        lat.append(time.perf_counter() - t1)
+        est.append(r.world_T_body)
+        n_corr.append(r.n_correspondences)
+    record("p16_session")
+    ate = hold_ate("LIOSession, LIOConfig()'s registration and normals", np.stack(est),
+                   np.asarray(n_corr), n)
+    want_k2 = n * (s_cfg.p2p.num_iterations + 1)
+    if pair_nn.launches != want_k2 or not segment_sum_sorted.launches:
+        fail(f"LIOSession: K2 launched {pair_nn.launches} times (expected {want_k2}), the "
+             f"segment sum {segment_sum_sorted.launches} times")
+    warm = min(8, n // 2)  # pushes before the timed ones
+    out["runs"]["session"] = dict(ate=ate, p50_ms=percentile_ms(lat[warm:], 50),
+                                  p99_ms=percentile_ms(lat[warm:], 99), k2=pair_nn.launches,
+                                  segsum=segment_sum_sorted.launches)
+    print(f"LIOSession, LIOConfig()'s registration and normals at scans of {s_cfg.scan_capacity}: "
+          f"{n} pushes, ATE-RMSE {ate:.4f} m, push p50 {out['runs']['session']['p50_ms']:.3f} ms "
+          f"p99 {out['runs']['session']['p99_ms']:.3f} ms over {n - warm}, launches K2 "
+          f"{pair_nn.launches}, segment sum {segment_sum_sorted.launches} [{tag}]", flush=True)
+
+    # ---- the block loop (K7) with voxel normals, two passes ----
+    n = P16_FRAMES - 1
+    st0 = init(b_cfg)
+    args, tau_n = frames(n)
+    n_blk = -(-n // b_cfg.refresh_every)
+    zero_counts(*kernels)
+    rates = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, o = lio.run_lio_superblocks(st0, *args, b_cfg, scan_tau=tau_n)
+        torch.cuda.synchronize()
+        rates.append(n / (time.perf_counter() - t1))
+    record("p16_superblocks")
+    ate = hold_ate("run_lio_superblocks, voxel normals", o.world_T_body.cpu().numpy(),
+                   o.n_correspondences.cpu().numpy(), n)
+    n_ovf = int(o.pair_overflow.sum())
+    if n_ovf or lio_superblock.launches != 2 * n_blk or not segment_sum_sorted.launches:
+        fail(f"run_lio_superblocks, voxel normals: pair overflow on {n_ovf} frames, K7 launched "
+             f"{lio_superblock.launches} times for {2 * n_blk} blocks, the segment sum "
+             f"{segment_sum_sorted.launches} times")
+    out["runs"]["superblocks"] = dict(ate=ate, scans_s=rates, k7=lio_superblock.launches,
+                                      segsum=segment_sum_sorted.launches, overflow=n_ovf)
+    print(f"run_lio_superblocks, voxel normals: {n} frames twice, {rates[1]:.1f} scans/s (second "
+          f"pass; first {rates[0]:.1f}), ATE-RMSE {ate:.4f} m, pair overflow 0, launches K7 "
+          f"{lio_superblock.launches}, segment sum {segment_sum_sorted.launches} [{tag}]",
+          flush=True)
+
+    # ---- the 2-robot fleet on LIOConfig() itself (the dense sweep, as the
+    # JAX package's vmapped fleet runs it; scans padded to its capacity;
+    # the second robot with GPS every other frame), each robot against its
+    # own run ----
+    n = P16_SHORT_FRAMES
+    S = d_cfg.scan_capacity
+    pad = S - lcfg.scan_capacity
+
+    def padded(a, fill):  # (n, scan, ...) -> (n, S, ...)
+        tail = torch.full((a.shape[0], pad, *a.shape[2:]), fill, dtype=a.dtype, device=a.device)
+        return torch.cat([a, tail], dim=1)
+
+    base = [a[:n] for a in arrays]
+    base[0], base[1] = padded(base[0], 0.0), padded(base[1], False)
+    robots = [base, base[:7] + [base[7] & (torch.arange(n, device=dev) % 2 == 0)]]
+    first_sp = np.zeros((S, 3), np.float32)
+    first_sp[: lcfg.scan_capacity] = sp[0]
+    first_sm = np.zeros(S, bool)
+    first_sm[: lcfg.scan_capacity] = sm[0]
+    states = lio_fleet.fleet_init(d_cfg, np.stack([first_sp] * 2), np.stack([first_sm] * 2),
+                                  np.stack([poses[0]] * 2), device=dev)
+    states = states._replace(ekf_state=states.ekf_state._replace(v=torch.stack([up(v0)] * 2)))
+    zero_counts(*kernels)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ffin, fout = lio_fleet.fleet_run_lio(states, *[torch.stack(xs) for xs in zip(*robots)], d_cfg)
+    torch.cuda.synchronize()
+    rate = 2 * n / (time.perf_counter() - t1)
+    record("p16_fleet")
+    f_seg = segment_sum_sorted.launches
+    f_ate = []
+    for b, rb in enumerate(robots):
+        sfin, sout = lio.run_lio_blocks(tree_index(states, b), *rb, lio_fleet._xla_config(d_cfg))
+        if not (torch.equal(fout.world_T_body[b], sout.world_T_body)
+                and torch.equal(ffin.ekf_state.P[b], sfin.ekf_state.P)):
+            fail(f"fleet_run_lio robot {b} differs from its own run by "
+                 f"{(fout.world_T_body[b] - sout.world_T_body).abs().max().item()}")
+        f_ate.append(hold_ate(f"fleet_run_lio robot {b}", fout.world_T_body[b].cpu().numpy(),
+                              fout.n_correspondences[b].cpu().numpy(), n))
+    if not f_seg:
+        fail("fleet_run_lio: the segment sum never launched")
+    out["runs"]["fleet"] = dict(ate=f_ate, scans_s=[rate], segsum=f_seg)
+    print(f"fleet_run_lio on LIOConfig(): 2 robots x {n} frames, each equal to its own run, "
+          f"{rate:.1f} scans/s, ATE-RMSE {', '.join(f'{a:.4f}' for a in f_ate)} m, GPS accepted "
+          f"{fout.gps_accepted.sum(dim=1).tolist()}, segment sum launches {f_seg} [{tag}]",
+          flush=True)
+    print(f"phase 16 the LIO's default configuration: {time.perf_counter() - t_phase:.1f} s "
+          f"[{tag}]", flush=True)
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # ---- 0. the device ----
@@ -3790,6 +4289,15 @@ def main() -> None:
                   (lstate0, [a[:R15] for a in larrays], ltau[:R15], lcfg),
                   (lstate_w.anchor_points, lstate_w.anchor_mask))
 
+    # ---- 16. the LIO's default configuration: voxel normals (moments in
+    # row order on the segment sum), registration on K2 and on the dense
+    # sweep, the tiled normals, LIOSession and the fleet on LIOConfig(),
+    # the block loop with voxel normals ----
+    r16 = phase16(dev, tag, name, kernels, record, dict(
+        lcfg=lcfg, sp=lsp, sm=lsm, poses=lposes, v0=lv0, arrays=larrays, tau=ltau, gt=lgt,
+        taus=ltp, imu_gps=(lgyro, laccel, ldts, lgps, gps_var), state7=lstate_w, scan=lscan,
+        mask=larrays[1][LIO_WARM_FRAMES], prior=lprior))
+
     for kernel in kernels:
         if not sum(launches[kernel].values()):
             fail(f"{kernel.__name__} never launched on a main path")
@@ -3837,8 +4345,13 @@ def main() -> None:
                 ("scratch_mib", w["scratch_mib"]), ("prologue_ms", w["prologue_ms"]),
                 ("grid", grids[f"K1 {label}"])]}),
         row(pair_nn, "K2 pair_nn", "slam_sensor_fusion_tpu_torch/csrc/nn_pallas.cu",
-            "slam_sensor_fusion_tpu/ops/nn_pallas.py:105", max(k2_err, x["k2_err"]), k2_ms,
-            k2_plain_ms, k2_bound, ms_16x4096=x["k2_ms"], plain_ms_16x4096=x["k2_plain_ms"],
+            "slam_sensor_fusion_tpu/ops/nn_pallas.py:105",
+            max([k2_err, x["k2_err"]] + [c["err"] for c in r16["k2"].values()]), k2_ms,
+            k2_plain_ms, k2_bound, ms_16x4096=x["k2_ms"],
+            **{f"{key}_lio_{label}": (c[key] if key != "bound_ms" else c["bound"][0])
+               for label, c in r16["k2"].items()
+               for key in ("ms", "device_ms", "plain_ms", "bound_ms", "demand", "slots")},
+            k2_ms_a_frame_lio=r16["runs"]["blocks_pallas"]["profile"]["k2_ms_a_frame"], plain_ms_16x4096=x["k2_plain_ms"],
             bound_ms_16x4096=x["k2_bound"][0], device_ms=k2_device_ms,
             device_ms_16x4096=x["k2_device_ms"], grid=grids["K2 scan"],
             scratch_bytes_kitti=p10["kitti_scratch"]["K2"],
@@ -3893,7 +4406,8 @@ def main() -> None:
         row(segment_sum_sorted, "voxel_segment_sum",
             "slam_sensor_fusion_tpu_torch/csrc/voxel_segsum.cu",
             "none: XLA scatter-add, slam_sensor_fusion_tpu/ops/voxel_map_sorted.py:178 and "
-            "ops/voxel_map.py:203", max([v["err"] for v in segsum.values()] + [r13["segsum"]["err"]]),
+            "ops/voxel_map.py:203",
+            max([v["err"] for v in segsum.values()] + [r13["segsum"]["err"], r16["segsum"]["err"]]),
             segsum["group"]["ms"], segsum["group"]["plain_ms"], segsum["group"]["bound"],
             library_ms=segsum["group"]["lib_ms"], device_ms=segsum["group"]["device_ms"],
             library_device_ms=segsum["group"]["lib_device_ms"],
@@ -3913,7 +4427,14 @@ def main() -> None:
             **{f"{key}_seq00_group": r13["segsum"][src] for key, src in [
                 ("ms", "ms"), ("device_ms", "device_ms"), ("plain_ms", "plain_ms"),
                 ("library_ms", "lib_ms"), ("library_device_ms", "lib_device_ms")]},
-            bound_ms_seq00_group=r13["segsum"]["bound"][0]),
+            bound_ms_seq00_group=r13["segsum"]["bound"][0],
+            **{f"{key}_voxel_normals": r16["segsum"][src] for key, src in [
+                ("ms", "ms"), ("device_ms", "device_ms"), ("plain_ms", "plain_ms"),
+                ("library_ms", "lib_ms"), ("library_device_ms", "lib_device_ms"),
+                ("library_diff_elements", "lib_diff")]},
+            bound_ms_voxel_normals=r16["segsum"]["bound"][0],
+            eigh_ms_voxel_normals=r16["eigh_ms"], eigh_device_ms_voxel_normals=r16["eigh_device_ms"],
+            refresh_ms=r16["refresh_ms"], host_syncs_a_refresh=r16["syncs"]),
         row(cumsum_rows, "cumsum_rows", "slam_sensor_fusion_tpu_torch/csrc/ordered_scan.cu",
             "none: XLA's reduce-window cumsum, slam_sensor_fusion_tpu/ops/point_to_plane.py:333",
             r14["err"], r14["times"]["anchor"]["ms"], r14["times"]["anchor"]["plain_ms"],

@@ -53,8 +53,11 @@ def nearest_neighbor(
         m = tgt_mask[j0 : j0 + chunk]
         t_norm = (t * t).sum(dim=-1)
         cross = torch.matmul(src, t.T)  # (M, chunk), float32 accumulation
-        d2 = s_norm[:, None] - 2.0 * cross + t_norm[None, :]
-        d2 = torch.where(m[None, :], d2, _BIG)
+        # d2 = (s_norm - 2 cross) + t_norm, masked targets at _BIG, each
+        # step in place in the product's buffer (the same roundings, one
+        # (M, chunk) buffer a tile)
+        d2 = torch.sub(s_norm[:, None], cross.mul_(2.0), out=cross)
+        d2.add_(t_norm[None, :]).masked_fill_(~m[None, :], _BIG)
         tile_min, tile_arg = d2.min(dim=1)  # first column on ties
         better = tile_min < best_d2
         best_d2 = torch.where(better, tile_min, best_d2)

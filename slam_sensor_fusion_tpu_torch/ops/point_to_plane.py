@@ -41,6 +41,7 @@ from slam_sensor_fusion_tpu_torch.ops.nn_pallas import (
     pair_nn,
 )
 from slam_sensor_fusion_tpu_torch.ops.ordered_scan import cumsum_rows
+from slam_sensor_fusion_tpu_torch.ops.voxel_segsum import segment_sum_sorted
 
 
 class PointToPlaneConfig(NamedTuple):
@@ -124,35 +125,13 @@ def estimate_normals(
     """
     N = points.shape[0]
     dev = points.device
-    origin = torch.where(mask[:, None], points, torch.inf).amin(dim=0)
-    origin = torch.where(torch.isfinite(origin), origin, 0.0)
-    cell = torch.floor((points - origin[None]) / voxel)
-    ijk = torch.clamp(cell, 0, grid_dim - 1).to(torch.int32)
-    lin = (ijk[:, 0] * grid_dim + ijk[:, 1]) * grid_dim + ijk[:, 2]
-    lin = torch.where(mask, lin, torch.iinfo(torch.int32).max)
-
-    lin_s, order = torch.sort(lin, stable=True)
-    pts_s = points[order]
-    valid_s = mask[order]
-
-    first = torch.cat([lin_s.new_ones(1, dtype=torch.bool), lin_s[1:] != lin_s[:-1]]) & valid_s
-    seg = torch.cumsum(first.to(torch.int64), dim=0) - 1
-    seg = torch.where(valid_s, seg, N)  # overflow bucket
-
-    # per-cell first and second moments
-    w = valid_s.float()
-    sums = torch.zeros((N + 1, 3), dtype=torch.float32, device=dev).index_add_(
-        0, seg, pts_s * w[:, None]
-    )
-    cnts = torch.zeros((N + 1,), dtype=torch.float32, device=dev).index_add_(0, seg, w)
-    outer = pts_s[:, :, None] * pts_s[:, None, :] * w[:, None, None]
-    sq = torch.zeros((N + 1, 3, 3), dtype=torch.float32, device=dev).index_add_(0, seg, outer)
+    order, seg, valid_s, (sums, cnts, sq) = _voxel_moments(points, mask, voxel, grid_dim)
     c = torch.clamp(cnts, min=1.0)
     mean = sums / c[:, None]
     cov = sq / c[:, None, None] - mean[:, :, None] * mean[:, None, :]
     # regularize for eigh stability
     cov = cov + 1e-9 * torch.eye(3, dtype=torch.float32, device=dev)[None]
-    _, vecs = torch.linalg.eigh(cov)  # ascending eigenvalues
+    _, vecs = _eigh(cov)  # ascending eigenvalues
     cell_normal = vecs[..., 0]  # smallest-eigenvalue direction
     cell_valid = cnts >= min_cell_points
 
@@ -162,6 +141,66 @@ def estimate_normals(
     nvalid = torch.empty((N,), dtype=torch.bool, device=dev)
     nvalid[order] = cell_valid[seg] & valid_s
     return normals, nvalid & mask
+
+
+def _voxel_moments(
+    points: torch.Tensor, mask: torch.Tensor, voxel: float, grid_dim: int = 1024
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, tuple]:
+    """`estimate_normals`' cells: the rows sorted by cell (`order`), each
+    sorted row's cell id (`seg`, int32, the invalid rows in the overflow
+    bucket N), the sorted mask, and the N + 1 cells' (sums (3,), count,
+    second moments (3, 3)), each cell 0.0 plus its rows in row order as the
+    JAX package's scatter-add adds them (`voxel_segsum.segment_sum_sorted`:
+    on the card one launch, the same bits as the CPU's)."""
+    N = points.shape[0]
+    dev = points.device
+    origin = torch.where(mask[:, None], points, torch.inf).amin(dim=0)
+    origin = torch.where(torch.isfinite(origin), origin, 0.0)
+    # the JAX LIO divides by its static `voxel`, which XLA rewrites as a
+    # product with the float32 reciprocal (a point on a cell's edge floors
+    # otherwise than under a true division): the same product on either
+    # device
+    inv = float(torch.tensor(1.0) / torch.tensor(voxel, dtype=torch.float32))
+    cell = torch.floor((points - origin[None]) * inv)
+    ijk = torch.clamp(cell, 0, grid_dim - 1).to(torch.int32)
+    lin = (ijk[:, 0] * grid_dim + ijk[:, 1]) * grid_dim + ijk[:, 2]
+    lin = torch.where(mask, lin, torch.iinfo(torch.int32).max)
+
+    lin_s, order = torch.sort(lin, stable=True)
+    pts_s = points[order]
+    valid_s = mask[order]
+
+    first = torch.cat([lin_s.new_ones(1, dtype=torch.bool), lin_s[1:] != lin_s[:-1]]) & valid_s
+    seg = torch.cumsum(first.to(torch.int32), dim=0, dtype=torch.int32) - 1
+    seg = torch.where(valid_s, seg, N)  # overflow bucket
+
+    # each sorted row's 13 moment columns (x, y, z, weight, the 9 products;
+    # weight 0 in the overflow bucket), padded to 16, go in as 4 groups of
+    # 4, group g's rows under the ids g (N + 1) + seg: nondecreasing ids
+    w = valid_s.float()
+    outer = pts_s[:, :, None] * pts_s[:, None, :] * w[:, None, None]
+    cols = torch.cat([pts_s * w[:, None], w[:, None], outer.reshape(N, 9),
+                      pts_s.new_zeros((N, 3))], dim=1)
+    values = cols.reshape(N, 4, 4).transpose(0, 1).reshape(4 * N, 4)
+    offsets = torch.arange(4, dtype=torch.int32, device=dev)[:, None] * (N + 1)
+    mom = segment_sum_sorted(values, (seg[None, :] + offsets).reshape(4 * N), 4 * (N + 1))
+    mom = mom.reshape(4, N + 1, 4).transpose(0, 1).reshape(N + 1, 16)
+    return order, seg, valid_s, (mom[:, :3], mom[:, 3], mom[:, 4:13].reshape(N + 1, 3, 3))
+
+
+#: matrices an eigen-solve call takes: cuSOLVER's batched solver
+#: (cusolverDnXsyevBatched, under torch 2.11 and CUDA 12.8 on an H100)
+#: refuses a batch of 32 767 or more 3 x 3 matrices and takes 16 385; the
+#: voxel estimator has N + 1 cells, 65 537 at the LIO's ring
+_EIGH_BATCH = 1 << 14
+
+
+def _eigh(cov: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """`torch.linalg.eigh` of (B, 3, 3) symmetric matrices, _EIGH_BATCH at a
+    time: each matrix is solved on its own, so the split moves no bit (on
+    the card one cuSOLVER call a part)."""
+    parts = [torch.linalg.eigh(c) for c in cov.split(_EIGH_BATCH)]
+    return torch.cat([w for w, _ in parts]), torch.cat([v for _, v in parts])
 
 
 def estimate_normals_tiled(
@@ -187,7 +226,7 @@ def estimate_normals_tiled(
     X = (P - mean[:, None, :]) * w[..., None]
     cov = torch.einsum("cki,ckj->cij", X, X) / denom[..., None]
     cov = cov + 1e-9 * torch.eye(3, dtype=torch.float32, device=dev)[None]
-    vals, vecs = torch.linalg.eigh(cov)  # ascending
+    vals, vecs = _eigh(cov)  # ascending
     chunk_normal = vecs[..., 0]  # (C, 3)
     planar = vals[..., 0] < max_planarity * torch.clamp(vals[..., 1], min=1e-12)
     chunk_valid = (cnt >= min_chunk_points) & planar
@@ -370,6 +409,27 @@ def _cell_segments(points: torch.Tensor, mask: torch.Tensor, cell_size: float) -
     return seg_hi - seg_lo
 
 
+def _k2_lists(
+    source: torch.Tensor,
+    source_mask: torch.Tensor,
+    target: torch.Tensor,
+    target_mask: torch.Tensor,
+    initial_T: torch.Tensor,
+    config: PointToPlaneConfig,
+) -> tuple[tuple, torch.Tensor]:
+    """`point_to_plane_align`'s K2 inputs, built once at the prior: the
+    tile-major pair list (start, cnt, tgt) of n_source_tiles * 8 slots and
+    the target pages rebased on the prior's translation."""
+    M, TM, TN = source.shape[0], config.tile_src, config.tile_tgt
+    search_r2 = (math.sqrt(config.max_correspondence_dist_sq) + config.reassoc_margin) ** 2
+    pts0 = geometry.transform_points(initial_T, source)
+    lo_s, hi_s, cnt_s = tile_bboxes(pts0, source_mask, TM)
+    lo_t, hi_t, _ = tile_bboxes(target, target_mask, TN)
+    visits, counts, _ = pair_tiles(lo_s, hi_s, cnt_s, lo_t, hi_t, search_r2, config.max_visits)
+    pairs = _build_tile_pair_list(visits, counts, M // TM * 8)
+    return pairs, make_pages(target, target_mask, initial_T[:3, 3], TN)
+
+
 def point_to_plane_align(
     source: torch.Tensor,
     source_mask: torch.Tensor,
@@ -391,16 +451,7 @@ def point_to_plane_align(
     gate = config.max_correspondence_dist_sq
 
     if config.nn_backend == "pallas" and M % TM == 0 and N % TN == 0:
-        nSt = M // TM
-        search_r2 = (math.sqrt(gate) + config.reassoc_margin) ** 2
-        pts0 = geometry.transform_points(initial_T, source)
-        lo_s, hi_s, cnt_s = tile_bboxes(pts0, source_mask, TM)
-        lo_t, hi_t, _ = tile_bboxes(target, target_mask, TN)
-        visits, counts, _ = pair_tiles(
-            lo_s, hi_s, cnt_s, lo_t, hi_t, search_r2, config.max_visits
-        )
-        pairs = _build_tile_pair_list(visits, counts, nSt * 8)
-        tgt_pages = make_pages(target, target_mask, center, TN)
+        pairs, tgt_pages = _k2_lists(source, source_mask, target, target_mask, initial_T, config)
 
         def associate(pts):
             pages = make_pages(pts, source_mask, center, TM)

@@ -32,10 +32,16 @@ def segment_sum_sorted_plain(values: torch.Tensor, seg: torch.Tensor, n_out: int
     A loop over the position in a run, vectorised across segments: step j
     adds row j of every segment longer than j. Segments are taken longest
     first, so the live ones are a prefix and the work is one addition a
-    row."""
+    row. Rows of +0.0 or -0.0 in every column are left out first, as the
+    kernel skips them: a sum starts at +0.0 and never becomes -0.0 under
+    round-to-nearest (+0 + -0 = +0, x + -x = +0), and s + (+-0.0) = s for
+    every other s, NaN included, so no bit moves; a masked run (zero
+    payload) then costs no steps."""
     C = values.shape[1]
     dev = values.device
     out = torch.zeros((n_out, C), dtype=torch.float32, device=dev)
+    keep = (values != 0).any(dim=1)
+    values, seg = values[keep], seg[keep]
     if n_out == 0 or values.shape[0] == 0:
         return out
     ids = torch.arange(n_out + 1, dtype=seg.dtype, device=dev)

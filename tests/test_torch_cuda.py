@@ -30,7 +30,9 @@ other and their CPU runs bit for bit. K1 takes a filter queue of any size
 Map-sharded ICP at 4 shards on the card has the CPU run's counts and T to
 1e-4. The LIO cell normals' prefix sum in XLA's order (cumsum_rows) equals
 its plain version bit for bit, and the cell normals on the card the CPU's
-to 1e-5 with equal valid masks."""
+to 1e-5 with equal valid masks. The voxel normals' moments (the segment
+sum over each cell's rows) equal the CPU's bit for bit and from run to
+run; K2 at the LIO's 512 / 1024-row tiles equals its plain version."""
 
 import dataclasses
 
@@ -54,6 +56,7 @@ from torch_lio_world import (
     K7_WIDE,
     ODD_LIO,
     XLA_MATH_CASES,
+    ground_and_walls,
     k7_case,
     k7_digest,
     p2p_core_inputs,
@@ -796,6 +799,60 @@ def test_estimate_normals_cells_on_the_card_matches_the_cpu(cuda_device):
     n_h, v_h = tpp.estimate_normals_cells(p, m, 1.2, max_planarity=0.25)
     assert torch.equal(v_c.cpu(), v_h) and int(v_h.sum()) > 1000
     assert float((1.0 - (n_c.cpu() * n_h).sum(-1).abs())[v_h].max()) <= 3e-5
+
+
+@pytest.mark.parametrize("shift", [(0.0, 0.0, 0.0), (40.0, 30.0, 0.0), (140.0, -60.0, 2.0)],
+                         ids=["origin", "shifted", "far"])
+def test_voxel_normals_on_the_card_match_the_cpu(cuda_device, shift):
+    """The voxel normals' per-cell moments (`estimate_normals`, LIOConfig()'s
+    estimator) take one segment-sum launch a call: the same bits on two
+    runs and as the CPU's, the sort and cell ids equal; the normals' valid
+    masks equal and every valid normal within 1e-5 (1 - |n . n'|, the
+    eigen-solvers cuSOLVER and LAPACK)."""
+    from slam_sensor_fusion_tpu_torch.ops import point_to_plane as tpp
+    from slam_sensor_fusion_tpu_torch.ops import voxel_segsum as vs
+
+    p, m = (torch.from_numpy(a) for a in ground_and_walls(16, shift))
+    pc, mc = p.to(cuda_device), m.to(cuda_device)
+    before = vs.segment_sum_sorted.launches
+    card = [tpp._voxel_moments(pc, mc, 0.75) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert vs.segment_sum_sorted.launches == before + 2
+    host = tpp._voxel_moments(p, m, 0.75)
+    for k in range(3):  # order, cell ids, sorted mask
+        assert torch.equal(card[0][k].cpu(), host[k]) and torch.equal(card[1][k], card[0][k])
+    for a, b, h in zip(card[0][3], card[1][3], host[3]):
+        assert _same_bits(a, b) and _same_bits(a.cpu(), h)
+    n_c, v_c = tpp.estimate_normals(pc, mc, 0.75)
+    n_h, v_h = tpp.estimate_normals(p, m, 0.75)
+    assert torch.equal(v_c.cpu(), v_h) and int(v_h.sum()) > 10000
+    gap = (1.0 - (n_c.cpu() * n_h).sum(-1).abs())[v_h]
+    assert float(gap.max()) < 1e-5
+
+
+def test_pair_nn_at_the_lio_tiles_matches_plain(cuda_device):
+    """K2 as `point_to_plane_align`'s "pallas" branch calls it at bench_lio's
+    tiles (source tiles of 512, target tiles of 1024; the pair list of 8
+    slots a source tile, built at the prior): d2 to 1e-5 relative, idx and
+    xyz EQUAL."""
+    from slam_sensor_fusion_tpu_torch.ops import point_to_plane as tpp
+    from slam_sensor_fusion_tpu_torch.ops.geometry import transform_points
+
+    src, sm, tgt, tm, _, _, T0 = (torch.from_numpy(a).to(cuda_device)
+                                  for a in p2p_scene(7, n_tgt=12000, M=8192, N=16384))
+    cfg = PointToPlaneConfig(tile_src=512, tile_tgt=1024, max_visits=64)
+    pairs, tgt_pages = tpp._k2_lists(src, sm, tgt, tm, T0, cfg)
+    args = (tnn.make_pages(transform_points(T0, src), sm, T0[:3, 3], 512), tgt_pages, *pairs)
+    assert args[0].shape == (16, 3, 512) and tgt_pages.shape == (16, 3, 1024)
+    assert int(pairs[1].sum()) > 16
+    before = pair_nn.launches
+    d2k, idxk, xyzk = pair_nn(*args)
+    d2p, idxp, xyzp = pair_nn_plain(*args)
+    torch.cuda.synchronize()
+    assert pair_nn.launches == before + 1
+    torch.testing.assert_close(d2k, d2p, rtol=1e-5, atol=1e-6)
+    assert torch.equal(idxk, idxp)
+    assert torch.equal(xyzk, xyzp)
 
 
 def xla_math_inputs(fn: str, n: int, seed: int = 0) -> list[np.ndarray]:

@@ -4,12 +4,8 @@
 path at the JAX dry run's tiny sizes, each held against its single-device
 run inside the port."""
 
-import pytest
-
+import torch_parity  # noqa: F401 (torch on one thread)
 from slam_sensor_fusion_tpu_torch.parallel.dryrun import dryrun_multichip
-from torch_parity import one_torch_thread  # noqa: F401 (the module's fixture)
-
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def test_dryrun_multichip_on_four_shards():

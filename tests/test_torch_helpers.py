@@ -31,9 +31,8 @@ from slam_sensor_fusion_tpu_torch.ops import cloud as tcl
 from slam_sensor_fusion_tpu_torch.ops import geometry as tgeo
 from slam_sensor_fusion_tpu_torch.ops import nn_pallas as tnn
 from slam_sensor_fusion_tpu_torch.ops.nn_gated import build_visit_lists
-from torch_parity import jax_config, one_torch_thread, t  # noqa: F401
+from torch_parity import jax_config, t
 
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _voxel_pair(pts, mask, voxel, out_capacity, origin=None):

@@ -36,10 +36,8 @@ from slam_sensor_fusion_tpu_torch.ops import morton
 from slam_sensor_fusion_tpu_torch.ops.superblock_fused import superblock_fine
 from slam_sensor_fusion_tpu_torch.utils.config import ICPConfig
 from torch_parity import jax_config, np_tree, t
-from torch_parity import one_torch_thread  # noqa: F401 (the module's fixture)
 from torch_world import SLICE_CONFIG, build_world, compare_superblock, k3_scene, superblock_args
 
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 #: (source capacity, target capacity, ICPConfig fields) of each dispatch case
 CASES = {

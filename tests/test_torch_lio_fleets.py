@@ -20,9 +20,7 @@ from slam_sensor_fusion_tpu_torch.parallel import lio_fleet as tlf
 from slam_sensor_fusion_tpu_torch.parallel.mesh import make_mesh, tree_index
 from torch_lio_world import SMALL_LIO, lio_sequence
 from torch_parity import t
-from torch_parity import one_torch_thread  # noqa: F401 (the module's fixture)
 
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _tile(x, B):

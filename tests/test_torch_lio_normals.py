@@ -5,7 +5,10 @@ package on the same NumPy clouds.
 Valid masks are EQUAL (cell counts are sums of 0/1, exact in float32).
 Normals are compared up to sign, the estimators' own freedom (`eigh`, and
 the largest of three row cross products): |n . n'| > 1 - tol.
- * voxel and tiled (per-cell sums + `eigh`): tol 1e-4 on planar cells;
+ * voxel and tiled (per-cell sums + `eigh`): tol 1e-4 on planar cells; the
+   voxel estimator's moments are bit-equal to the JAX package's scatter-add
+   (each cell's rows in row order, ops/voxel_segsum), near the origin and
+   40 m and 140 m off it;
  * cells (moments as differences of a float32 cumulative sum over the whole
    cloud at world coordinates): the prefix sums reach ~1e6 while a cell's
    variance is ~1e-2, so the scan's order of addition decides the normals
@@ -22,17 +25,23 @@ the largest of three row cross products): |n . n'| > 1 - tol.
    the same formula in float64, the port is no further than the JAX
    package is."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from slam_sensor_fusion_tpu.ops import point_to_plane as jp
 from slam_sensor_fusion_tpu.ops.cloud import Cloud as JCloud
 from slam_sensor_fusion_tpu.ops.morton import sort_by_morton as jsort
 from slam_sensor_fusion_tpu_torch.ops import point_to_plane as tp
 from slam_sensor_fusion_tpu_torch.utils import synthetic as syn
-from torch_parity import t
+from slam_sensor_fusion_tpu_torch.ops.geometry import transform_points
+from slam_sensor_fusion_tpu_torch.ops.nn_pallas import make_pages, pair_nn_plain
+from torch_lio_world import ground_and_walls, p2p_scene
+from torch_parity import DEFAULT_THREADS, t
 
 
 def _ring(seed, radius=25.0, shift=(0.0, 0.0, 0.0), cap=8192, n=7000):
@@ -51,14 +60,69 @@ def _ring(seed, radius=25.0, shift=(0.0, 0.0, 0.0), cap=8192, n=7000):
     return np.asarray(s.points), np.asarray(s.mask)
 
 
+@functools.partial(jax.jit, static_argnums=2)
+def _jax_voxel_moments(points, mask, voxel):
+    """The per-cell moments of the JAX package's `estimate_normals`
+    (slam_sensor_fusion_tpu/ops/point_to_plane.py:124-157), jitted as the
+    LIO runs it, `voxel` static (a field of its static config): XLA turns
+    the division by it into a product with its float32 reciprocal. Its
+    scatter-adds over the sorted cell ids."""
+    N, grid_dim = points.shape[0], 1024
+    origin = jnp.min(jnp.where(mask[:, None], points, jnp.inf), axis=0)
+    origin = jnp.where(jnp.isfinite(origin), origin, 0.0)
+    ijk = jnp.clip(jnp.floor((points - origin[None]) / voxel).astype(jnp.int32), 0, grid_dim - 1)
+    lin = jnp.where(mask, (ijk[:, 0] * grid_dim + ijk[:, 1]) * grid_dim + ijk[:, 2],
+                    jnp.iinfo(jnp.int32).max)
+    order = jnp.argsort(lin)
+    lin_s, pts_s, valid_s = lin[order], points[order], mask[order]
+    first = jnp.concatenate([jnp.array([True]), lin_s[1:] != lin_s[:-1]]) & valid_s
+    seg = jnp.where(valid_s, jnp.cumsum(first.astype(jnp.int32)) - 1, N)
+    w = valid_s.astype(jnp.float32)
+    outer = pts_s[:, :, None] * pts_s[:, None, :] * w[:, None, None]
+    return (jnp.zeros((N + 1, 3), jnp.float32).at[seg].add(pts_s * w[:, None], mode="drop"),
+            jnp.zeros((N + 1,), jnp.float32).at[seg].add(w, mode="drop"),
+            jnp.zeros((N + 1, 3, 3), jnp.float32).at[seg].add(outer, mode="drop"))
+
+
 def _unsigned_gap(n_t, n_j, valid):
     return 1.0 - np.abs((n_t * n_j).sum(-1))[valid]
 
 
-@pytest.mark.parametrize("voxel", [0.75, 1.5])
-def test_estimate_normals_voxel_matches_jax(voxel):
-    pts, mask = _ring(0, radius=12.0, shift=(3.0, -2.0, 0.0))
-    n_j, v_j = jp.estimate_normals(jnp.asarray(pts), jnp.asarray(mask), voxel)
+#: the JAX package's voxel normals jitted as the LIO runs them
+_jax_estimate_normals = jax.jit(jp.estimate_normals, static_argnums=2)
+
+
+@pytest.mark.parametrize("voxel, shift, cloud", [
+    pytest.param(0.75, (3.0, -2.0, 0.0), "ring", id="0.75"),
+    pytest.param(1.5, (3.0, -2.0, 0.0), "ring", id="1.5"),
+    pytest.param(0.75, (40.0, 30.0, 0.0), "ring", id="0.75-shifted"),
+    pytest.param(1.8, (40.0, 30.0, 0.0), "ring", id="1.8-shifted"),
+    pytest.param(0.75, (140.0, -60.0, 2.0), "ring", id="0.75-far"),
+    pytest.param(1.8, (140.0, -60.0, 2.0), "ring", id="1.8-far"),
+    pytest.param(0.75, (0.0, 0.0, 0.0), "edge", id="0.75-edge"),
+    pytest.param(0.75, (40.0, 30.0, 0.0), "edge", id="0.75-edge-shifted"),
+    pytest.param(1.8, (140.0, -60.0, 2.0), "walls", id="1.8-walls-far"),
+])
+def test_estimate_normals_voxel_matches_jax(voxel, shift, cloud):
+    """Near the origin, and 40 m and 140 m off it (the LIO's ring is at
+    world coordinates): the cell ids (the product with the edge's float32
+    reciprocal, as XLA compiles the JAX LIO's division by its static
+    `voxel`) and the per-cell moments, each cell's rows added in row order
+    (`voxel_segsum.segment_sum_sorted`), are bit-equal to the JAX
+    package's scatter-add. The "edge" clouds hold a point on a cell's
+    edge, which a true division puts in another cell."""
+    if cloud == "ring":
+        pts, mask = _ring(0, radius=12.0, shift=shift)
+    else:
+        pts, mask = ground_and_walls(16, shift)
+        d = pts - np.where(mask[:, None], pts, np.inf).min(0)
+        moved = np.floor(d / np.float32(voxel)) != np.floor(d * (np.float32(1) / np.float32(voxel)))
+        assert moved.any() == (cloud == "edge")
+    *_, mom_t = tp._voxel_moments(t(pts), t(mask), voxel)
+    mom_j = _jax_voxel_moments(jnp.asarray(pts), jnp.asarray(mask), voxel)
+    for got, want in zip(mom_t, mom_j):
+        np.testing.assert_array_equal(got.numpy().view(np.int32), np.asarray(want).view(np.int32))
+    n_j, v_j = _jax_estimate_normals(jnp.asarray(pts), jnp.asarray(mask), voxel)
     n_t, v_t = tp.estimate_normals(t(pts), t(mask), voxel)
     np.testing.assert_array_equal(v_t.numpy(), np.asarray(v_j))
     gap = _unsigned_gap(n_t.numpy(), np.asarray(n_j), np.asarray(v_j))
@@ -146,3 +210,45 @@ def test_pose_covariance_from_jtj_matches_jax():
           "rel diag diff", np.abs(np.diag(got) / np.diag(want) - 1).max())
     np.testing.assert_allclose(np.diag(got), np.diag(want), rtol=1e-4)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
+
+
+def test_eigh_in_parts_equals_one_call():
+    """The estimators' eigen-solve in parts of `_EIGH_BATCH` matrices (the
+    card's batched solver refuses larger batches) gives the bits of one
+    call over the whole batch, in order."""
+    rng = np.random.default_rng(6)
+    A = rng.normal(0, 1, (2 * tp._EIGH_BATCH + 3, 3, 3)).astype(np.float32)
+    cov = t(A @ A.transpose(0, 2, 1))
+    w, v = tp._eigh(cov)
+    w1, v1 = torch.linalg.eigh(cov)
+    assert torch.equal(w, w1) and torch.equal(v, v1)
+
+
+def _voxel_normals_case():
+    pts, mask = (t(a) for a in ground_and_walls(16, (40.0, 30.0, 0.0)))
+    return (*tp._voxel_moments(pts, mask, 0.75)[3], *tp.estimate_normals(pts, mask, 0.75))
+
+
+def _k2_case():
+    src, sm, tgt, tm, _, _, T0 = (t(a) for a in p2p_scene(7, n_tgt=6000, M=2048, N=8192))
+    cfg = tp.PointToPlaneConfig(tile_src=512, tile_tgt=1024, max_visits=64)
+    pairs, tgt_pages = tp._k2_lists(src, sm, tgt, tm, T0, cfg)
+    src_pages = make_pages(transform_points(T0, src), sm, T0[:3, 3], 512)
+    return pair_nn_plain(src_pages, tgt_pages, *pairs)
+
+
+@pytest.mark.parametrize("case", [_voxel_normals_case, _k2_case], ids=["voxel-normals", "k2"])
+def test_plain_versions_bits_equal_at_default_threads(case):
+    """The port's CPU tests run torch on one thread (tests/torch_parity.py):
+    the voxel normals (moments, normals, valid flags) and K2's plain
+    version at the LIO's 512 x 1024 tiles give the same bits at torch's
+    default thread count."""
+    one = case()
+    torch.set_num_threads(DEFAULT_THREADS)
+    try:
+        many = case()
+    finally:
+        torch.set_num_threads(1)
+    for a, b in zip(one, many):
+        assert torch.equal(a, b) and (not a.is_floating_point() or torch.equal(
+            a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)))

@@ -219,6 +219,53 @@ def test_run_lio_blocks_tail_and_inputs_untouched(runs):
     torch.testing.assert_close(out.world_T_body, runs["out_t"].world_T_body[:6], rtol=0, atol=0)
 
 
+#: tests/test_lio.py's configuration: LIOConfig()'s voxel normals at its
+#: 0.75 m cells and the dense sweep ("xla"), 4 GN iterations (the 1 m
+#: `normal_voxel` of the registration config is a field the LIO does not
+#: read)
+TEST_LIO = tl.LIOConfig(
+    scan_capacity=4096, window=8, slot_points=2048, refresh_every=4,
+    p2p=tl.PointToPlaneConfig(nn_backend="xla", num_iterations=4, normal_voxel=1.0),
+)
+
+
+@pytest.fixture(scope="module")
+def voxel_runs():
+    """5 frames (a block of 4, then a refresh) through both packages'
+    `run_lio_blocks` at TEST_LIO, from one initial state."""
+    poses, v0, (s0, m0), frames = lio_sequence(6, TEST_LIO.scan_capacity)
+    cfg_j = jax_lio_config(TEST_LIO)
+    st_j = jl.init_state(cfg_j, jnp.asarray(s0), jnp.asarray(m0), jnp.asarray(poses[0]))
+    st_j = st_j._replace(ekf_state=st_j.ekf_state._replace(v=jnp.asarray(v0)))
+    st_t = tl.init_state(TEST_LIO, t(s0), t(m0), t(poses[0]))
+    st_t = st_t._replace(ekf_state=st_t.ekf_state._replace(v=t(v0)))
+    *core, tau = frames
+    fin_j, out_j = jl.run_lio_blocks(st_j, *[jnp.asarray(a) for a in core], cfg_j,
+                                     scan_tau=jnp.asarray(tau))
+    fin_t, out_t = tl.run_lio_blocks(st_t, *[t(a) for a in core], TEST_LIO, scan_tau=t(tau))
+    return dict(poses=poses, st_j=np_tree(st_j), st_t=st_t, fin_j=np_tree(fin_j),
+                out_j=np_tree(out_j), fin_t=fin_t, out_t=out_t)
+
+
+def test_run_lio_blocks_voxel_normals_matches_jax(voxel_runs):
+    """The voxel normals (moments in row order) and the dense sweep under
+    tests/test_lio.py's configuration: the anchors' valid masks EQUAL at
+    init and after the refresh, n_correspondences EQUAL on every frame,
+    poses within 1e-4 m."""
+    r = voxel_runs
+    for st_t, st_j in [(r["st_t"], r["st_j"]), (r["fin_t"], r["fin_j"])]:
+        np.testing.assert_array_equal(st_t.anchor_mask.numpy(), st_j.anchor_mask)
+        np.testing.assert_array_equal(st_t.anchor_normals_valid.numpy(), st_j.anchor_normals_valid)
+    assert r["st_t"].anchor_normals_valid.sum() > 400 and r["fin_t"].anchor_normals_valid.sum() > 2000
+    out_t, out_j = r["out_t"], r["out_j"]
+    d = np.abs(out_t.world_T_body.numpy() - out_j.world_T_body).max(axis=(1, 2))
+    print("voxel / xla pose diff per frame", d)
+    assert d.max() < 1e-4, d
+    np.testing.assert_array_equal(out_t.n_correspondences.numpy(), out_j.n_correspondences)
+    assert (out_t.n_correspondences.numpy() > 900).all()
+    np.testing.assert_array_equal(out_t.refreshed.numpy(), out_j.refreshed)
+
+
 def test_lio_config_from_fields_roundtrip():
     cfg_j = jax_lio_config(SMALL_LIO)
     got = lio_config_from_fields(cfg_j._asdict())

@@ -33,9 +33,8 @@ from slam_sensor_fusion_tpu_torch.ops.point_to_plane import PointToPlaneConfig
 from test_torch_lio_k4 import CENTER, _assert_result, _cached
 from test_torch_lio_superblock import _k7_inputs, jax_lio_config
 from torch_lio_world import SMALL_LIO, lio_sequence, p2p_scene
-from torch_parity import np_tree, one_torch_thread, t  # noqa: F401 (the module's fixture)
+from torch_parity import np_tree, t
 
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TM = 2048
 #: the LIO loop at 2 source tiles of 2048 (scan 4096, every point

@@ -52,10 +52,8 @@ from slam_sensor_fusion_tpu_torch.utils import synthetic as syn
 from slam_sensor_fusion_tpu_torch.utils.config import BruteForceConfig, ICPConfig
 from slam_sensor_fusion_tpu_torch.utils.config import StochasticFilterConfig
 from torch_parity import jax_config, np_tree, t
-from torch_parity import one_torch_thread  # noqa: F401 (the module's fixture)
 from torch_world import SLICE_CONFIG, build_world
 
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _mesh(n, axis="dp"):

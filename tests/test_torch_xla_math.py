@@ -21,10 +21,8 @@ import torch
 from slam_sensor_fusion_tpu.ops import geometry as jg
 from slam_sensor_fusion_tpu_torch.ops import nn_pallas as tnn
 from slam_sensor_fusion_tpu_torch.ops import xla_math as xm
-from torch_parity import one_torch_thread  # noqa: F401 (the module's fixture)
 from torch_world import K2_CASES, k2_case
 
-pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N = 1 << 18
 SPECIAL = np.array([0.0, -0.0, 1e-45, -1e-45, 1e-39, -3e-39, 1.17e-38, np.inf, -np.inf, np.nan,

@@ -39,6 +39,21 @@ SMALL_LIO = LIOConfig(
 )
 
 
+def ground_and_walls(seed: int, shift=(0.0, 0.0, 0.0), n: int = 65536):
+    """A masked LIO-ring-sized cloud of ground and walls every 10 m, moved
+    by `shift`: (points (n, 3) float32, mask (n,)). At 0.75 m cells, near
+    the origin and moved by (40, 30, 0) m, a point lies on a cell's edge:
+    its cell id floors otherwise under a true division by the edge than
+    under the product with its float32 reciprocal."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(0, 1, (n, 3)) * [60.0, 60.0, 0.3] - [30.0, 30.0, 0.0]
+    walls = rng.uniform(size=n) < 0.4
+    pts[walls, 2] = rng.uniform(0, 4, walls.sum())
+    pts[walls, 1] = np.round(pts[walls, 1] / 10.0) * 10.0 + rng.normal(0, 0.02, walls.sum())
+    pts = (pts + np.asarray(shift)).astype(np.float32)
+    return pts, rng.uniform(size=n) < 0.9
+
+
 def lio_sequence(n_frames: int, cap: int, seed: int = 0, extent: float = 50.0,
                  imu_rate: int = 10):
     """bench.py bench_lio's data at test size: skewed scans (Morton

@@ -14,11 +14,21 @@ import dataclasses
 
 import jax
 import numpy as np
-import pytest
 import torch
 
 from slam_sensor_fusion_tpu.utils import config as jc
 from slam_sensor_fusion_tpu_torch.utils.convert import config_from_fields
+
+# torch on one thread in every test process that imports this module: the
+# port's plain kernels issue many small operations, and under the suite's
+# parallel workers (pytest -n 6 on a host of 8 cores) each worker's full
+# intra-op pool oversubscribes the cores. K2's plain version over the 19
+# calls of test_torch_session's world took 204 s a process at torch's 8
+# threads with 6 processes side by side, 15 s at one thread.
+# test_torch_lio_normals.py holds plain versions at DEFAULT_THREADS to the
+# same bits as on one thread.
+DEFAULT_THREADS = torch.get_num_threads()
+torch.set_num_threads(1)
 
 _NESTED = {
     "icp": jc.ICPConfig,
@@ -50,15 +60,3 @@ def np_tree(x):
 def t(a) -> torch.Tensor:
     """NumPy (or JAX) array -> CPU torch tensor, dtype kept."""
     return torch.from_numpy(np.array(a))
-
-
-@pytest.fixture(scope="module")
-def one_torch_thread():
-    """torch on one thread for a module, restored after it: the port's plain
-    kernels issue many small operations, and under the suite's parallel
-    workers their thread pools oversubscribe the cores (results do not
-    change: the modules using it compare within one setting or to JAX)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
