@@ -229,6 +229,19 @@ check exits non-zero:
      and host syncs (the whole refresh's and each part's), K2's ms a
      frame, device operations a frame and the idle share of a profiled
      block.
+ 17. xla_math as a kernel a function (csrc/xla_math.cu's template
+     instances) and cumsum_rows in one launch (one pass, each element
+     read and written once): each elementwise
+     function through its three launch paths (16-byte accesses on aligned
+     operands, one value a thread on views one element off, broadcast
+     strides read in place) bit-equal to its plain version on 2^22 seeded
+     values, one kernel launch (the kernel library's own count); the
+     ordered scan at phase 14's lengths and at 1 to 60 columns, one launch
+     (256-row chunks to 45 columns, 16-row ones past), bits equal its
+     plain version; K7's and K4-K6's fixture digests equal the ones
+     tests/torch_lio_world.py pins; the split kernels' ptxas lines
+     (registers, stack, spills) and phases 14 and 15's times against their
+     bounds and torch's calls.
 
 Phase 2 also holds K3 against its plain version (fresh and lazy, at the
 session's shapes), the per-frame superblock branch (K3 lazy) against K1 on
@@ -238,7 +251,8 @@ the ring full) against the anchor its block starts with (with K5's scan
 and combine and K6's device time under the profiler), and K7 against
 its plain version on the block of frames 33-48 from the same state.
 Every kernel's launch count is set to 0 before each path of phases 3-16
-and read after it.
+and read after it. A kernel's time on the card alone (`device_ms`) is the
+mean of the launches the profiler recorded times its launches a call.
 
 The line before the last is the kernels' JSON record (time, plain time,
 error against plain, launches on the main paths, and the least time the
@@ -270,6 +284,8 @@ import time
 import numpy as np
 import torch
 
+#: the checkout this script runs from
+REPO = os.path.dirname(os.path.abspath(__file__))
 N_FRAMES = 257  # 1 startup frame + 32 superblocks of 8
 TILES_FRAMES = 33  # phase 8: 1 startup frame + 4 superblocks of 8 (the bench runs 1024 / 256)
 SESSION_FRAMES = 144  # bench.py bench_latency's sequence
@@ -367,7 +383,7 @@ SP_TOL = 1e-4
 #: phase 14: the scan's lengths (N x 10 moments), its launches' names in
 #: the profiler, and the bound on the card's cell normals against the CPU's
 SCAN_LENGTHS = (1, 15, 16, 17, 257, 4097, 2**20 + 3)
-SCAN_KERNELS = ("scan_up_kernel", "scan_down_kernel")
+SCAN_KERNELS = ("scan_rows_kernel",)
 NORMALS_CARD_TOL = 1e-5  # 1 - |n . n'|
 #: phase 15: inputs a function of xla_math's bit check (2^24), the chunk its
 #: plain version runs in on the host, the kernel's name in the profiler, the
@@ -376,8 +392,10 @@ NORMALS_CARD_TOL = 1e-5  # 1 - |n . n'|
 #: float64 peak outside the tensor cores (NVIDIA H100 SXM data sheet, 700 W)
 XM_INPUTS = 1 << 24
 XM_CHUNK = 1 << 21
-XM_KERNEL = "xla_math_kernel"
+XM_KERNEL = "xm_"
 XM_FLOP = {"sincos": 80, "atan2": 30, "acos": 34, "fma": 2}
+#: phase 17: values a function and launch path of xla_math's path check
+XM17_INPUTS = 1 << 22
 PEAK_F64_FLOPS = 34e12
 #: phase 15: the bound on phase 7's first block card against CPU (m): the
 #: host path is the same bits on both, K7 sums in another order than its
@@ -571,7 +589,32 @@ KERNEL_SYMBOLS = [
     ("p2p_assoc_combine_kernel", "K5 combine"), ("p2p_gn_cluster_kernelILb1", "K6 staged"),
     ("p2p_gn_cluster_kernelILb0", "K6 global"),
     ("segment_sum_sorted_kernel", "voxel_segment_sum"),
+    ("scan_rows_kernelILi2", "cumsum_rows, 256-row chunks"),
+    ("scan_rows_kernelILi1", "cumsum_rows, 16-row chunks"),
+    ("xm_norm2", "xla_math norm2"), ("xm_mmILb0", "xla_math mm"),
+    ("xm_mmILb1", "xla_math mm_lanes"), ("xm_propagate", "xla_math propagate"),
+    ("xm_dead_reckon", "xla_math dead_reckon"),
 ]
+
+#: csrc/xla_math.cu's function numbers (ops/xla_math.FN), for the template
+#: instances' labels
+XM_FN_NAMES = {0: "sincos", 1: "atan2", 2: "acos", 3: "fma", 7: "so3_exp", 8: "so3_log",
+               9: "se3_exp", 10: "se3_log", 11: "deskew", 12: "cell_normals"}
+
+
+def kernel_label(line: str) -> str:
+    """The label of the kernel a ptxas 'Compiling entry function' line
+    names: the template instances of xla_math's kernels by function and
+    path, the others from KERNEL_SYMBOLS."""
+    for kind, mangled in (("16-byte", "xm_ewILi"), ("strided", "xm_ew_stridedILi"),
+                          ("batch", "xm_batchILi")):
+        if mangled in line:
+            fn = int(line.split(mangled, 1)[1].split("E", 1)[0])
+            path = kind
+            if kind == "16-byte" and "ELb0" in line.split(mangled, 1)[1][:12]:
+                path = "one a thread"
+            return f"xla_math {XM_FN_NAMES.get(fn, fn)}" + ("" if kind == "batch" else f", {path}")
+    return next((k for sym, k in KERNEL_SYMBOLS if sym in line), "?")
 
 
 def ptxas_lines(log: str) -> list[str]:
@@ -579,7 +622,7 @@ def ptxas_lines(log: str) -> list[str]:
     out, label = [], "?"
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            label = next((k for sym, k in KERNEL_SYMBOLS if sym in line), "?")
+            label = kernel_label(line)
             if label == "K1 register layout" and "PointsILi" in line:
                 tiles = line.split("PointsILi", 1)[1].split("E", 1)[0]
                 label = f"K1 register layout, {tiles} tiles"
@@ -622,22 +665,35 @@ def time_ms(fn, reps: int) -> float:
 
 def device_ms_by_kernel(fn, reps: int, names) -> dict:
     """Mean device milliseconds a call spends in each kernel whose name holds
-    one of `names` (keyed by that name), under torch.profiler over `reps`
-    calls after a warm-up; None for a name the profiler records no device
-    time for."""
+    one of `names` (keyed by that name), under torch.profiler after a
+    warm-up: the mean of the launches the profiler recorded over `reps`
+    calls, times the kernel's launches in one call (counted under the
+    profiler on a call of its own), so launches the profiler drops (it
+    dropped some under CUPTI on an H100) do not lower it; None for a name
+    the profiler records no device time for."""
     from torch.profiler import ProfilerActivity, profile
+
+    def cuda_events(prof, n):
+        return [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and n in e.key]
 
     fn()
     torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as one:
+        fn()
+        torch.cuda.synchronize()
+    per_call = {n: sum(e.count for e in cuda_events(one, n)) for n in names}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     out = {}
     for n in names:
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA and n in e.key)
-        out[n] = us / 1e3 / reps if us > 0 else None
+        hits = cuda_events(prof, n)
+        count = sum(e.count for e in hits)
+        us = sum(e.self_device_time_total for e in hits)
+        k = per_call[n] or max(1, round(count / reps))
+        out[n] = us / 1e3 / count * k if count and us > 0 else None
     return out
 
 
@@ -2135,6 +2191,9 @@ def check_wide_kernels(lio, cfg, state, arrays, tau, lo, dev, name, tag) -> dict
     }
     bounds = p2p_bounds(k4_in, fixed, whole, (d2_k, qn_k), k6_in, halves)
     r["K6 device ms"] = device_ms(calls["K6"][0], 10, K6_KERNELS)
+    # the card alone by a CUDA graph's replay: the profiler records no
+    # launch of K6's cluster at these widths
+    r["K6 graph ms"] = graph_ms(calls["K6"][0], 10)
     for k, (kernel, plain) in calls.items():
         r[f"{k} ms"], r[f"{k} plain ms"], r[f"{k} bound"] = (
             time_ms(kernel, 5), time_ms(plain, 1), bounds[k])
@@ -2143,7 +2202,8 @@ def check_wide_kernels(lio, cfg, state, arrays, tau, lo, dev, name, tag) -> dict
     print(f"at {W} rows: " + ", ".join(
         f"{k} {r[f'{k} ms']:.3f} ms (plain {r[f'{k} plain ms']:.1f}, bound {r[f'{k} bound'][0]:.4f} "
         f"by {r[f'{k} bound'][1]})" for k in calls)
-        + f"; K6 on the card alone {r['K6 device ms']} ms, its cluster {r['K6 cluster']}, K4's grid "
+        + f"; K6 on the card alone {r['K6 device ms']} ms (profiler), {r['K6 graph ms']:.5f} ms (a "
+        f"CUDA graph's replay), its cluster {r['K6 cluster']}, K4's grid "
         f"{r['K4 grid']} [{tag}]", flush=True)
     # K7 on the first 2 frames of the block from `lo`
     k7_in, _ = lio_block_inputs(lio, cfg, state, arrays, tau, lo, dev)
@@ -2328,8 +2388,13 @@ def time_scan(x: torch.Tensor) -> dict:
     from slam_sensor_fusion_tpu_torch.ops.ordered_scan import cumsum_rows, cumsum_rows_plain
 
     out = cumsum_rows(x)
+    try:  # the card alone by a CUDA graph's replay (the profiler drops launches)
+        g_ms = graph_ms(lambda: cumsum_rows(x), 20)
+    except RuntimeError as e:
+        print(f"cumsum_rows: no CUDA graph of its cooperative launch ({e})", flush=True)
+        g_ms = None
     return dict(
-        ms=time_ms(lambda: cumsum_rows(x), 20),
+        ms=time_ms(lambda: cumsum_rows(x), 20), graph_ms=g_ms,
         device_ms=device_ms(lambda: cumsum_rows(x), 20, SCAN_KERNELS),
         plain_ms=time_ms(lambda: cumsum_rows_plain(x), 3),
         bound=bound(2 * x.numel(), nbytes(x, out)),
@@ -2387,7 +2452,8 @@ def phase14(dev, tag, anchor7, r13) -> dict:
              "1m": time_scan(cases[f"{SCAN_LENGTHS[-1]} rows"])}
     for what, c in times.items():
         print(f"cumsum_rows ({what}): {c['ms']:.4f} ms by events, {c['device_ms']} ms on the card "
-              f"alone, plain {c['plain_ms']:.3f} ms, bound {c['bound'][0]:.5f} ms ({c['bound'][1]}); "
+              f"alone (profiler), {c['graph_ms']} ms (a CUDA graph's replay), plain "
+              f"{c['plain_ms']:.3f} ms, bound {c['bound'][0]:.5f} ms ({c['bound'][1]}); "
               f"torch.cumsum {c['lib_ms']:.4f} ms, {c['lib_device_ms']} ms on the card alone "
               f"[{tag}]", flush=True)
     print(f"phase 14 ordered scan: {time.perf_counter() - t_phase:.1f} s [{tag}]", flush=True)
@@ -2668,6 +2734,130 @@ def phase15(dev, tag, launches, launches_by, lio_block, anchor) -> dict:
     if not gap < XM_CARD_CPU_GAP:
         fail(f"phase 7's first block: card and CPU part by {gap} >= {XM_CARD_CPU_GAP}")
     print(f"phase 15 XLA's float32 math: {time.perf_counter() - t_phase:.1f} s [{tag}]", flush=True)
+    return out
+
+
+def kernel_launch_count(fn, counter: str) -> int:
+    """The kernels one call of `fn` launches, by the kernel library's own
+    count (`counter`: `sfk_xla_math_kernel_launches` or
+    `sfk_cumsum_kernel_launches`; the profiler drops some launches)."""
+    from slam_sensor_fusion_tpu_torch.ops import cuda_lib
+
+    count = getattr(cuda_lib.lib(), counter)
+    before = count()
+    fn()
+    torch.cuda.synchronize()
+    return count() - before
+
+
+def phase17(dev, tag, r14, r15) -> dict:
+    """xla_math as a kernel a function and cumsum_rows in one launch, on the
+    card: each elementwise function through its three launch paths (16-byte
+    accesses, one value a thread, broadcast strides read in place) bit-equal
+    to its plain version on XM17_INPUTS seeded values (+-0, subnormals,
+    +-inf, NaN among them) in one kernel launch (the library's count); the ordered scan
+    in one launch at phase 14's lengths and widths to 60 columns, bits
+    equal its plain version; K7's and K4-K6's fixture digests equal the
+    ones tests/test_torch_cuda.py pins (their kernels did not move); the
+    ptxas lines of the split kernels; a summary of phase 14's and 15's
+    times against their bounds and torch's calls."""
+    from slam_sensor_fusion_tpu_torch.ops import cuda_lib
+    from slam_sensor_fusion_tpu_torch.ops import ordered_scan as os_
+    from slam_sensor_fusion_tpu_torch.ops import xla_math as xm
+
+    t_phase = time.perf_counter()
+    out = {"paths": {}, "scan_launches": {}}
+
+    def same(got, want) -> int:
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        bad = 0
+        for g, w in zip(got, want):
+            g = g.cpu()
+            if g.shape != w.shape:
+                return max(g.numel(), w.numel())
+            bad += int((~((g.view(torch.int32) == w.view(torch.int32))
+                          | (g.isnan() & w.isnan()))).sum())
+        return bad
+
+    side = int(np.sqrt(XM17_INPUTS))
+    for fn in ("sincos", "atan2", "acos", "fma"):
+        host = [torch.from_numpy(a) for a in xla_math_inputs(fn, XM17_INPUTS, seed=17)]
+        k = len(host)
+        shapes = [(side, 1), (side, side), (side,)][:k]
+        cases = {"16-byte": (host, [h.to(dev) for h in host]),
+                 "one a thread": ([h[1:] for h in host], [h.to(dev)[1:] for h in host])}
+        if k == 1:
+            sq = host[0][: side * side].reshape(side, side)
+            cases["strided"] = ([sq.T], [sq.to(dev).T])
+        else:
+            cut = [h[: int(np.prod(sh))].reshape(sh) for h, sh in zip(host, shapes)]
+            cases["strided"] = (cut, [c.to(dev) for c in cut])
+        for path, (h_ins, d_ins) in cases.items():
+            n_launch = kernel_launch_count(lambda: xm.xla_math(fn, *d_ins),
+                                           "sfk_xla_math_kernel_launches")
+            got = xm.xla_math(fn, *d_ins)
+            torch.cuda.synchronize()
+            n = got[0].numel() if fn == "sincos" else got.numel()
+            bad = 0
+            for i in range(0, n, XM_CHUNK):
+                sl = [a.reshape(-1)[i:i + XM_CHUNK] if a.shape == h_ins[0].shape and path != "strided"
+                      else None for a in h_ins]
+                if None in sl:
+                    bad = same(got, xm.xla_math(fn, *h_ins))
+                    break
+                g = tuple(x.reshape(-1)[i:i + XM_CHUNK] for x in got) if fn == "sincos" \
+                    else got.reshape(-1)[i:i + XM_CHUNK]
+                bad += same(g, xm.xla_math(fn, *sl))
+            out["paths"][f"{fn} {path}"] = dict(bad=bad, launches=n_launch, values=n)
+            print(f"xla_math {fn}, {path} path: {n} values, {bad} differ from the plain version's "
+                  f"bits, {n_launch} launch(es) of its kernel [{tag}]", flush=True)
+            if bad or n_launch != 1:
+                fail(f"xla_math {fn} {path}: {bad} values differ, {n_launch} launches")
+
+    widths = {(n, 10): n for n in SCAN_LENGTHS}
+    widths.update({(300, 1): 300, (1000, 13): 1000, (700, 60): 700, (65536, 10): 65536})
+    for (n, C) in widths:
+        rng = np.random.default_rng(n + C)
+        x = (rng.normal(0.0, 1.0, (n, C)) * 10.0 ** rng.uniform(-3, 6, (n, 1))).astype(np.float32)
+        x[rng.uniform(size=n) < 0.1] = -0.0
+        xd = torch.from_numpy(x).to(dev)
+        n_launch = kernel_launch_count(lambda: os_.cumsum_rows(xd), "sfk_cumsum_kernel_launches")
+        bad = same(os_.cumsum_rows(xd), os_.cumsum_rows_plain(torch.from_numpy(x)))
+        out["scan_launches"][f"{n}x{C}"] = n_launch
+        print(f"cumsum_rows {n} x {C}: {n_launch} launch(es) of "
+              f"its kernel, {bad} elements differ from the plain version's bits [{tag}]",
+              flush=True)
+        if bad or n_launch != 1:
+            fail(f"cumsum_rows {n} x {C}: {bad} elements differ, {n_launch} launches")
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_lio_world import K7_DIGEST, P2P_DIGEST, k7_digest, p2p_digest
+
+    pinned = {"K7_DIGEST": K7_DIGEST, "P2P_DIGEST": P2P_DIGEST}
+    got = {"K7_DIGEST": k7_digest(dev), "P2P_DIGEST": p2p_digest(dev)}
+    for k, v in got.items():
+        print(f"{k} on the card: {v} (pinned {pinned[k]}) [{tag}]", flush=True)
+        if v != pinned[k]:
+            fail(f"{k}: the card's {v} differs from the pinned {pinned[k]}")
+    out["digests_equal"] = True
+
+    out["ptxas"] = [ln for ln in ptxas_lines(cuda_lib.build_log)
+                    if ln.startswith(("xla_math", "cumsum_rows"))]
+    for ln in out["ptxas"]:
+        print(f"  ptxas (phase 17): {ln}", flush=True)
+    for what, c in r15["times"].items():
+        print(f"xla_math {what}: {c['ms']:.4f} ms by events, {c['graph_ms']:.5f} ms on the card "
+              f"alone (a CUDA graph's replay), bound {c['bound'][0]:.5f} ms ({c['bound'][1]}), torch "
+              f"{c['lib_ms']:.4f} ms by events, {c['lib_graph_ms']:.5f} ms on the card alone [{tag}]",
+              flush=True)
+    for what, c in r14["times"].items():
+        print(f"cumsum_rows ({what}): {c['ms']:.4f} ms by events, {c['device_ms']} ms on the card "
+              f"alone (profiler), {c['graph_ms']} ms (a CUDA graph's replay), bound "
+              f"{c['bound'][0]:.5f} ms, torch.cumsum {c['lib_ms']:.4f} ms by events, "
+              f"{c['lib_device_ms']} ms on the card alone [{tag}]", flush=True)
+    print(f"phase 17 split xla_math and one-launch scan: {time.perf_counter() - t_phase:.1f} s "
+          f"[{tag}]", flush=True)
     return out
 
 
@@ -4298,6 +4488,10 @@ def main() -> None:
         taus=ltp, imu_gps=(lgyro, laccel, ldts, lgps, gps_var), state7=lstate_w, scan=lscan,
         mask=larrays[1][LIO_WARM_FRAMES], prior=lprior))
 
+    # ---- 17. xla_math a kernel a function (three launch paths), the
+    # ordered scan in one launch, the LIO kernels' digests ----
+    r17 = phase17(dev, tag, r14, r15)
+
     for kernel in kernels:
         if not sum(launches[kernel].values()):
             fail(f"{kernel.__name__} never launched on a main path")
@@ -4390,6 +4584,7 @@ def main() -> None:
             **{f"sp{n}_device_ms_a_frame": v["k6_ms_a_frame"] for n, v in sp.items()},
             **{f"sp{n}_ms_a_frame": v["ms_a_frame"] for n, v in sp.items()},
             **wide_fields("K6"), **{f"device_ms_{W}": v["K6 device ms"] for W, v in wide13.items()},
+            **{f"graph_ms_{W}": v["K6 graph ms"] for W, v in wide13.items()},
             **{f"cluster_{W}": v["K6 cluster"] for W, v in wide13.items()}),
         row(lio_superblock, "K7 lio_superblock",
             "slam_sensor_fusion_tpu_torch/csrc/lio_superblock_fused.cu",
@@ -4439,13 +4634,14 @@ def main() -> None:
             "none: XLA's reduce-window cumsum, slam_sensor_fusion_tpu/ops/point_to_plane.py:333",
             r14["err"], r14["times"]["anchor"]["ms"], r14["times"]["anchor"]["plain_ms"],
             r14["times"]["anchor"]["bound"], library_ms=r14["times"]["anchor"]["lib_ms"],
-            device_ms=r14["times"]["anchor"]["device_ms"],
+            device_ms=r14["times"]["anchor"]["device_ms"], graph_ms=r14["times"]["anchor"]["graph_ms"],
             library_device_ms=r14["times"]["anchor"]["lib_device_ms"], rows=r14["rows"],
-            normals_gap_card_cpu=r14["normals_gap"],
+            normals_gap_card_cpu=r14["normals_gap"], kernel_launches_a_call=r17["scan_launches"],
+            ptxas=[ln for ln in r17["ptxas"] if ln.startswith("cumsum_rows")],
             **{f"{key}_{what}": (c[src] if key != "bound_ms" else c["bound"][0])
                for what, c in r14["times"].items() if what != "anchor"
-               for key, src in [("ms", "ms"), ("device_ms", "device_ms"), ("plain_ms", "plain_ms"),
-                                ("bound_ms", ""), ("library_ms", "lib_ms"),
+               for key, src in [("ms", "ms"), ("device_ms", "device_ms"), ("graph_ms", "graph_ms"),
+                                ("plain_ms", "plain_ms"), ("bound_ms", ""), ("library_ms", "lib_ms"),
                                 ("library_device_ms", "lib_device_ms")]}),
         row(xla_math, "xla_math", "slam_sensor_fusion_tpu_torch/csrc/xla_math.cu",
             "none: XLA's sin / cos (glibc sinf / cosf), atan2 (glibc atan2f) and arccos "
@@ -4458,6 +4654,10 @@ def main() -> None:
             graph_ms=r15["times"]["sincos 8192"]["graph_ms"],
             library_device_ms=r15["times"]["sincos 8192"]["lib_device_ms"],
             card_cpu_first_block_gap=r15["card_cpu_gap"],
+            launch_paths={k: dict(bits_differ=v["bad"], kernel_launches=v["launches"])
+                          for k, v in r17["paths"].items()},
+            ptxas=[ln for ln in r17["ptxas"] if ln.startswith("xla_math")],
+            lio_kernel_digests_equal=r17["digests_equal"],
             launches_by_path_and_function={p: by for p, by in r15["launches_by"].items() if by},
             lio_shapes={name: dict(bits_differ=c["bad"], ms=c["ms"], device_ms=c["device_ms"],
                                    graph_ms=c["graph_ms"], plain_ms=c["plain_ms"],

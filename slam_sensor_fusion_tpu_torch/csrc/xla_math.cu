@@ -29,14 +29,23 @@
 //   each float32 product, sum and quotient rounded once (-fmad=false, IEEE
 //   division and square root), each contracted product __fmaf_rn.
 //
-// Thread mapping: one thread an element (the elementwise functions), an
-// output entry (the matrix products), a batch item (so3 / se3, a cell's
-// normal) or a point (deskew), in a grid-stride loop; the IMU propagation
-// runs one block, a thread an entry of the 15 x 15 covariance products and
-// thread 0 the mean, over the packet's samples in order; the dead
-// reckoning is one thread's chain. An input of one element of the
-// elementwise functions is read as a scalar (bit j of `scalar_mask` for
-// input j), so the wrapper copies no broadcast scalar.
+// Kernels: one for each function (template instances), so each has its own
+// registers, launch bounds and no other function's stack or shared memory:
+//   xm_ew<fn, vec>: sincos, atan2, acos, fma on contiguous operands, an
+//     operand of one element read as a scalar (bit j of `scalar_mask` for
+//     operand j); with vec, four values a thread through 16-byte loads and
+//     stores when every streamed operand and output is 16-byte aligned;
+//   xm_ew_strided<fn>: the same on operands that broadcast, each read
+//     through its strides into the output's (up to 4) dimensions, so the
+//     wrapper copies nothing;
+//   xm_norm2, xm_mm<lanes>: an output entry a thread;
+//   xm_batch<fn>: so3 / se3, deskew and the cell normals, a batch item (or
+//     a point) a thread;
+//   xm_propagate: one block, a thread an entry of the 15 x 15 covariance
+//     products and thread 0 the mean, over the packet's samples in order;
+//   xm_dead_reckon: one thread's chain.
+// fdlibm's atan tables are selects and every device helper is inlined, so
+// no table sits in local memory.
 //
 // What bounds it on an H100: the bytes (4 to 40 a value in, 4 to 64 out) at
 // 3.35 TB/s; ~80 double operations a sincos at the card's 34 TFLOP/s of
@@ -173,65 +182,60 @@ __device__ __forceinline__ float flush(float v) {
   return (__float_as_uint(v) & 0x7fffffffu) < 0x00800000u ? v * 0.0f : v;
 }
 
-__device__ float atanf_xla(float x) {
-  const float atanhi[4] = {f32(0x3eed6338u), f32(0x3f490fdau), f32(0x3f7b985eu),
-                           f32(0x3fc90fdau)};
-  const float atanlo[4] = {f32(0x31ac3769u), f32(0x33222168u), f32(0x33140fb4u),
-                           f32(0x33a22168u)};
-  const float aT[11] = {f32(0x3eaaaaabu), f32(0xbe4ccccdu), f32(0x3e124925u), f32(0xbde38e38u),
-                        f32(0x3dba2e6eu), f32(0xbd9d8795u), f32(0x3d886b35u), f32(0xbd6ef16bu),
-                        f32(0x3d4bda59u), f32(0xbd15a221u), f32(0x3c8569d7u)};
-  const int32_t hx = __float_as_int(x);
-  const int32_t ix = hx & 0x7fffffff;
-  if (ix >= 0x4c000000) {  // |x| >= 2^25
-    if (ix > 0x7f800000) return x + x;
-    const float h = atanhi[3] + atanlo[3];
-    return hx > 0 ? h : -h;
-  }
-  int id;
-  if (ix < 0x3ee00000) {  // |x| < 0.4375
-    if (ix < 0x31000000) return x;  // |x| < 2^-29
-    id = -1;
-  } else {
-    const float ax = fabsf(x);
-    if (ix < 0x3f980000) {
-      if (ix < 0x3f300000) {
-        id = 0;
-        x = (2.0f * ax - 1.0f) / (2.0f + ax);
-      } else {
-        id = 1;
-        x = (ax - 1.0f) / (ax + 1.0f);
-      }
-    } else if (ix < 0x401c0000) {
-      id = 2;
-      x = (ax - 1.5f) / (1.0f + 1.5f * ax);
-    } else {
-      id = 3;
-      x = -1.0f / ax;
-    }
-  }
-  const float z = x * x;
-  const float w = z * z;
-  float s1 = aT[10];
-  s1 = s1 * w + aT[8];
-  s1 = s1 * w + aT[6];
-  s1 = s1 * w + aT[4];
-  s1 = s1 * w + aT[2];
-  s1 = s1 * w + aT[0];
-  s1 = s1 * z;
-  float s2 = aT[9];
-  s2 = s2 * w + aT[7];
-  s2 = s2 * w + aT[5];
-  s2 = s2 * w + aT[3];
-  s2 = s2 * w + aT[1];
-  s2 = s2 * w;
-  const float xs = x * (s1 + s2);
-  if (id < 0) return x - xs;
-  const float r = atanhi[id] - ((xs - atanlo[id]) - x);
-  return hx < 0 ? -r : r;
+// atanhi / atanlo of fdlibm indexed by id 0..3: selects, so no table sits
+// in local memory
+__device__ __forceinline__ float atan_hi(int id) {
+  return id == 0 ? f32(0x3eed6338u) : id == 1 ? f32(0x3f490fdau)
+       : id == 2 ? f32(0x3f7b985eu) : f32(0x3fc90fdau);
+}
+__device__ __forceinline__ float atan_lo(int id) {
+  return id == 0 ? f32(0x31ac3769u) : id == 1 ? f32(0x33222168u)
+       : id == 2 ? f32(0x33140fb4u) : f32(0x33a22168u);
 }
 
-__device__ float atan2f_xla(float y, float x) {
+// fdlibm's atanf without branches on the value: every element takes one
+// division (the argument reduction's, its operands chosen by the range id),
+// the polynomial and the range's constants, then the special ranges by
+// selects; the same operations on each element as fdlibm's branches take,
+// so the same bits, and a warp of mixed ranges does not diverge
+__device__ __forceinline__ float atanf_xla(float x) {
+  const int32_t hx = __float_as_int(x);
+  const int32_t ix = hx & 0x7fffffff;
+  const float ax = fabsf(x);
+  const int id = ix < 0x3ee00000 ? -1   // |x| < 0.4375
+                 : ix < 0x3f300000 ? 0  // < 0.6875
+                 : ix < 0x3f980000 ? 1  // < 1.1875
+                 : ix < 0x401c0000 ? 2  // < 2.4375
+                 : 3;
+  const float num = id == 0 ? 2.0f * ax - 1.0f : id == 1 ? ax - 1.0f : id == 2 ? ax - 1.5f : -1.0f;
+  const float den = id == 0 ? 2.0f + ax : id == 1 ? ax + 1.0f : id == 2 ? 1.0f + 1.5f * ax : ax;
+  const float xr = id < 0 ? x : num / den;
+  const float z = xr * xr;
+  const float w = z * z;
+  float s1 = f32(0x3c8569d7u);
+  s1 = s1 * w + f32(0x3d4bda59u);
+  s1 = s1 * w + f32(0x3d886b35u);
+  s1 = s1 * w + f32(0x3dba2e6eu);
+  s1 = s1 * w + f32(0x3e124925u);
+  s1 = s1 * w + f32(0x3eaaaaabu);
+  s1 = s1 * z;
+  float s2 = f32(0xbd15a221u);
+  s2 = s2 * w + f32(0xbd6ef16bu);
+  s2 = s2 * w + f32(0xbd9d8795u);
+  s2 = s2 * w + f32(0xbde38e38u);
+  s2 = s2 * w + f32(0xbe4ccccdu);
+  s2 = s2 * w;
+  const float xs = xr * (s1 + s2);
+  const int idc = id < 0 ? 0 : id;
+  const float r = atan_hi(idc) - ((xs - atan_lo(idc)) - xr);
+  float out = id < 0 ? xr - xs : (hx < 0 ? -r : r);
+  out = ix < 0x31000000 ? x : out;  // |x| < 2^-29
+  const float h = atan_hi(3) + atan_lo(3);
+  out = ix >= 0x4c000000 ? (ix > 0x7f800000 ? x + x : (hx > 0 ? h : -h)) : out;  // |x| >= 2^25
+  return out;
+}
+
+__device__ __forceinline__ float atan2f_xla(float y, float x) {
   const float pi = f32(0x40490fdbu), pi_o_2 = f32(0x3fc90fdbu), pi_o_4 = f32(0x3f490fdbu);
   const float pi_lo_neg = f32(0x33bbbd2eu), half_pi_lo_neg = f32(0x333bbd2eu), tiny = 1.0e-30f;
   const int32_t hx = __float_as_int(x), hy = __float_as_int(y);
@@ -277,7 +281,8 @@ __device__ float atan2f_xla(float y, float x) {
   }
 }
 
-__device__ __forceinline__ float sqrtf_xla(float v) { return (float)sqrt((double)flush(v)); }
+// correctly rounded, as (float)sqrt((double)v) is; a subnormal reads as 0
+__device__ __forceinline__ float sqrtf_xla(float v) { return __fsqrt_rn(flush(v)); }
 
 __device__ __forceinline__ float acosf_xla(float v) {
   return atan2f_xla(sqrtf_xla((1.0f - v) * (v + 1.0f)), v);
@@ -335,7 +340,7 @@ __device__ __forceinline__ void rodrigues3(float a, float b, const float* K, con
 }
 
 // geometry.so3_exp
-__device__ void so3_exp3(const float* w, float* R) {
+__device__ __forceinline__ void so3_exp3(const float* w, float* R) {
   const float th2 = dot3f(w, w);
   const float th = sqrtf_xla(clamp_min(th2, 1e-24f));
   float s, c;
@@ -350,7 +355,7 @@ __device__ void so3_exp3(const float* w, float* R) {
 }
 
 // geometry.so3_log of a 3 x 3 read with row stride rs
-__device__ void so3_log3(const float* R, int rs, float* phi) {
+__device__ __forceinline__ void so3_log3(const float* R, int rs, float* phi) {
   const float tr = (R[0] + R[rs + 1]) + R[2 * rs + 2];
   const float cos_t = clamp2((tr - 1.0f) * 0.5f, -1.0f, 1.0f);
   const float th = acosf_xla(cos_t);
@@ -364,7 +369,7 @@ __device__ void so3_log3(const float* R, int rs, float* phi) {
 }
 
 // geometry.se3_exp: xi = [rho, phi] -> a row-major 4 x 4
-__device__ void se3_exp4(const float* xi, float* T) {
+__device__ __forceinline__ void se3_exp4(const float* xi, float* T) {
   const float* rho = xi;
   const float* phi = xi + 3;
   float R[9];
@@ -389,7 +394,7 @@ __device__ void se3_exp4(const float* xi, float* T) {
 }
 
 // deskew.se3_log of a row-major 4 x 4 -> [rho, phi]
-__device__ void se3_log4(const float* T, float* xi) {
+__device__ __forceinline__ void se3_log4(const float* T, float* xi) {
   float phi[3];
   so3_log3(T, 4, phi);
   const float th2 = dot3f(phi, phi);
@@ -409,7 +414,7 @@ __device__ void se3_log4(const float* T, float* xi) {
 }
 
 // deskew.deskew of one point p at normalized time tau, by the twist xi
-__device__ void deskew_point(const float* p, float tau, const float* xi, float* o) {
+__device__ __forceinline__ void deskew_point(const float* p, float tau, const float* xi, float* o) {
   const float* rho = xi;
   const float* phi = xi + 3;
   const float th0 = sqrtf_xla(clamp_min(dot3f(phi, phi), 1e-24f));
@@ -438,7 +443,7 @@ __device__ void deskew_point(const float* p, float tau, const float* xi, float* 
 
 // point_to_plane.estimate_normals_cells from a point's cell moments (count,
 // sums, xx yy zz xy xz yz): the covariance, then _smallest_eigvec3
-__device__ void cell_normal(const float* seg, float* vec, float* lam_min_o, float* lam_mid_o) {
+__device__ __forceinline__ void cell_normal(const float* seg, float* vec, float* lam_min_o, float* lam_mid_o) {
   const float c = clamp_min(seg[0], 1.0f);
   const float mx = seg[1] / c, my = seg[2] / c, mz = seg[3] / c;
   const float eps = 1e-9f;
@@ -487,7 +492,7 @@ __device__ void cell_normal(const float* seg, float* vec, float* lam_min_o, floa
 // bk: the fma
 // chain along k (xla_math.mm3), or the library GEMM's four lanes and plain
 // tail (xla_math.mm_lanes)
-__device__ float mm_entry(const float* A, long long ak, const float* B, long long bk, int K,
+__device__ __forceinline__ float mm_entry(const float* A, long long ak, const float* B, long long bk, int K,
                           bool lanes) {
   if (!lanes) {
     float acc = A[0] * B[0];
@@ -516,7 +521,7 @@ __device__ float mm_entry(const float* A, long long ak, const float* B, long lon
 constexpr int kStateLen = 246;
 
 // the mean of one sample, in place: a_w = R f + g_w, p, v by fmas, R R(w dt)
-__device__ void mean_step(float* p, float* v, float* R, const float* f, const float* w,
+__device__ __forceinline__ void mean_step(float* p, float* v, float* R, const float* f, const float* w,
                           float dt, const float* g_w) {
   float a_w[3], wd[3], dR[9], Rn[9];
   mv3f(R, f, a_w);
@@ -640,103 +645,304 @@ __device__ void dead_reckon(const float* state, const float* imu, const float* c
   }
 }
 
-__global__ void __launch_bounds__(256) xla_math_kernel(int fn, const float* __restrict__ a,
-                                                        const float* __restrict__ b,
-                                                        const float* __restrict__ c,
-                                                        int scalar_mask, float* __restrict__ out0,
-                                                        float* __restrict__ out1,
-                                                        float* __restrict__ out2, long long n,
-                                                        Params prm) {
+// ---- the kernels: one for each function (a template instance each), so
+// each has its own registers, launch bounds and shared memory ----
+
+constexpr int kThreads = 256;
+
+template <int FN>
+__device__ __forceinline__ void ew_apply(float a, float b, float c, float* r0, float* r1) {
+  if constexpr (FN == kSinCos) {
+    sincosf_xla(a, r0, r1);
+  } else if constexpr (FN == kAtan2) {
+    *r0 = atan2f_xla(a, b);
+  } else if constexpr (FN == kAcos) {
+    *r0 = acosf_xla(a);
+  } else {  // kFma
+    *r0 = __fmaf_rn(a, b, c);
+  }
+}
+
+__device__ __forceinline__ float4 load4(const float* __restrict__ p, long long q) {
+  return reinterpret_cast<const float4*>(p)[q];
+}
+
+// an elementwise function on contiguous operands, an operand of one element
+// read as a scalar (bit j of `mask` for operand j); with VEC four elements a
+// thread through 16-byte loads and stores (every operand and output aligned
+// to 16 bytes), the last n % 4 one a thread
+template <int FN, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+    xm_ew(const float* __restrict__ a, const float* __restrict__ b, const float* __restrict__ c,
+          int mask, float* __restrict__ o0, float* __restrict__ o1, long long n) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const float sa = (mask & 1) ? a[0] : 0.0f;
+  const float sb = (FN == kAtan2 || FN == kFma) && (mask & 2) ? b[0] : 0.0f;
+  const float sc = FN == kFma && (mask & 4) ? c[0] : 0.0f;
+  long long done = 0;
+  if constexpr (VEC) {
+    const long long n4 = n >> 2;
+    for (long long q = t; q < n4; q += stride) {
+      const float4 va = (mask & 1) ? make_float4(sa, sa, sa, sa) : load4(a, q);
+      float4 vb = make_float4(0.0f, 0.0f, 0.0f, 0.0f), vc = vb;
+      if constexpr (FN == kAtan2 || FN == kFma) vb = (mask & 2) ? make_float4(sb, sb, sb, sb) : load4(b, q);
+      if constexpr (FN == kFma) vc = (mask & 4) ? make_float4(sc, sc, sc, sc) : load4(c, q);
+      float4 r0, r1;
+      ew_apply<FN>(va.x, vb.x, vc.x, &r0.x, &r1.x);
+      ew_apply<FN>(va.y, vb.y, vc.y, &r0.y, &r1.y);
+      ew_apply<FN>(va.z, vb.z, vc.z, &r0.z, &r1.z);
+      ew_apply<FN>(va.w, vb.w, vc.w, &r0.w, &r1.w);
+      reinterpret_cast<float4*>(o0)[q] = r0;
+      if constexpr (FN == kSinCos) reinterpret_cast<float4*>(o1)[q] = r1;
+    }
+    done = n4 << 2;
+  }
+  for (long long i = done + t; i < n; i += stride) {
+    const float va = (mask & 1) ? sa : a[i];
+    float vb = 0.0f, vc = 0.0f;
+    if constexpr (FN == kAtan2 || FN == kFma) vb = (mask & 2) ? sb : b[i];
+    if constexpr (FN == kFma) vc = (mask & 4) ? sc : c[i];
+    float r0, r1;
+    ew_apply<FN>(va, vb, vc, &r0, &r1);
+    o0[i] = r0;
+    if constexpr (FN == kSinCos) o1[i] = r1;
+  }
+}
+
+// the shapes and strides of an elementwise call whose operands broadcast:
+// the output's dimensions (row-major, padded in front with 1) and each
+// operand's strides into them (0 along a broadcast dimension)
+struct Bcast {
+  long long d[4];
+  long long s[3][4];
+};
+
+template <int FN>
+__global__ void __launch_bounds__(kThreads)
+    xm_ew_strided(const float* __restrict__ a, const float* __restrict__ b,
+                  const float* __restrict__ c, float* __restrict__ o0, float* __restrict__ o1,
+                  long long n, Bcast bc) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    long long rest = i, off[3] = {0, 0, 0};
+    for (int k = 3; k >= 0; --k) {
+      const long long idx = rest % bc.d[k];
+      rest /= bc.d[k];
+      for (int j = 0; j < 3; ++j) off[j] += idx * bc.s[j][k];
+    }
+    float vb = 0.0f, vc = 0.0f;
+    if constexpr (FN == kAtan2 || FN == kFma) vb = b[off[1]];
+    if constexpr (FN == kFma) vc = c[off[2]];
+    float r0, r1;
+    ew_apply<FN>(a[off[0]], vb, vc, &r0, &r1);
+    o0[i] = r0;
+    if constexpr (FN == kSinCos) o1[i] = r1;
+  }
+}
+
+// |p|^2 of (n, 3) rows
+__global__ void __launch_bounds__(kThreads)
+    xm_norm2(const float* __restrict__ a, float* __restrict__ o0, long long n) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride)
+    o0[i] = dot3f(a + 3 * i, a + 3 * i);
+}
+
+// one entry of a batched A @ B a thread; v: M, K, N, then the strides of A
+// (batch, m, k) and of B (batch, k, n)
+template <bool LANES>
+__global__ void __launch_bounds__(kThreads)
+    xm_mm(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ o0,
+          long long n, Params prm) {
   const long long* v = prm.v;
-  if (fn == kPropagate) {
-    propagate_block(a, b, c, out0, (int)v[0]);
-    return;
+  const long long M = v[0], N = v[2];
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    const long long bi = i / (M * N), m = (i / N) % M, nn = i % N;
+    o0[i] = mm_entry(a + bi * v[3] + m * v[4], v[5], b + bi * v[6] + nn * v[8], v[7], (int)v[1],
+                     LANES);
   }
-  if (fn == kDeadReckon) {
-    if (threadIdx.x == 0) dead_reckon(a, b, c, out0, out1, (int)v[0], (int)v[1]);
-    return;
-  }
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    switch (fn) {
-      case kSinCos: {
-        float s, co;
-        sincosf_xla(a[(scalar_mask & 1) ? 0 : i], &s, &co);
-        out0[i] = s;
-        out1[i] = co;
-        break;
-      }
-      case kAtan2:
-        out0[i] = atan2f_xla(a[(scalar_mask & 1) ? 0 : i], b[(scalar_mask & 2) ? 0 : i]);
-        break;
-      case kAcos:
-        out0[i] = acosf_xla(a[(scalar_mask & 1) ? 0 : i]);
-        break;
-      case kFma:
-        out0[i] = __fmaf_rn(a[(scalar_mask & 1) ? 0 : i], b[(scalar_mask & 2) ? 0 : i],
-                            c[(scalar_mask & 4) ? 0 : i]);
-        break;
-      case kNorm2:
-        out0[i] = dot3f(a + 3 * i, a + 3 * i);
-        break;
-      case kMm:
-      case kMmLanes: {
-        // v: M, K, N, then the strides of A (batch, m, k) and of B (batch, k, n)
-        const long long M = v[0], N = v[2];
-        const long long bi = i / (M * N), m = (i / N) % M, nn = i % N;
-        out0[i] = mm_entry(a + bi * v[3] + m * v[4], v[5], b + bi * v[6] + nn * v[8], v[7],
-                           (int)v[1], fn == kMmLanes);
-        break;
-      }
-      case kSo3Exp:
-        so3_exp3(a + 3 * i, out0 + 9 * i);
-        break;
-      case kSo3Log:
-        so3_log3(a + 9 * i, 3, out0 + 3 * i);
-        break;
-      case kSe3Exp:
-        se3_exp4(a + 6 * i, out0 + 16 * i);
-        break;
-      case kSe3Log:
-        se3_log4(a + 16 * i, out0 + 6 * i);
-        break;
-      case kDeskew:
-        // v: points a frame, the twists' batch stride (0: one twist)
-        deskew_point(a + 3 * i, b[i], c + (i / v[0]) * v[1], out0 + 3 * i);
-        break;
-      default:  // kCellNormals
-        cell_normal(a + 10 * i, out0 + 3 * i, out1 + i, out2 + i);
-        break;
+}
+
+// a composite function, a batch item (or a point) a thread
+template <int FN>
+__global__ void __launch_bounds__(kThreads)
+    xm_batch(const float* __restrict__ a, const float* __restrict__ b,
+             const float* __restrict__ c, float* __restrict__ o0, float* __restrict__ o1,
+             float* __restrict__ o2, long long n, long long p0, long long p1) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    if constexpr (FN == kSo3Exp) {
+      so3_exp3(a + 3 * i, o0 + 9 * i);
+    } else if constexpr (FN == kSo3Log) {
+      so3_log3(a + 9 * i, 3, o0 + 3 * i);
+    } else if constexpr (FN == kSe3Exp) {
+      se3_exp4(a + 6 * i, o0 + 16 * i);
+    } else if constexpr (FN == kSe3Log) {
+      se3_log4(a + 16 * i, o0 + 6 * i);
+    } else if constexpr (FN == kDeskew) {
+      // p0: points a frame, p1: the twists' batch stride (0: one twist)
+      deskew_point(a + 3 * i, b[i], c + (i / p0) * p1, o0 + 3 * i);
+    } else {  // kCellNormals
+      cell_normal(a + 10 * i, o0 + 3 * i, o1 + i, o2 + i);
     }
   }
 }
 
+// the two serial chains: one block for the IMU packet's propagation, one
+// thread for the block's dead reckoning
+__global__ void __launch_bounds__(kThreads)
+    xm_propagate(const float* __restrict__ a, const float* __restrict__ b,
+                 const float* __restrict__ c, float* __restrict__ o0, int n) {
+  propagate_block(a, b, c, o0, n);
+}
+
+__global__ void __launch_bounds__(32)
+    xm_dead_reckon(const float* __restrict__ a, const float* __restrict__ b,
+                   const float* __restrict__ c, float* __restrict__ o0, float* __restrict__ o1,
+                   int K, int Ki) {
+  if (threadIdx.x == 0) dead_reckon(a, b, c, o0, o1, K, Ki);
+}
+
 }  // namespace
 
-extern "C" int sfk_xla_math(int fn, const float* a, const float* b, const float* c,
-                            int scalar_mask, float* out0, float* out1, float* out2, long long n,
-                            const long long* params, cudaStream_t stream) {
-  if (fn < kSinCos || fn > kDeadReckon || a == nullptr || out0 == nullptr)
-    return (int)cudaErrorInvalidValue;
+namespace {
+
+// kernels this library launched (sfk_xla_math_kernel_launches)
+long long g_launches = 0;
+
+int launched() {
+  const cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) ++g_launches;
+  return (int)e;
+}
+
+int grid_for(long long items) {
+  const long long blocks = (items + kThreads - 1) / kThreads;
+  return (int)(blocks < 132LL * 16 ? blocks : 132LL * 16);
+}
+
+template <int FN>
+int launch_ew(const float* a, const float* b, const float* c, int mask, float* o0, float* o1,
+              long long n, cudaStream_t stream) {
+  // 16-byte access needs every streamed operand and output aligned
+  uintptr_t any = (uintptr_t)o0 | (uintptr_t)(FN == kSinCos ? o1 : o0);
+  if (!(mask & 1)) any |= (uintptr_t)a;
+  if ((FN == kAtan2 || FN == kFma) && !(mask & 2)) any |= (uintptr_t)b;
+  if (FN == kFma && !(mask & 4)) any |= (uintptr_t)c;
+  if ((any & 15) == 0 && n >= 4)
+    xm_ew<FN, true><<<grid_for((n + 3) / 4), kThreads, 0, stream>>>(a, b, c, mask, o0, o1, n);
+  else
+    xm_ew<FN, false><<<grid_for(n), kThreads, 0, stream>>>(a, b, c, mask, o0, o1, n);
+  return launched();
+}
+
+template <int FN>
+int launch_ew_strided(const float* a, const float* b, const float* c, float* o0, float* o1,
+                      long long n, const Bcast& bc, cudaStream_t stream) {
+  xm_ew_strided<FN><<<grid_for(n), kThreads, 0, stream>>>(a, b, c, o0, o1, n, bc);
+  return launched();
+}
+
+template <int FN>
+int launch_batch(const float* a, const float* b, const float* c, float* o0, float* o1, float* o2,
+                 long long n, long long p0, long long p1, cudaStream_t stream) {
+  xm_batch<FN><<<grid_for(n), kThreads, 0, stream>>>(a, b, c, o0, o1, o2, n, p0, p1);
+  return launched();
+}
+
+bool needs(int fn, const float* a, const float* b, const float* c, float* o1, float* o2) {
   const bool imu = fn == kPropagate || fn == kDeadReckon;
   const bool two_in =
       fn == kAtan2 || fn == kFma || fn == kMm || fn == kMmLanes || fn == kDeskew || imu;
   const bool three_in = fn == kFma || fn == kDeskew || imu;
-  if ((two_in && b == nullptr) || (three_in && c == nullptr) ||
-      ((fn == kSinCos || fn == kCellNormals || fn == kDeadReckon) && out1 == nullptr) ||
-      (fn == kCellNormals && out2 == nullptr))
+  return a != nullptr && !(two_in && b == nullptr) && !(three_in && c == nullptr) &&
+         !((fn == kSinCos || fn == kCellNormals || fn == kDeadReckon) && o1 == nullptr) &&
+         !(fn == kCellNormals && o2 == nullptr);
+}
+
+}  // namespace
+
+// The elementwise functions on contiguous operands (bit j of scalar_mask:
+// operand j is one element, read as a scalar).
+extern "C" int sfk_xla_ew(int fn, const float* a, const float* b, const float* c,
+                          int scalar_mask, float* out0, float* out1, long long n,
+                          cudaStream_t stream) {
+  if (fn < kSinCos || fn > kFma || out0 == nullptr || !needs(fn, a, b, c, out1, out0))
     return (int)cudaErrorInvalidValue;
-  Params prm = {};
-  if (params != nullptr)
-    for (int k = 0; k < 10; ++k) prm.v[k] = params[k];
-  if (imu) {
-    xla_math_kernel<<<1, fn == kPropagate ? 256 : 32, 0, stream>>>(fn, a, b, c, 0, out0, out1,
-                                                                  out2, 0, prm);
-    return (int)cudaGetLastError();
+  if (n <= 0) return 0;
+  switch (fn) {
+    case kSinCos: return launch_ew<kSinCos>(a, b, c, scalar_mask, out0, out1, n, stream);
+    case kAtan2: return launch_ew<kAtan2>(a, b, c, scalar_mask, out0, out1, n, stream);
+    case kAcos: return launch_ew<kAcos>(a, b, c, scalar_mask, out0, out1, n, stream);
+    default: return launch_ew<kFma>(a, b, c, scalar_mask, out0, out1, n, stream);
+  }
+}
+
+// The elementwise functions on operands that broadcast: the output's 4
+// dimensions (d0 outermost) and each operand's 4 strides into them.
+extern "C" int sfk_xla_ew_strided(int fn, const float* a, const float* b, const float* c,
+                                  float* out0, float* out1, long long n, long long d0,
+                                  long long d1, long long d2, long long d3, long long a0,
+                                  long long a1, long long a2, long long a3, long long b0,
+                                  long long b1, long long b2, long long b3, long long c0,
+                                  long long c1, long long c2, long long c3, cudaStream_t stream) {
+  if (fn < kSinCos || fn > kFma || out0 == nullptr || !needs(fn, a, b, c, out1, out0) ||
+      d0 <= 0 || d1 <= 0 || d2 <= 0 || d3 <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (n <= 0) return 0;
+  const Bcast bc = {{d0, d1, d2, d3}, {{a0, a1, a2, a3}, {b0, b1, b2, b3}, {c0, c1, c2, c3}}};
+  switch (fn) {
+    case kSinCos: return launch_ew_strided<kSinCos>(a, b, c, out0, out1, n, bc, stream);
+    case kAtan2: return launch_ew_strided<kAtan2>(a, b, c, out0, out1, n, bc, stream);
+    case kAcos: return launch_ew_strided<kAcos>(a, b, c, out0, out1, n, bc, stream);
+    default: return launch_ew_strided<kFma>(a, b, c, out0, out1, n, bc, stream);
+  }
+}
+
+// The composite functions (norm2 and past it; the elementwise ones launch
+// through sfk_xla_ew or sfk_xla_ew_strided), their integer arguments
+// p0..p9 (shapes and strides).
+extern "C" int sfk_xla_math(int fn, const float* a, const float* b, const float* c,
+                            float* out0, float* out1, float* out2, long long n,
+                            long long p0, long long p1, long long p2, long long p3,
+                            long long p4, long long p5, long long p6, long long p7,
+                            long long p8, long long p9, cudaStream_t stream) {
+  if (fn <= kFma || fn > kDeadReckon || out0 == nullptr || !needs(fn, a, b, c, out1, out2))
+    return (int)cudaErrorInvalidValue;
+  if (fn == kPropagate) {
+    xm_propagate<<<1, kThreads, 0, stream>>>(a, b, c, out0, (int)p0);
+    return launched();
+  }
+  if (fn == kDeadReckon) {
+    xm_dead_reckon<<<1, 32, 0, stream>>>(a, b, c, out0, out1, (int)p0, (int)p1);
+    return launched();
   }
   if (n <= 0) return 0;
-  const long long blocks = (n + 255) / 256;
-  const int grid = (int)(blocks < 132LL * 16 ? blocks : 132LL * 16);
-  xla_math_kernel<<<grid, 256, 0, stream>>>(fn, a, b, c, scalar_mask, out0, out1, out2, n, prm);
-  return (int)cudaGetLastError();
+  if (fn == kNorm2) {
+    xm_norm2<<<grid_for(n), kThreads, 0, stream>>>(a, out0, n);
+    return launched();
+  }
+  if (fn == kMm || fn == kMmLanes) {
+    const Params prm = {{p0, p1, p2, p3, p4, p5, p6, p7, p8, p9}};
+    if (fn == kMm)
+      xm_mm<false><<<grid_for(n), kThreads, 0, stream>>>(a, b, out0, n, prm);
+    else
+      xm_mm<true><<<grid_for(n), kThreads, 0, stream>>>(a, b, out0, n, prm);
+    return launched();
+  }
+  switch (fn) {
+    case kSo3Exp: return launch_batch<kSo3Exp>(a, b, c, out0, out1, out2, n, p0, p1, stream);
+    case kSo3Log: return launch_batch<kSo3Log>(a, b, c, out0, out1, out2, n, p0, p1, stream);
+    case kSe3Exp: return launch_batch<kSe3Exp>(a, b, c, out0, out1, out2, n, p0, p1, stream);
+    case kSe3Log: return launch_batch<kSe3Log>(a, b, c, out0, out1, out2, n, p0, p1, stream);
+    case kDeskew: return launch_batch<kDeskew>(a, b, c, out0, out1, out2, n, p0, p1, stream);
+    default:
+      return launch_batch<kCellNormals>(a, b, c, out0, out1, out2, n, p0, p1, stream);
+  }
 }
+
+// The kernels this library has launched since it was loaded: a call's
+// launches are the difference across it.
+extern "C" long long sfk_xla_math_kernel_launches() { return g_launches; }

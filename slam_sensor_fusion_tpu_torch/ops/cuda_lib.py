@@ -142,10 +142,20 @@ def _declare(so: ctypes.CDLL) -> None:
     so.sfk_lio_grid.restype = I
     so.sfk_segment_sum_sorted.argtypes = [P] * 2 + [I] * 3 + [P, P]
     so.sfk_segment_sum_sorted.restype = I
-    so.sfk_cumsum_rows.argtypes = [P, I, I, P, P, I, P]
+    L = ctypes.c_longlong
+    so.sfk_cumsum_rows.argtypes = [P, I, I, P, P, L, P]
     so.sfk_cumsum_rows.restype = I
-    so.sfk_xla_math.argtypes = [I, P, P, P, I, P, P, P, ctypes.c_longlong, P, P]
+    so.sfk_cumsum_scratch_floats.argtypes = [I, I]
+    so.sfk_cumsum_scratch_floats.restype = L
+    so.sfk_xla_math.argtypes = [I, P, P, P, P, P, P] + [L] * 11 + [P]
     so.sfk_xla_math.restype = I
+    so.sfk_xla_ew.argtypes = [I, P, P, P, I, P, P, L, P]
+    so.sfk_xla_ew.restype = I
+    so.sfk_xla_ew_strided.argtypes = [I, P, P, P, P, P] + [L] * 17 + [P]
+    so.sfk_xla_ew_strided.restype = I
+    for counter in (so.sfk_xla_math_kernel_launches, so.sfk_cumsum_kernel_launches):
+        counter.argtypes = []
+        counter.restype = L
 
 
 def check(err: int, what: str) -> None:

@@ -27,8 +27,11 @@ for tensors on the card and runs `lio_superblock_plain` for CPU tensors.
 The plain version is written from the Pallas kernel, not from
 models/ekf.py: the Taylor-series rotation exponential, the asin-series
 log, the 16x16 padded covariance and the Cholesky-built inverse are the
-kernel's, and its matrix products are sums in a fixed order (k = 0, 1, ...)
-as the kernel's threads take them, so the two round alike.
+kernel's. It rounds as the JAX kernel does when XLA compiles it for the
+CPU (ops/p2p_fused's scalar tail): the (16, 16) and (16, 6) products in
+the library GEMM's order (`xla_math.mm_lanes`), the matrix-vector and
+3-term products as fma chains from k = 0 (`xla_math.mv3`, `xla_math.mm3`),
+the 3x3 scalar math contracted as LLVM contracts it.
 """
 
 from __future__ import annotations
@@ -40,19 +43,20 @@ import torch
 
 from slam_sensor_fusion_tpu_torch.models.ekf import GRAVITY, EKFConfig
 from slam_sensor_fusion_tpu_torch.ops import cuda_lib
-from slam_sensor_fusion_tpu_torch.ops.icp_fused import (
-    _adjugate_transpose_over_det,
-    _associate_first,
-    _mm3,
-    _mv3,
-)
+from slam_sensor_fusion_tpu_torch.ops import xla_math as xm
+from slam_sensor_fusion_tpu_torch.ops.icp_fused import _associate_first
 from slam_sensor_fusion_tpu_torch.ops.p2p_fused import (
     _P2PParams,
+    _adjugate_k,
     _chol6_solve,
+    _fma,
     _gn_passes_plain,
     _jtj_from_tri,
+    _mm3k,
+    _mv3k,
     _params,
     _se3_exp_taylor,
+    _sum3,
 )
 from slam_sensor_fusion_tpu_torch.ops.point_to_plane import PointToPlaneConfig
 
@@ -87,21 +91,13 @@ class LIOSuperblockParams(NamedTuple):
 # ---------------------------------------------------------------------------
 
 
-def _mm(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """A @ B as a sum over k = 0, 1, ... in that order (K7's per-output
-    loop; the library builds with -fmad=false)."""
-    acc = A[:, 0:1] * B[0:1, :]
-    for k in range(1, A.shape[1]):
-        acc = acc + A[:, k : k + 1] * B[k : k + 1, :]
-    return acc
-
-
-def _mv(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """A @ v in the same fixed order."""
-    acc = A[:, 0] * v[0]
-    for k in range(1, A.shape[1]):
-        acc = acc + A[:, k] * v[k]
-    return acc
+def _mm_k3(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """(M, 3) @ (3, 3) as XLA's CPU code emits the Kalman gain's product
+    (its loop vectorized by LLVM): columns 0 and 1 the three products
+    added in order, column 2 the fma chain from k = 0."""
+    P = [A[:, k, None] * B[None, k, :2] for k in range(3)]
+    chain = _fma(A[:, 2], B[2, 2], _fma(A[:, 1], B[1, 2], A[:, 0] * B[0, 2]))
+    return torch.cat([(P[0] + P[1]) + P[2], chain[:, None]], dim=1)
 
 
 def _so3_exp(phi: torch.Tensor) -> torch.Tensor:
@@ -115,8 +111,8 @@ def _so3_log_small(R_err: torch.Tensor) -> torch.Tensor:
     s = 0.5 * torch.stack(
         [R_err[2, 1] - R_err[1, 2], R_err[0, 2] - R_err[2, 0], R_err[1, 0] - R_err[0, 1]]
     )
-    m2 = s[0] * s[0] + s[1] * s[1] + s[2] * s[2]
-    fac = 1.0 + m2 * (1.0 / 6.0 + m2 * (3.0 / 40.0 + m2 * (15.0 / 336.0)))
+    m2 = _sum3(s[0], s[0], s[1], s[1], s[2], s[2])
+    fac = _fma(m2, _fma(m2, _fma(m2, 15.0 / 336.0, 3.0 / 40.0), 1.0 / 6.0), 1.0)
     return s * fac
 
 
@@ -183,24 +179,24 @@ def _kernel_plain(
             d = dts[k, j]
             w = gyro[k, 3 * j : 3 * j + 3] - bg_c
             f = accel[k, 3 * j : 3 * j + 3] - ba_c
-            a_w = _mv3(R, f) + g_w
-            p_n = p + v * d + (0.5 * d * d) * a_w
-            v_n = v + a_w * d
-            R_n = _mm3(R, _so3_exp(w * d))
+            a_w = _mv3k(R, f) + g_w
+            p_n = _fma((0.5 * d) * d, a_w, _fma(v, d, p))
+            v_n = _fma(a_w, d, v)
+            R_n = _mm3k(R, _so3_exp(w * d))
             F = eye16.clone()
             F[0:3, 3:6] = eye3 * d
-            F[3:6, 6:9] = _mm3(R, _skew(f)) * (-d)
+            F[3:6, 6:9] = _mm3k(R, _skew(f)) * (-d)
             F[3:6, 12:15] = R * (-d)
             F[6:9, 6:9] = eye3 + (_so3_exp(w * (-d)) - eye3)
             F[6:9, 9:12] = eye3 * (-d)
-            P = _mm(_mm(F, P), F.T) + q_base * d
+            P = _fma(q_base, d, xm.mm_lanes(xm.mm_lanes(F, P), F.T))
             p, v, R = p_n, v_n, R_n
 
         # the pair list was built at the dead-reckoned prediction with
         # slack * k + base dilation
         dp = p - pred_t[k]
-        slack_dist = torch.sqrt(dp[0] * dp[0] + dp[1] * dp[1] + dp[2] * dp[2])
-        budget = torch.tensor(params.superstep_slack, **f32) * k + params.slack_base
+        slack_dist = xm.sqrtf(_sum3(dp[0], dp[0], dp[1], dp[1], dp[2], dp[2]))
+        budget = _fma(torch.tensor(params.superstep_slack, **f32), float(k), params.slack_base)
         slack_viol = slack_dist > budget
 
         # 2) GN registration in the anchor-rebased frame
@@ -218,14 +214,14 @@ def _kernel_plain(
             matched = assoc
         R_icp, t_reb, tot = _gn_passes_plain(R, p - center, src, matched, p2p)
         W, wr2 = tot[27], tot[28]
-        rmse = torch.sqrt(wr2 / torch.clamp(W, min=1.0))
+        rmse = xm.sqrtf(wr2 / torch.clamp(W, min=1.0))
         enough = W >= 3.0
         R_meas = torch.where(enough, R_icp, R)
         t_meas = torch.where(enough, t_reb + center, p)
         t_meas_reb = torch.where(enough, t_reb, p - center)
 
         # 3) EKF pose update (models/ekf.py:162-184)
-        r6 = torch.cat([t_meas - p, _so3_log_small(_mm3(R.T, R_meas))])
+        r6 = torch.cat([t_meas - p, _so3_log_small(_mm3k(R.T, R_meas))])
         if params.icp_cov_mode == "gn":
             # sigma^2 (JtJ)^-1, mapped from the left-perturbation frame to
             # (dp, dtheta_body): dp = rho + phi x t, dtheta_body = R^T phi
@@ -235,41 +231,42 @@ def _kernel_plain(
             C[0:3, 0:3] = eye3
             C[0:3, 3:6] = -_skew(t_meas_reb)
             C[3:6, 3:6] = R_meas.T
-            Rm = _mm(_mm(C, Sg), C.T) + meas
+            Rm = xm.mm_lanes(xm.mm_lanes(C, Sg), C.T) + meas
             if params.gn_anchor_cov:
                 Rm = Rm + S_anchor
         else:
             Rm = meas
         PE = P[:, pose_idx]  # (16, 6)
         S_inv = _inv6_cholesky(PE[pose_idx] + Rm)
-        Kk = _mm(PE, S_inv)  # (16, 6)
-        dx = _mv(Kk, r6)
+        Kk = xm.mm_lanes(PE, S_inv)  # (16, 6)
+        dx = xm.mv3(Kk, r6)
         p2, v2 = p + dx[0:3], v + dx[3:6]
-        R2 = _mm3(R, _so3_exp(dx[6:9]))
+        R2 = _mm3k(R, _so3_exp(dx[6:9]))
         bg2, ba2 = bg_c + dx[9:12], ba_c + dx[12:15]
         KE = torch.zeros((16, 16), **f32)
         KE[:, pose_idx] = Kk
         A = eye16 - KE
-        P2 = _mm(_mm(A, P), A.T) + _mm(_mm(Kk, Rm), Kk.T)
+        P2 = (xm.mm_lanes(xm.mm_lanes(A, P), A.T)
+              + xm.mm_lanes(xm.mm_lanes(Kk, Rm), Kk.T))
 
         # 4) chi^2-gated GPS update (models/ekf.py:187-211)
         gv = gps_valid[k] != 0
         var = gps_var[k]
         r3 = gps_pos[k] - p2
         S3 = P2[0:3, 0:3] + eye3 * var
-        S3_inv, _ = _adjugate_transpose_over_det(S3)
-        q3 = _mv3(S3_inv, r3)
-        chi2 = r3[0] * q3[0] + r3[1] * q3[1] + r3[2] * q3[2]
+        S3_inv, _ = _adjugate_k(S3)
+        q3 = _mv3k(S3_inv, r3)
+        chi2 = _sum3(r3[0], q3[0], r3[1], q3[1], r3[2], q3[2])
         acc = ((chi2 <= e.gps_chi2_gate) & gv).float()
-        K3 = _mm(P2[:, 0:3], S3_inv)  # (16, 3)
-        dx3 = _mv(K3, r3)
+        K3 = _mm_k3(P2[:, 0:3], S3_inv)  # (16, 3)
+        dx3 = xm.mv3(K3, r3)
         p3, v3 = p2 + acc * dx3[0:3], v2 + acc * dx3[3:6]
-        R3 = _mm3(R2, _so3_exp(acc * dx3[6:9]))
+        R3 = _mm3k(R2, _so3_exp(acc * dx3[6:9]))
         bg3, ba3 = bg2 + acc * dx3[9:12], ba2 + acc * dx3[12:15]
         KE3 = torch.zeros((16, 16), **f32)
         KE3[:, 0:3] = K3
         A3 = eye16 - acc * KE3
-        P3 = _mm(_mm(A3, P2), A3.T) + (acc * var) * _mm(K3, K3.T)
+        P3 = _fma(acc * var, xm.mm3(K3, K3.T), xm.mm_lanes(xm.mm_lanes(A3, P2), A3.T))
 
         # 5) predicated state update + outputs
         p_c = torch.where(vld, p3, p_c)
@@ -286,9 +283,9 @@ def _kernel_plain(
         row[:9] = vf * torch.stack(
             [
                 rmse, W, acc * gv.float(), chi2, slack_viol.float(), slack_dist,
-                torch.sqrt(torch.clamp(Rm[0, 0], min=0.0)),
-                torch.sqrt(torch.clamp(Rm[1, 1], min=0.0)),
-                torch.sqrt(torch.clamp(Rm[2, 2], min=0.0)),
+                xm.sqrtf(torch.clamp(Rm[0, 0], min=0.0)),
+                xm.sqrtf(torch.clamp(Rm[1, 1], min=0.0)),
+                xm.sqrtf(torch.clamp(Rm[2, 2], min=0.0)),
             ]
         )
         stats.append(row)

@@ -18,8 +18,10 @@ of `BLOCK_ROWS` rows,
 card), so `cumsum_rows` keeps XLA's:
 
 - for CPU tensors it runs `cumsum_rows_plain`;
-- for CUDA float32 tensors it launches csrc/ordered_scan.cu (one launch a
-  level up, the totals' recursion, one launch a level down) or raises.
+- for CUDA float32 tensors it launches csrc/ordered_scan.cu once (one
+  pass: chunks of the tree scanned in shared memory, their totals summed
+  up a tree of flagged items in the scratch in the same order, each
+  chunk's prefix read from its predecessors' and added down) or raises.
 
 The +0.0 start matters: a masked row at a negative coordinate gives -0.0
 moments, and the scan turns a leading -0.0 into +0.0 as XLA's does, except
@@ -59,22 +61,11 @@ def cumsum_rows_plain(x: torch.Tensor) -> torch.Tensor:
     return out.view(nb * BLOCK_ROWS, C)[:N]
 
 
-def scratch_rows(N: int) -> int:
-    """Rows of the scratch the kernel keeps the totals' levels in: N/16 +
-    N/256 + ... rounded up at each level, down to one block."""
-    rows = 0
-    n = N
-    while n > BLOCK_ROWS:
-        n = -(-n // BLOCK_ROWS)
-        rows += n
-    return rows
-
-
 def cumsum_rows(x: torch.Tensor) -> torch.Tensor:
     """The prefix sum of `x` (N, C) along dim 0 in XLA's order, as
     `cumsum_rows_plain`. CPU tensors run the plain version; CUDA float32
-    tensors launch the kernel (csrc/ordered_scan.cu), bit-equal to it; any
-    other tensor raises."""
+    tensors launch the kernel (csrc/ordered_scan.cu) once, bit-equal to it;
+    any other tensor raises (C from 1 to 256)."""
     dev = x.device
     if x.dim() != 2:
         raise ValueError(f"cumsum_rows: shape {tuple(x.shape)}, expected (N, C)")
@@ -87,11 +78,11 @@ def cumsum_rows(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((N, C), dtype=torch.float32, device=dev)
     if N == 0 or C == 0:
         return out
-    S = scratch_rows(N)
-    scratch = torch.empty((max(S, 1), C), dtype=torch.float32, device=dev)
-    err = cuda_lib.lib().sfk_cumsum_rows(
-        x.data_ptr(), N, C, out.data_ptr(), scratch.data_ptr(), S, cuda_lib.stream_ptr(x)
-    )
+    so = cuda_lib.lib()
+    S = so.sfk_cumsum_scratch_floats(N, C)
+    scratch = torch.empty(max(S, 1), dtype=torch.float32, device=dev)
+    err = so.sfk_cumsum_rows(x.data_ptr(), N, C, out.data_ptr(), scratch.data_ptr(), S,
+                             cuda_lib.stream_ptr(x))
     cuda_lib.check(err, "cumsum_rows")
     cumsum_rows.launches += 1
     return out

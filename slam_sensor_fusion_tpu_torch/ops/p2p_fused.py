@@ -50,13 +50,11 @@ import torch
 
 from slam_sensor_fusion_tpu_torch.ops import cuda_lib
 from slam_sensor_fusion_tpu_torch.ops import geometry
+from slam_sensor_fusion_tpu_torch.ops import xla_math as xm
 from slam_sensor_fusion_tpu_torch.ops.icp_fused import (
     SOURCE_SENTINEL,
     TARGET_SENTINEL,
-    _adjugate_transpose_over_det,
     _associate_first,
-    _mm3,
-    _mv3,
     _shifts,
 )
 from slam_sensor_fusion_tpu_torch.ops.morton import tile_bboxes
@@ -69,91 +67,199 @@ from slam_sensor_fusion_tpu_torch.ops.point_to_plane import (
 )
 
 # ---------------------------------------------------------------------------
-# scalar tail (plain twins of the device functions in csrc/p2p_fused.cu)
+# scalar tail (the plain versions' arithmetic; the card kernels in
+# csrc/p2p_fused.cu round each operation alone and are held to these within
+# 3e-4)
+#
+# The JAX kernels run on the CPU as XLA compiles them, and the plain
+# versions follow that order so the two agree bit for bit (XLA's optimized
+# HLO and the object code of its fusions, read off `--xla_dump_to`):
+# - LLVM contracts a product that feeds a sum or a difference into a fused
+#   multiply-add: `a b + c d + e f` is fma(e, f, fma(a, b, c d)) (`_sum3`),
+#   `a b - c d` is fma(a, b, -(c d)), `s - a b` is fma(-a, b, s); the GN
+#   step's translation, whose operands are negated, the fma chain from the
+#   first product (`xla_math.mv3`);
+# - XLA rewrites a division by a constant as a product with its float32
+#   reciprocal, `(a / b) / c` as `a / (b c)` and `sqrt(d) sqrt(d)` as `d`;
+# - the 29 moment sums are XLA's tree reduction (`_tree_sum`).
 # ---------------------------------------------------------------------------
 
 
-def _chol6_solve(A: torch.Tensor, b: torch.Tensor) -> list[torch.Tensor]:
+def _fma(a, b, c) -> torch.Tensor:
+    """RN(a b + c) in float32 (scalars become tensors like `a`)."""
+    ref = next(x for x in (a, b, c) if isinstance(x, torch.Tensor))
+    a, b, c = (x if isinstance(x, torch.Tensor) else ref.new_tensor(x) for x in (a, b, c))
+    return xm.fma32(a, b, c)
+
+
+def _sum3(a0, b0, a1, b1, a2, b2) -> torch.Tensor:
+    """a0 b0 + a1 b1 + a2 b2 as XLA's CPU code contracts it."""
+    return _fma(a2, b2, _fma(a0, b0, a1 * b1))
+
+
+def _mm3k(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """3x3 @ 3x3, each entry `_sum3` along k."""
+    return torch.stack([torch.stack([_sum3(A[r, 0], B[0, c], A[r, 1], B[1, c], A[r, 2], B[2, c])
+                                     for c in range(3)]) for r in range(3)])
+
+
+def _mv3k(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """3x3 @ 3, each entry `_sum3` along k."""
+    return torch.stack([_sum3(M[r, 0], v[0], M[r, 1], v[1], M[r, 2], v[2]) for r in range(3)])
+
+
+def _adjugate_k(X: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """X^-T of a 3x3 by its cofactors over the determinant, contracted as
+    XLA's CPU code computes them; returns (X^-T, det)."""
+    a, b, c = X[0, 0], X[0, 1], X[0, 2]
+    d, e, f = X[1, 0], X[1, 1], X[1, 2]
+    g, h, i = X[2, 0], X[2, 1], X[2, 2]
+
+    def m(p, q, r, s):
+        return _fma(p, q, -(r * s))
+
+    A, B, C = m(e, i, f, h), m(f, g, d, i), m(d, h, e, g)
+    cof = torch.stack([A, B, C, m(c, h, b, i), m(a, i, c, g), m(b, g, a, h),
+                       m(b, f, c, e), m(c, d, a, f), m(a, e, b, d)]).reshape(3, 3)
+    det = _fma(c, C, _fma(a, A, b * B))
+    return cof / det, det
+
+
+def _chol6_solve(A, b) -> list[torch.Tensor]:
     """Solve (6x6 SPD) A x = b by fully unrolled scalar Cholesky, pivots
-    floored at sqrt(1e-12); returns 6 scalars."""
+    floored at sqrt(1e-12); `A` indexable as A[i][j], `b` as b[i]; returns
+    6 scalars. The last unknown is its numerator over the last pivot's
+    radicand, as XLA rewrites (y5 / L55) / L55."""
     L = [[None] * 6 for _ in range(6)]
     for i in range(6):
         for j in range(i + 1):
-            s = A[i, j]
+            s = A[i][j]
             for k in range(j):
-                s = s - L[i][k] * L[j][k]
+                s = _fma(-L[i][k], L[j][k], s)
             if i == j:
-                L[i][j] = torch.sqrt(torch.clamp(s, min=1e-12))
+                radicand = torch.clamp(s, min=1e-12)
+                L[i][j] = xm.sqrtf(radicand)
             else:
                 L[i][j] = s / L[j][j]
     y = [None] * 6
     for i in range(6):  # forward substitution L y = b
         s = b[i]
         for k in range(i):
-            s = s - L[i][k] * y[k]
+            s = _fma(-L[i][k], y[k], s)
         y[i] = s / L[i][i]
+    y5_num = s
     x = [None] * 6
     for i in reversed(range(6)):  # back substitution L^T x = y
         s = y[i]
         for k in range(i + 1, 6):
-            s = s - L[k][i] * x[k]
-        x[i] = s / L[i][i]
+            s = _fma(-L[k][i], x[k], s)
+        x[i] = y5_num / radicand if i == 5 else s / L[i][i]
     return x
+
+
+def _recip32(d: float) -> float:
+    """The float32 reciprocal of a float32 constant, as XLA folds it."""
+    return float(torch.tensor(1.0) / torch.tensor(d))
+
+
+#: the three series' divisors, as their float32 reciprocals
+_SERIES = {name: tuple(_recip32(d) for d in ds) for name, ds in
+           {"A": (6.0, 20.0, 42.0), "B": (12.0, 30.0, 56.0), "C": (20.0, 42.0, 72.0)}.items()}
+_SIXTH = float(torch.tensor(1.0 / 6.0))
+
+
+def _taylor(t2: torch.Tensor, which: str) -> torch.Tensor:
+    """1 - t2 / d0 (1 - t2 / d1 (1 - t2 / d2)) of series `which`, each
+    division by a constant a product with its float32 reciprocal."""
+    r0, r1, r2 = _SERIES[which]
+    x = _fma(-t2, r2, 1.0)
+    x = _fma(-(t2 * r1), x, 1.0)
+    return _fma(-(t2 * r0), x, 1.0)
 
 
 def _se3_exp_taylor(rho: torch.Tensor, phi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """exp([phi]x, rho) -> (R, t) via nested 4-term Taylor series of
     A = sin(th)/th, B = (1-cos th)/th^2, C = (1-A)/th^2 (relative truncation
     error < 1e-6 for |th| < 0.5 rad, far beyond any sane GN step)."""
-    t2 = phi[0] * phi[0] + phi[1] * phi[1] + phi[2] * phi[2]
-    A = 1.0 - t2 / 6.0 * (1.0 - t2 / 20.0 * (1.0 - t2 / 42.0))
-    B = 0.5 * (1.0 - t2 / 12.0 * (1.0 - t2 / 30.0 * (1.0 - t2 / 56.0)))
-    C = (1.0 / 6.0) * (1.0 - t2 / 20.0 * (1.0 - t2 / 42.0 * (1.0 - t2 / 72.0)))
+    t2 = _sum3(phi[0], phi[0], phi[1], phi[1], phi[2], phi[2])
+    A = _taylor(t2, "A")
+    B = 0.5 * _taylor(t2, "B")
+    C = _SIXTH * _taylor(t2, "C")
     wx, wy, wz = phi[0], phi[1], phi[2]
     zero = 0.0 * wx
     K = torch.stack(
         [torch.stack([zero, -wz, wy]), torch.stack([wz, zero, -wx]), torch.stack([-wy, wx, zero])]
     )
-    K2 = _mm3(K, K)
+    K2 = _mm3k(K, K)
     eye = torch.eye(3, dtype=torch.float32, device=phi.device)
-    R = eye + A * K + B * K2
-    V = eye + B * K + C * K2
-    return R, _mv3(V, rho)
+    R = _fma(B, K2, _fma(A, K, eye))
+    V = _fma(C, K2, _fma(B, K, eye))
+    return R, xm.mv3(V, rho)
 
 
 def _polar_polish(R: torch.Tensor) -> torch.Tensor:
     """One Newton-polar step X <- (X + X^-T)/2: restores orthogonality of a
     nearly-orthogonal matrix to ~machine precision."""
-    R_invT, _ = _adjugate_transpose_over_det(R)
+    R_invT, _ = _adjugate_k(R)
     return 0.5 * (R + R_invT)
+
+
+#: XLA's CPU tree reduction: a reduced dimension longer than this is first
+#: summed in strided windows of this many elements
+_REDUCE_WINDOW = 32
+
+
+def _tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """x (C, A, B) summed over A and B as XLA's CPU code sums it: while a
+    reduced dimension exceeds 32, a reduce-window of min(dim, 32) strided
+    elements (SAME padding, the padding skipped), each window summed in
+    order from 0 (rows outer, lanes inner); then the rest in order."""
+    W = _REDUCE_WINDOW
+    while x.shape[1] > W or x.shape[2] > W:
+        C, A, B = x.shape
+        wa, wb = min(A, W), min(B, W)
+        oa, ob = -(-A // wa), -(-B // wb)
+        pa, pb = oa * wa - A, ob * wb - B
+        # zero padding: skipped by XLA, added here as +0.0, which changes
+        # only the sign of a -0.0 sum
+        xp = torch.nn.functional.pad(x, (pb // 2, pb - pb // 2, pa // 2, pa - pa // 2))
+        xw = xp.reshape(C, oa, wa, ob, wb).permute(0, 1, 3, 2, 4).reshape(C, oa, ob, wa * wb)
+        acc = torch.zeros((C, oa, ob), dtype=x.dtype, device=x.device)
+        for k in range(wa * wb):
+            acc = acc + xw[..., k]
+        x = acc
+    flat = x.reshape(x.shape[0], -1)
+    acc = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+    for k in range(flat.shape[1]):
+        acc = acc + flat[:, k]
+    return acc
 
 
 def _gn_moments_plain(src_pages, R, t, d2, qn, config: PointToPlaneConfig) -> torch.Tensor:
     """The 29 moments of one GN pass at (R, t) on the matched set (d2
-    (nSt, 1, TM), qn (nSt, 6, TM)), each summed over the lanes of a tile,
-    then over the tiles."""
+    (nSt, 1, TM), qn (nSt, 6, TM)), XLA's tree reduction of the stacked
+    (29, nSt, TM) planes."""
     sx, sy, sz = src_pages[:, 0], src_pages[:, 1], src_pages[:, 2]
-    px = R[0, 0] * sx + R[0, 1] * sy + R[0, 2] * sz + t[0]
-    py = R[1, 0] * sx + R[1, 1] * sy + R[1, 2] * sz + t[1]
-    pz = R[2, 0] * sx + R[2, 1] * sy + R[2, 2] * sz + t[2]
+    px, py, pz = (_sum3(R[a, 0], sx, R[a, 1], sy, R[a, 2], sz) + t[a] for a in range(3))
     qx, qy, qz = qn[:, 0], qn[:, 1], qn[:, 2]
     nx, ny, nz = qn[:, 3], qn[:, 4], qn[:, 5]
     # invalid normals are stored as 0-vectors -> |n|^2 < 0.5
     w_in = (
         (d2[:, 0] < config.max_correspondence_dist_sq)
-        & (nx * nx + ny * ny + nz * nz > 0.5)
+        & (_sum3(nx, nx, ny, ny, nz, nz) > 0.5)
     ).float()
-    r = nx * (px - qx) + ny * (py - qy) + nz * (pz - qz)
+    r = _sum3(nx, px - qx, ny, py - qy, nz, pz - qz)
     w = w_in * torch.clamp(config.huber_delta / torch.clamp(r.abs(), min=1e-12), max=1.0)
     # J = [n, p' x n]
-    J = (nx, ny, nz, py * nz - pz * ny, pz * nx - px * nz, px * ny - py * nx)
+    J = (nx, ny, nz, _fma(py, nz, -(pz * ny)), _fma(pz, nx, -(px * nz)),
+         _fma(px, ny, -(py * nx)))
     wJ = [w * J[a] for a in range(6)]
     planes = (
         [wJ[a] * J[b] for a in range(6) for b in range(a + 1)]
         + [wJ[a] * r for a in range(6)]
         + [w_in, w_in * r * r]
     )
-    return torch.stack(planes).sum(dim=2).sum(dim=1)  # (29,)
+    return _tree_sum(torch.stack(planes))  # (29,)
 
 
 #: lanes of the diagonal in the row-major lower triangle
@@ -194,7 +300,7 @@ def _gn_passes_plain(R, t, src_pages, matched, config: PointToPlaneConfig):
         step = -x * (tot[27] >= 3.0).float()
         R_step, t_step = _se3_exp_taylor(step[:3], step[3:])
         R_step = _polar_polish(R_step)
-        R, t = _mm3(R_step, R), _mv3(R_step, t) + t_step
+        R, t = _mm3k(R_step, R), _mv3k(R_step, t) + t_step
     return R, t, _gn_moments_plain(src_pages, R, t, *matched(R, t), config)
 
 
@@ -205,7 +311,7 @@ def _gn_drive_plain(T0, src_pages, matched, config: PointToPlaneConfig):
     dev = src_pages.device
     R, t, tot = _gn_passes_plain(T0[:3, :3], T0[:3, 3], src_pages, matched, config)
     tri, W, wr2 = _damped(tot, config), tot[27], tot[28]
-    rmse = torch.sqrt(wr2 / torch.clamp(W, min=1.0))
+    rmse = xm.sqrtf(wr2 / torch.clamp(W, min=1.0))
     stats = torch.zeros((1, 128), dtype=torch.float32, device=dev)
     stats[0, 0] = rmse
     stats[0, 1] = W

@@ -15,7 +15,7 @@ association turn an ulp into millimetres (ROADMAP §3):
 - `arccos(x)` is rewritten by XLA as `atan2(sqrt((1 - x) * (1 + x)), x)`.
 - XLA runs with denormals-are-zero and flush-to-zero: a subnormal
   quotient or square root reads as 0.
-- `sqrt` is correctly rounded (torch's vectorized CPU sqrt is not).
+- `sqrt` is correctly rounded (torch's CPU sqrt, MKL's, is not always).
 - Products feeding sums are contracted into fused multiply-adds inside a
   fusion: a sum of three squares is `fma(z, z, fma(y, y, x * x))`, a small
   product the same chain along k, Rodrigues' `I + a K + b K^2` two fmas an
@@ -48,9 +48,9 @@ double-precision reference passes, take torch's own functions.
 
 from __future__ import annotations
 
-import ctypes
 import struct
 
+import numpy as np
 import torch
 
 from slam_sensor_fusion_tpu_torch.ops import cuda_lib
@@ -129,14 +129,24 @@ def fma32_plain(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tens
 
 
 def sqrtf(x: torch.Tensor) -> torch.Tensor:
-    """float32 sqrt correctly rounded, as XLA's is (through float64, whose
-    53 bits make the second rounding exact). torch's vectorized float32
-    sqrt on the CPU is not always correctly rounded. A subnormal input
-    reads as 0, as under XLA's denormals-are-zero. A float64 tensor takes
-    torch's sqrt."""
+    """float32 sqrt correctly rounded, as XLA's is. On the CPU, torch's sqrt
+    calls MKL's vector library, which is not always correctly rounded: on
+    its first call from several threads at once it has rounded one thread's
+    share of a float64 tensor 2^-36 apart. So a CPU tensor takes numpy's
+    sqrt (the processor's IEEE square root, one thread), and a CUDA tensor
+    the card's float64 sqrt (53 bits make the second rounding exact). A
+    subnormal input reads as 0, as under XLA's denormals-are-zero. A
+    float64 tensor takes torch's sqrt."""
     if x.dtype == _F64:
         return torch.sqrt(x)
-    return torch.sqrt(_flush(x).to(_F64)).to(x.dtype)
+    x = _flush(x)
+    if x.device.type == "cpu":
+        a = x.numpy()
+        out = np.empty_like(a)
+        with np.errstate(invalid="ignore"):
+            np.sqrt(a, out=out)
+        return torch.from_numpy(out)
+    return torch.sqrt(x.to(_F64)).to(x.dtype)
 
 
 def dot3(ax, ay, az, bx, by, bz) -> torch.Tensor:
@@ -505,13 +515,18 @@ def on_card(x: torch.Tensor) -> bool:
     return True
 
 
+def _count(fn: str) -> None:
+    xla_math.launches += 1
+    xla_math.launches_by[fn] = xla_math.launches_by.get(fn, 0) + 1
+
+
 def launch(fn: str, ins: list[torch.Tensor], outs: list[torch.Tensor], n: int = 0,
-           params: tuple = (), mask: int = 0) -> None:
-    """One launch of csrc/xla_math.cu's function `fn` on float32 CUDA
-    tensors: up to three inputs, read as the function's comment in the
+           params: tuple = ()) -> None:
+    """One launch of csrc/xla_math.cu's composite function `fn` on float32
+    CUDA tensors: up to three inputs, read as the function's comment in the
     source says (contiguous, or through the strides in `params`), written
-    into up to three outputs; `n` items of the grid-stride functions, bit j
-    of `mask` for an input j of one element read as a scalar."""
+    into up to three outputs; `n` items of the grid-stride functions. The
+    elementwise functions launch through `xla_math`."""
     dev = outs[0].device
     for j, x in enumerate(list(ins) + list(outs)):
         if x.device != dev or x.dtype != torch.float32:
@@ -519,15 +534,48 @@ def launch(fn: str, ins: list[torch.Tensor], outs: list[torch.Tensor], n: int = 
                              f"expected float32 on {dev}")
     if n == 0 and fn not in ("propagate", "dead_reckon"):
         return
-    ptr = [x.data_ptr() for x in ins] + [0] * (3 - len(ins))
-    optr = [x.data_ptr() for x in outs] + [0] * (3 - len(outs))
-    err = cuda_lib.lib().sfk_xla_math(
-        FN[fn], *ptr, mask, *optr, n, (ctypes.c_longlong * 10)(*params),
-        cuda_lib.stream_ptr(outs[0]),
-    )
+    ptr = [x.data_ptr() for x in ins] + [None] * (3 - len(ins))
+    optr = [x.data_ptr() for x in outs] + [None] * (3 - len(outs))
+    err = cuda_lib.lib().sfk_xla_math(FN[fn], *ptr, *optr, n, *params,
+                                      *_ZEROS[len(params):], cuda_lib.stream_ptr(outs[0]))
     cuda_lib.check(err, f"xla_math {fn}")
-    xla_math.launches += 1
-    xla_math.launches_by[fn] = xla_math.launches_by.get(fn, 0) + 1
+    _count(fn)
+
+
+#: the unused integer arguments of a launch
+_ZEROS = (0,) * 10
+_F32 = torch.float32
+
+
+def _launch_ew(fn: str, ins, outs, shape) -> None:
+    """One launch of the elementwise function `fn`: contiguous operands of
+    the output's shape and single elements (read as scalars) through
+    `sfk_xla_ew`, others through their broadcast strides (no copy)."""
+    n = outs[0].numel()
+    if n == 0:
+        return
+    o1 = outs[1].data_ptr() if len(outs) > 1 else None
+    ptr = [x.data_ptr() for x in ins] + [None] * (3 - len(ins))
+    mask, flat = 0, True
+    for j, x in enumerate(ins):
+        if x.numel() == 1:
+            mask |= 1 << j
+        elif x.shape != shape or not x.is_contiguous():
+            flat = False
+    lib, stream = cuda_lib.lib(), cuda_lib.stream_ptr(outs[0])
+    if flat:
+        err = lib.sfk_xla_ew(FN[fn], *ptr, mask, outs[0].data_ptr(), o1, n, stream)
+    else:
+        if len(shape) > 4:
+            raise ValueError(f"xla_math {fn}: {len(shape)} broadcast dimensions, at most 4")
+        pad = 4 - len(shape)
+        strides = [[0] * pad + list(x.expand(shape).stride()) for x in ins]
+        strides += [[0] * 4] * (3 - len(ins))
+        err = lib.sfk_xla_ew_strided(FN[fn], *ptr, outs[0].data_ptr(), o1, n,
+                                     *([1] * pad + list(shape)), *strides[0], *strides[1],
+                                     *strides[2], stream)
+    cuda_lib.check(err, f"xla_math {fn}")
+    _count(fn)
 
 
 def xla_math(fn: str, *ins: torch.Tensor):
@@ -535,31 +583,36 @@ def xla_math(fn: str, *ins: torch.Tensor):
     "atan2" (y, x) and "fma" (a, b, c; a * b + c rounded once) -> one
     tensor) on float32 tensors of shapes that broadcast, in XLA-on-CPU's
     bits. CPU tensors run the plain versions; CUDA tensors launch
-    csrc/xla_math.cu once; any other device raises. Float64 tensors (a
-    reference computed in double) take torch's own functions."""
-    if ins[0].dtype == _F64:
+    csrc/xla_math.cu once; any other device, or a CUDA tensor of another
+    dtype, raises. Float64 tensors (a reference computed in double) take
+    torch's own functions."""
+    x0 = ins[0]
+    if x0.dtype == _F64:
         return _TORCH64[fn](*ins)
-    if not on_card(ins[0]):
+    if not on_card(x0):
         return _PLAIN[fn](*ins)
-    shape = torch.broadcast_shapes(*[x.shape for x in ins])
-    flat, mask = [], 0
-    for j, x in enumerate(ins):
-        if x.numel() == 1:
-            mask |= 1 << j
-            flat.append(x.reshape(1).contiguous())
-        else:
-            flat.append(x.expand(shape).contiguous())
-    outs = [torch.empty(shape, dtype=torch.float32, device=ins[0].device)
-            for _ in range(2 if fn == "sincos" else 1)]
-    launch(fn, flat, outs, n=outs[0].numel(), mask=mask)
-    return tuple(outs) if fn == "sincos" else outs[0]
+    dev, shape = x0.device, x0.shape
+    for x in ins[1:]:
+        if x.device != dev or x.dtype != _F32:
+            raise ValueError(f"xla_math {fn}: an operand is {x.dtype} on {x.device}, "
+                             f"expected float32 on {dev}")
+        if x.shape != shape:
+            shape = torch.broadcast_shapes(shape, x.shape)
+    out = torch.empty(shape, dtype=_F32, device=dev)
+    if fn == "sincos":
+        outs = (out, torch.empty(shape, dtype=_F32, device=dev))
+        _launch_ew(fn, ins, outs, shape)
+        return outs
+    _launch_ew(fn, ins, (out,), shape)
+    return out
 
 
 #: the values of the state csrc/xla_math.cu's IMU functions read and write:
 #: p (3), v (3), R (9), bg (3), ba (3), P (225)
 IMU_STATE = 246
 
-#: kernel launches made by `launch` (CUDA tensors only): in all, and by function
+#: kernel launches made by `launch` and `xla_math` (CUDA tensors only): in
+#: all, and by function
 xla_math.launches = 0
 xla_math.launches_by = {}
 

@@ -52,9 +52,11 @@ from slam_sensor_fusion_tpu_torch.ops.superblock_fused import (
     superblock_fine_plain,
 )
 from torch_lio_world import (
+    K7_DIGEST,
     K7_SHAPES,
     K7_WIDE,
     ODD_LIO,
+    P2P_DIGEST,
     XLA_MATH_CASES,
     ground_and_walls,
     k7_case,
@@ -505,11 +507,6 @@ def test_sp_icp_align_on_the_card_matches_the_cpu(cuda_device):
     torch.testing.assert_close(got.transformation.cpu(), want.transformation, rtol=0, atol=1e-4)
 
 
-#: `p2p_digest` of K4, K5 and K6 as built before their device functions
-#: moved into csrc/p2p_fused.cuh (NVIDIA H100 80GB HBM3)
-P2P_DIGEST = "fe9b69ff3a2114e57bd6f478c916440175859294bc76ae9359ef0d60a2250539"
-
-
 def test_p2p_kernels_unchanged_by_the_header_move(cuda_device):
     assert p2p_digest(cuda_device) == P2P_DIGEST
 
@@ -564,17 +561,6 @@ def test_lio_superblock_skips_padding_frames(cuda_device):
     assert torch.equal(got[2], got[0][0])
     assert (got[1][1:] == 0).all() and (want[1][1:] == 0).all()
     torch.testing.assert_close(got[6], want[6], rtol=0, atol=1e-4 * want[6].abs().max().item())
-
-
-#: `k7_digest` of K7 as the one-block kernel computed it, before its
-#: association spread over a cooperative grid (NVIDIA H100 80GB HBM3). Its
-#: inputs are a fixture (torch_lio_world.K7_INPUTS), so it moves only when
-#: K7 does. Before the fixture they came out of the port's host path and
-#: the value moved with it (the cell normals' prefix sum in XLA's order, the
-#: host path in XLA's float32 rounding); each time, and on the fixture, the
-#: kernel of the commit before the change gave these same bits, in one chip
-#: call
-K7_DIGEST = "456f963ef1a709d10f12f6b942b6b52e77eff8b63185d74920c1b4afe8aee558"
 
 
 def test_lio_superblock_bits_equal_the_one_block_kernel(cuda_device):
@@ -932,3 +918,81 @@ def test_xla_math_refuses_other_tensors(cuda_device):
 
     with pytest.raises(ValueError):
         xm.sinf(torch.ones(4, dtype=torch.float16, device=cuda_device))
+
+
+def test_xla_math_composite_entry_refuses_elementwise(cuda_device):
+    """`sfk_xla_math` launches the composite functions only: an elementwise
+    function there returns cudaErrorInvalidValue (1) and launches nothing;
+    those go through `sfk_xla_ew` / `sfk_xla_ew_strided`."""
+    from slam_sensor_fusion_tpu_torch.ops import cuda_lib
+    from slam_sensor_fusion_tpu_torch.ops import xla_math as xm
+
+    a = torch.ones(8, device=cuda_device)
+    out = torch.empty(8, device=cuda_device)
+    so = cuda_lib.lib()
+    for fn in ("sincos", "atan2", "acos", "fma"):
+        before = so.sfk_xla_math_kernel_launches()
+        err = so.sfk_xla_math(xm.FN[fn], a.data_ptr(), a.data_ptr(), a.data_ptr(),
+                              out.data_ptr(), out.data_ptr(), None, 8, *([0] * 10),
+                              cuda_lib.stream_ptr(a))
+        assert err == 1 and so.sfk_xla_math_kernel_launches() == before
+
+
+def _kernel_launches(fn, counter: str) -> int:
+    """The kernels one call of `fn` launches, by the kernel library's own
+    count (`sfk_xla_math_kernel_launches`, `sfk_cumsum_kernel_launches`;
+    the profiler drops some launches)."""
+    from slam_sensor_fusion_tpu_torch.ops import cuda_lib
+
+    count = getattr(cuda_lib.lib(), counter)
+    before = count()
+    fn()
+    torch.cuda.synchronize()
+    return count() - before
+
+
+@pytest.mark.parametrize("fn", ["sincos", "atan2", "acos", "fma"])
+def test_xla_math_launch_paths_bits_equal_plain(cuda_device, fn):
+    """Each elementwise function through its three launch paths, bit-equal
+    to the plain version on the CPU in one kernel launch: 16-byte
+    accesses (aligned contiguous operands), one value a thread (views one
+    element off the alignment) and broadcast strides read in place
+    (operands of shapes (512, 1), (512, 512) and (512,))."""
+    from slam_sensor_fusion_tpu_torch.ops import xla_math as xm
+
+    host = [torch.from_numpy(a) for a in xla_math_inputs(fn, 1 << 19, seed=3)]
+    k = len(host)
+    shapes = [(512, 1), (512, 512), (512,)][:k] if k > 1 else [(512, 512)]
+    cases = {"vec": host, "scalar": [a[1:] for a in host],
+             "strided": [a[: int(np.prod(s))].reshape(s) for a, s in zip(host, shapes)]}
+    if k == 1:
+        cases["strided"] = [cases["strided"][0].T]
+    for path, ins in cases.items():
+        # the card's views one element off (or transposed) as the host's
+        dev_ins = ([h.to(cuda_device)[1:] for h in host] if path == "scalar"
+                   else [a.to(cuda_device) for a in ins])
+        if path == "strided" and k == 1:
+            dev_ins = [host[0][: 512 * 512].reshape(512, 512).to(cuda_device).T]
+        call = lambda: xm.xla_math(fn, *dev_ins)  # noqa: E731
+        assert _kernel_launches(call, "sfk_xla_math_kernel_launches") == 1, path
+        got = call()
+        want = xm.xla_math(fn, *ins)
+        got, want = (got, want) if fn == "sincos" else ((got,), (want,))
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and _same_or_nan(g, w), path
+
+
+@pytest.mark.parametrize("n, C", [(1, 10), (17, 10), (4097, 10), (65536, 10), (2**20 + 3, 10),
+                                  (300, 1), (1000, 13), (700, 60)])
+def test_cumsum_rows_one_launch_matches_plain(cuda_device, n, C):
+    """The ordered scan in one launch of its kernel at every length, 256-row
+    chunks (C up to 45) and 16-row chunks past that: bits equal its plain
+    version on the CPU, -0.0 rows included."""
+    from slam_sensor_fusion_tpu_torch.ops import ordered_scan as os_
+
+    rng = np.random.default_rng(n + C)
+    x = (rng.normal(0.0, 1.0, (n, C)) * 10.0 ** rng.uniform(-3, 6, (n, 1))).astype(np.float32)
+    x[rng.uniform(size=n) < 0.1] = -0.0
+    xd = torch.from_numpy(x).to(cuda_device)
+    assert _kernel_launches(lambda: os_.cumsum_rows(xd), "sfk_cumsum_kernel_launches") == 1
+    assert _same_bits(os_.cumsum_rows(xd).cpu(), os_.cumsum_rows_plain(torch.from_numpy(x)))

@@ -37,6 +37,7 @@ from slam_sensor_fusion_tpu.ops import point_to_plane as jp
 from slam_sensor_fusion_tpu.ops.cloud import Cloud as JCloud
 from slam_sensor_fusion_tpu.ops.morton import sort_by_morton as jsort
 from slam_sensor_fusion_tpu_torch.ops import point_to_plane as tp
+from slam_sensor_fusion_tpu_torch.ops import xla_math as xm
 from slam_sensor_fusion_tpu_torch.utils import synthetic as syn
 from slam_sensor_fusion_tpu_torch.ops.geometry import transform_points
 from slam_sensor_fusion_tpu_torch.ops.nn_pallas import make_pages, pair_nn_plain
@@ -237,11 +238,32 @@ def _k2_case():
     return pair_nn_plain(src_pages, tgt_pages, *pairs)
 
 
-@pytest.mark.parametrize("case", [_voxel_normals_case, _k2_case], ids=["voxel-normals", "k2"])
+def _angle_sweep(lo: float, hi: float) -> torch.Tensor:
+    """98 310 seeded float32 values: in [lo, hi], of 1e-8 to 1e6 in
+    magnitude, with +-0, subnormals and +-1; no NaN."""
+    rng = np.random.default_rng(11)
+    special = np.array([0.0, -0.0, 1e-45, -1e-39, 1.0, -1.0], np.float32)
+    mags = np.sign(rng.normal(size=1 << 15)) * 10.0 ** rng.uniform(-8, 6, 1 << 15)
+    return t(np.concatenate([special, rng.uniform(lo, hi, 1 << 16), mags]).astype(np.float32))
+
+
+def _acos_case():
+    return (xm.acosf(_angle_sweep(-1.0, 1.0).clamp(-1.0, 1.0)),)
+
+
+def _atan2_case():
+    y = _angle_sweep(-np.pi, np.pi)
+    return (xm.atan2f(y, y.flip(0)),)
+
+
+@pytest.mark.parametrize("case", [_voxel_normals_case, _k2_case, _acos_case, _atan2_case],
+                         ids=["voxel-normals", "k2", "acos", "atan2"])
 def test_plain_versions_bits_equal_at_default_threads(case):
     """The port's CPU tests run torch on one thread (tests/torch_parity.py):
-    the voxel normals (moments, normals, valid flags) and K2's plain
-    version at the LIO's 512 x 1024 tiles give the same bits at torch's
+    the voxel normals (moments, normals, valid flags), K2's plain version at
+    the LIO's 512 x 1024 tiles, and XLA's acos and atan2 (whose sqrt takes
+    numpy's: torch's CPU sqrt, MKL's, rounded one thread's share apart on
+    its first call from several threads) give the same bits at torch's
     default thread count."""
     one = case()
     torch.set_num_threads(DEFAULT_THREADS)

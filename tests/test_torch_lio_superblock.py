@@ -11,18 +11,26 @@ a block of 3 frames padded with a no-op frame; deskew on).
 
 Tolerances, as found at this size:
  * K7 plain vs the Pallas kernel on the same inputs: poses and the state
-   1e-4 (found ~1e-6), P 1e-4 of max|P|, n_corr, GPS acceptance and the
-   slack flags EQUAL, the other stats lanes 1e-4 relative;
- * `run_lio_superblocks`: 1.2e-7 m in the first block (found 6.0e-8, K7's
+   2e-8 (found 5.6e-9), P 1e-8 of max|P| (found 2.9e-9), n_corr, GPS
+   acceptance and the slack flags EQUAL, the other stats lanes 1e-6
+   relative (found 2.6e-7; EQUAL with constant measurement noise). The
+   plain version follows XLA's CPU order (ops/p2p_fused's scalar tail);
+   what remains is the 29 GN moments: on some frames XLA's fused plane
+   loops round up to 3 of the 29 sums one ulp away from the tree
+   reduction the plain version follows (K4's own kernel on the same
+   inputs rounds them as K7 does);
+ * `run_lio_superblocks`: 2e-8 m in the first block (found 5.6e-9, K7's
    plain version against the kernel in interpret mode), 2e-5 m after the
-   port's own refresh (found 9.3e-6: the host path rounds as XLA does,
-   ops/xla_math, in the dead reckoning, deskew and the cell normals, and
-   what parts is K7's plain version and LAPACK, ROADMAP §3); pair demand, pair overflow, slack violations, GPS
-   acceptance, `refreshed` and n_correspondences EQUAL; the first block's
-   slack distance to 1e-6 m (found 7.5e-8), its ICP std to 1e-6 relative
-   (found 6.9e-8) and rmse to 1e-7 (found 1.5e-8); the final state's
-   position 2e-5 m (found 9.3e-6), velocity 3e-5 m/s (found 1.4e-5), P
-   1e-5 of max|P| (found 1.4e-6) and ring 1e-4 m (found 4.9e-5);
+   port's own refresh (found 1.2e-5: the refresh's thin cells amplify the
+   first block's residual, and the host path rounds as XLA does,
+   ops/xla_math, in the dead reckoning, deskew and the cell normals, with
+   LAPACK's inverses left, ROADMAP §3); pair demand, pair overflow, slack
+   violations, GPS acceptance, `refreshed` and n_correspondences EQUAL;
+   the first block's slack distance to 5e-8 m (found 7.5e-9), its ICP std
+   to 1e-7 relative (found 0) and rmse to 5e-8 (found 1.5e-8); the final
+   state's
+   position 2e-5 m (found 1.2e-5), velocity 3e-5 m/s (found 2.5e-5), P
+   1e-5 of max|P| (found 2.3e-7) and ring 1e-4 m (found 6.6e-5);
  * `_dead_reckon` EQUAL bit for bit; `packed_sample_indices` EQUAL; the dense ICP
    fallback 1e-4 with equal iteration and correspondence counts."""
 
@@ -95,7 +103,7 @@ def test_run_lio_superblocks_matches_jax(runs):
     d = np.abs(out_t.world_T_body.numpy() - out_j.world_T_body).max(axis=(1, 2))
     print("pose diff per frame", d)
     assert out_t.world_T_body.shape == (N_STEPS, 4, 4)
-    assert d[:R].max() < 1.2e-7, d
+    assert d[:R].max() < 2e-8, d
     assert d.max() < 2e-5, d
     for name in ("pair_demand", "pair_overflow", "slack_violation", "gps_accepted", "refreshed"):
         np.testing.assert_array_equal(getattr(out_t, name).numpy(), getattr(out_j, name),
@@ -103,9 +111,9 @@ def test_run_lio_superblocks_matches_jax(runs):
     n_j, n_t = out_j.n_correspondences, out_t.n_correspondences.numpy()
     np.testing.assert_array_equal(n_t, n_j)
     assert (n_t > 300).all()
-    np.testing.assert_allclose(out_t.slack_dist.numpy()[:R], out_j.slack_dist[:R], atol=1e-6)
-    np.testing.assert_allclose(out_t.icp_std_xyz.numpy()[:R], out_j.icp_std_xyz[:R], rtol=1e-6)
-    np.testing.assert_allclose(out_t.rmse.numpy()[:R], out_j.rmse[:R], atol=1e-7)
+    np.testing.assert_allclose(out_t.slack_dist.numpy()[:R], out_j.slack_dist[:R], atol=5e-8)
+    np.testing.assert_allclose(out_t.icp_std_xyz.numpy()[:R], out_j.icp_std_xyz[:R], rtol=1e-7)
+    np.testing.assert_allclose(out_t.rmse.numpy()[:R], out_j.rmse[:R], atol=5e-8)
     assert out_t.pair_demand.dtype == torch.int32 and not out_t.pair_overflow.any()
     # it tracks the ground truth (tests/test_lio.py's bound)
     gt = np.linalg.norm(out_t.world_T_body.numpy()[:, :3, 3] - runs["poses"][1:, :3, 3], axis=1)
@@ -160,13 +168,15 @@ def test_k7_plain_matches_pallas_kernel(runs, cov_mode):
     poses, stats, pose, v, bg, ba, P = [x.numpy() for x in got]
     for name, a, b in [("poses", poses, want[0]), ("pose", pose, want[2]), ("v", v, want[3]),
                        ("bg", bg, want[4]), ("ba", ba, want[5])]:
-        np.testing.assert_allclose(a, b, rtol=0, atol=1e-4, err_msg=name)
-    np.testing.assert_allclose(P, want[6], rtol=0, atol=1e-4 * np.abs(want[6]).max())
+        np.testing.assert_allclose(a, b, rtol=0, atol=2e-8, err_msg=name)
+    np.testing.assert_allclose(P, want[6], rtol=0, atol=1e-8 * np.abs(want[6]).max())
     for lane in (1, 2, 4):
         np.testing.assert_array_equal(stats[:, lane], want[1][:, lane], err_msg=f"lane {lane}")
     for lane in (0, 3, 5, 6, 7, 8):
-        np.testing.assert_allclose(stats[:, lane], want[1][:, lane], rtol=1e-4, atol=1e-7,
+        np.testing.assert_allclose(stats[:, lane], want[1][:, lane], rtol=1e-6, atol=1e-9,
                                    err_msg=f"lane {lane}")
+    if cov_mode == "constant":
+        np.testing.assert_array_equal(stats, want[1])
     assert (stats[:, 9:] == 0).all()
     assert (stats[:, 1] > 300).all()
     print(cov_mode, "max pose diff", np.abs(poses - want[0]).max(), "gps", stats[:, 2])

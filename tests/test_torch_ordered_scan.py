@@ -68,5 +68,5 @@ def test_cumsum_rows_dispatch():
         os_.cumsum_rows(x.to("meta"))
     with pytest.raises(ValueError, match="expected"):
         os_.cumsum_rows(x[:, 0])
-    # the kernel's scratch: one level of totals a factor of 16, to one block
-    assert [os_.scratch_rows(n) for n in (1, 16, 17, 256, 257, 65536)] == [0, 0, 2, 16, 19, 4368]
+    # the kernel's chunks and scratch are the library's own
+    # (tests/test_torch_ordered_scan_host.py)

@@ -236,6 +236,21 @@ def load_k7_inputs(device) -> dict:
     return out
 
 
+#: `k7_digest` of K7 as the one-block kernel computed it, before its
+#: association spread over a cooperative grid (NVIDIA H100 80GB HBM3). Its
+#: inputs are a fixture (K7_INPUTS), so it moves only when K7 does. Before
+#: the fixture they came out of the port's host path and the value moved
+#: with it (the cell normals' prefix sum in XLA's order, the host path in
+#: XLA's float32 rounding); each time, and on the fixture, the kernel of
+#: the commit before the change gave these same bits, in one chip call.
+#: tests/test_torch_cuda.py and chip_smoke.py's phase 17 hold the card to it
+K7_DIGEST = "456f963ef1a709d10f12f6b942b6b52e77eff8b63185d74920c1b4afe8aee558"
+
+#: `p2p_digest` of K4, K5 and K6 as built before their device functions
+#: moved into csrc/p2p_fused.cuh (NVIDIA H100 80GB HBM3); held as K7_DIGEST
+P2P_DIGEST = "fe9b69ff3a2114e57bd6f478c916440175859294bc76ae9359ef0d60a2250539"
+
+
 def k7_digest(device) -> str:
     """SHA-256 of `lio_superblock`'s outputs on K7_INPUTS' blocks, the
     bench block with frames 0, 7 and 15 invalid, and the odd block with
