@@ -2861,6 +2861,167 @@ def phase17(dev, tag, r14, r15) -> dict:
     return out
 
 
+#: phase 18: xla_math's launches along the LIO paths (34 a per-frame
+#: step, 7 a block), as the smoke counted them before the CPU's LAPACK
+#: (ops/lapack_cpu) came in; it must leave them as they were
+XM_LAUNCHES_PINNED = {"lio_blocks": 8720, "lio_session": 5001, "lio_chunk": 1124,
+                      "lio_superblocks": 112, "kitti_lio": 112}
+#: phase 18: points of the changed xla_math composites' check (deskew, the
+#: cell normals)
+P18_POINTS = 1 << 18
+
+
+def lapack_cpu_counter() -> dict:
+    """Count the calls into ops/lapack_cpu (scipy's LAPACK for CPU tensors)
+    by the device of their first argument; installed before any phase."""
+    from slam_sensor_fusion_tpu_torch.ops import lapack_cpu
+
+    calls = {}
+
+    def counted(name, fn):
+        def call(a, *rest):
+            calls[(name, a.device.type)] = calls.get((name, a.device.type), 0) + 1
+            return fn(a, *rest)
+        return call
+
+    for name in ("inv", "solve", "eigh"):
+        setattr(lapack_cpu, name, counted(name, getattr(lapack_cpu, name)))
+    return calls
+
+
+def digests_pinned() -> dict:
+    """K1_DIGEST, K2_DIGEST and K3_DIGEST as tests/test_torch_cuda.py pins
+    them (read from its text: it imports pytest)."""
+    import re
+
+    with open(os.path.join(REPO, "tests", "test_torch_cuda.py")) as f:
+        text = f.read()
+    return {k: re.search(rf'^{k} = "([0-9a-f]+)"', text, re.M).group(1)
+            for k in ("K1_DIGEST", "K2_DIGEST", "K3_DIGEST")}
+
+
+def phase18(dev, tag, xm_launches, lapack_calls, r16, w18) -> dict:
+    """The CPU's LAPACK from the JAX package's library (ops/lapack_cpu) and
+    the LIO parity repairs leave the card as it was: xla_math's launches
+    on every LIO path as pinned, no card path calling ops/lapack_cpu (a
+    card frame and a voxel-normals block counted), the K1-K3 digests as
+    pinned (K4-K7 and P2P in phase 17), the two changed xla_math
+    composites (deskew, the cell normals) bit-equal to their plain
+    versions on P18_POINTS seeded inputs; prints the host syncs a frame
+    that the card's torch.linalg inv, solve and eigh cost, and how often the
+    card's eigenvectors agree in sign with the CPU's (jaxlib's)."""
+    from slam_sensor_fusion_tpu_torch.models import lio
+    from slam_sensor_fusion_tpu_torch.ops import deskew as dk
+    from slam_sensor_fusion_tpu_torch.ops import point_to_plane as pp
+    from slam_sensor_fusion_tpu_torch.ops import xla_math as xm
+
+    t_phase = time.perf_counter()
+    out = {}
+    # (a) xla_math's launches by LIO path, as pinned
+    got = {p: xm_launches.get(p, 0) for p in XM_LAUNCHES_PINNED}
+    print(f"phase 18 xla_math launches by LIO path {got} (pinned {XM_LAUNCHES_PINNED}): "
+          f"{got['lio_blocks'] / 256:.2f} a per-frame step, {got['lio_superblocks'] / 16:.2f} a "
+          f"block [{tag}]", flush=True)
+    if got != XM_LAUNCHES_PINNED:
+        fail(f"phase 18: xla_math launches {got} differ from the pinned {XM_LAUNCHES_PINNED}")
+    out["xla_math_launches"] = got
+
+    # (b) no card path reaches ops/lapack_cpu
+    on_card = {k: v for k, v in lapack_calls.items() if k[1] != "cpu"}
+    lapack_calls.clear()
+    st, arrays, tau, cfg, vcfg = w18["state"], w18["arrays"], w18["tau"], w18["lcfg"], w18["vcfg"]
+    lio.lio_step(st, *[a[0] for a in arrays], cfg, tau[0])
+    lio.run_lio_blocks(st, *[a[:vcfg.refresh_every] for a in arrays], vcfg,
+                       scan_tau=tau[:vcfg.refresh_every])
+    torch.cuda.synchronize()
+    print(f"phase 18 ops/lapack_cpu calls with a card tensor over the run {on_card}; in a card "
+          f"frame (lio_step) and a voxel-normals block (run_lio_blocks): "
+          f"{dict(lapack_calls)} [{tag}]", flush=True)
+    if on_card or lapack_calls:
+        fail(f"phase 18: a card path called ops/lapack_cpu: {on_card or dict(lapack_calls)}")
+
+    # (c) the host syncs of the card's torch.linalg calls
+    g = torch.Generator(device="cpu").manual_seed(18)
+    a6 = torch.randn(6, 6, generator=g)
+    s6 = (a6 @ a6.T + torch.eye(6)).to(dev)
+    s3 = s6[:3, :3].contiguous()
+    b6 = torch.randn(6, generator=g).to(dev)
+    cov = (s3[None] * torch.rand(4096, 1, 1, generator=g).to(dev)).contiguous()
+    syncs = {"inv 6x6": sync_count(lambda: torch.linalg.inv(s6)),
+             "inv 3x3": sync_count(lambda: torch.linalg.inv(s3)),
+             "solve 6x6": sync_count(lambda: torch.linalg.solve(s6, b6)),
+             "eigh 4096 x 3x3": sync_count(lambda: pp._eigh(cov))}
+    # a per-frame step on K4: the GN covariance's inverse and the two
+    # Kalman updates'; the multi-launch GN adds a solve an iteration; a
+    # voxel refresh one eigh a part
+    frame_k4 = 2 * syncs["inv 6x6"] + syncs["inv 3x3"]
+    frame_gn = frame_k4 + vcfg.p2p.num_iterations * syncs["solve 6x6"]
+    frame_sync = sync_count(lambda: lio.lio_step(st, *[a[0] for a in arrays], cfg, tau[0]))
+    print(f"phase 18 host syncs of torch.linalg on the card: {syncs}; a per-frame step "
+          f"(K4) {frame_k4} of its {frame_sync} syncs, the multi-launch GN ("
+          f"{vcfg.p2p.num_iterations} iterations) {frame_gn}, plus {syncs['eigh 4096 x 3x3']} "
+          f"an eigh part at a voxel refresh [{tag}]", flush=True)
+    out["linalg_syncs"] = dict(syncs, frame_k4=frame_k4, frame_gn=frame_gn, frame_all=frame_sync)
+
+    # (d) K1-K3's digests as pinned
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_world import k1_digest, k2_digest, k3_digest
+
+    pinned = digests_pinned()
+    got = {"K1_DIGEST": k1_digest(dev), "K2_DIGEST": k2_digest(dev), "K3_DIGEST": k3_digest(dev)}
+    for k, v in got.items():
+        print(f"{k} on the card: {v} (pinned {pinned[k]}) [{tag}]", flush=True)
+        if v != pinned[k]:
+            fail(f"{k}: the card's {v} differs from the pinned {pinned[k]}")
+    out["digests_equal"] = True
+
+    # (e) the changed composites on the card against their plain versions
+    rng = np.random.default_rng(18)
+    n = P18_POINTS
+    pts = rng.uniform(-60.0, 60.0, (n, 3)).astype(np.float32)
+    taus = rng.uniform(0.0, 1.0, n).astype(np.float32)
+    taus[:64] = 1.0
+    bad = {}
+    for name, xi in (("turning", [0.3, -0.2, 0.05, 0.04, -0.02, 0.3]),
+                     ("slow turn", [1.5, 0.1, -0.02, 1e-4, -3e-4, 2e-3]),
+                     ("straight", [0.1, 0.05, -0.02, 0.0, 0.0, 0.0])):
+        x = np.asarray(xi, np.float32)
+        host = [torch.from_numpy(a) for a in (pts, taus, x)]
+        got_d = dk.deskew(*[h.to(dev) for h in host]).cpu()
+        bad[f"deskew {name}"] = int((got_d.view(torch.int32) != dk.deskew(*host).view(torch.int32)).sum())
+    seg = np.zeros((n, 10), np.float32)
+    cnt = rng.integers(0, 40, n).astype(np.float32)
+    centre = rng.uniform(-150.0, 150.0, (n, 3)).astype(np.float32)
+    spread = (rng.uniform(0.0, 0.5, (n, 3)) * (rng.uniform(size=(n, 1)) < 0.9)).astype(np.float32)
+    seg[:, 0] = cnt
+    seg[:, 1:4] = centre * cnt[:, None]
+    m2 = centre[:, :, None] * centre[:, None, :] + np.eye(3, dtype=np.float32) * spread[:, :, None] ** 2
+    seg[:, 4:7] = np.stack([m2[:, 0, 0], m2[:, 1, 1], m2[:, 2, 2]], 1) * cnt[:, None]
+    seg[:, 7:10] = np.stack([m2[:, 0, 1], m2[:, 0, 2], m2[:, 1, 2]], 1) * cnt[:, None]
+    seg[rng.uniform(size=n) < 0.02] = 0.0
+    hs = torch.from_numpy(seg)
+    want = pp._cell_eigen(hs)
+    got_c = pp._cell_eigen(hs.to(dev))
+    bad["cell_normals"] = sum(int((a.cpu().view(torch.int32) != b.view(torch.int32)).sum())
+                              for a, b in zip(got_c, want))
+    print(f"phase 18 xla_math's changed composites on {n} seeded inputs, elements differing from "
+          f"the plain version's bits: {bad} [{tag}]", flush=True)
+    if any(bad.values()):
+        fail(f"phase 18: a changed xla_math composite parts from its plain version: {bad}")
+    out["composites_bad"] = bad
+
+    # (f) the card's eigen-solve against the CPU's (jaxlib's) in sign
+    signs = {k: (v["same_sign"], v["valid"]) for k, v in r16["normals"].items()}
+    agree = sum(a for a, _ in signs.values())
+    total = sum(b for _, b in signs.values())
+    print(f"phase 18 the card's normals (cuSOLVER's eigh; the tiled and voxel estimators) in "
+          f"the same sign as the CPU's (jaxlib's ssyevd): {agree} of {total} valid points; by "
+          f"case {signs} [{tag}]", flush=True)
+    out["same_sign"] = (agree, total)
+    print(f"phase 18 LAPACK and parity: {time.perf_counter() - t_phase:.1f} s [{tag}]", flush=True)
+    return out
+
+
 def sync_count(fn) -> int:
     """The host synchronisations `fn` makes, counted by torch's sync debug
     mode's warnings."""
@@ -2883,10 +3044,13 @@ def hold_normals(what, got, want, tag) -> dict:
     1 - |n . n'| within NORMALS_CARD_TOL on every valid point."""
     (n_k, v_k), (n_h, v_h) = (x.cpu() for x in got), want
     flips = int((v_k != v_h).sum())
-    gap = (1.0 - (n_k * n_h).sum(-1).abs())[v_h]
-    r = dict(flips=flips, valid=int(v_h.sum()), gap=float(gap.max()) if gap.numel() else 0.0)
+    dot = (n_k * n_h).sum(-1)
+    gap = (1.0 - dot.abs())[v_h]
+    r = dict(flips=flips, valid=int(v_h.sum()), gap=float(gap.max()) if gap.numel() else 0.0,
+             same_sign=int((dot > 0)[v_h].sum()))
     print(f"{what}: the card against the CPU, valid flags differing {flips} of {r['valid']} "
-          f"valid; 1 - |n.n'| max {r['gap']:.3e} (bound {NORMALS_CARD_TOL}) [{tag}]", flush=True)
+          f"valid; 1 - |n.n'| max {r['gap']:.3e} (bound {NORMALS_CARD_TOL}); the same sign on "
+          f"{r['same_sign']} of the valid [{tag}]", flush=True)
     if flips or not r["gap"] < NORMALS_CARD_TOL:
         fail(f"{what}: the card's normals part from the CPU's: {r}")
     return r
@@ -3327,6 +3491,7 @@ def main() -> None:
     tag = card()  # "<name>, <power limit>", printed beside every number
     print(tag, flush=True)
     name = torch.cuda.get_device_name(0)
+    lapack_calls = lapack_cpu_counter()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}", flush=True)
 
     from slam_sensor_fusion_tpu_torch.models import localization as lz
@@ -4491,6 +4656,14 @@ def main() -> None:
     # ---- 17. xla_math a kernel a function (three launch paths), the
     # ordered scan in one launch, the LIO kernels' digests ----
     r17 = phase17(dev, tag, r14, r15)
+
+    # ---- 18. the CPU's LAPACK (jaxlib's, through scipy) and the LIO parity
+    # repairs leave the card as it was: launches, digests, no scipy on the
+    # card; the changed xla_math composites; torch.linalg's host syncs ----
+    r18 = phase18(dev, tag, launches[xla_math], lapack_calls, r16, dict(
+        state=lstate_w, arrays=[a[LIO_WARM_FRAMES:] for a in larrays],
+        tau=ltau[LIO_WARM_FRAMES:], lcfg=lcfg,
+        vcfg=lcfg._replace(normal_est="voxel", p2p=lcfg.p2p._replace(nn_backend="pallas"))))
 
     for kernel in kernels:
         if not sum(launches[kernel].values()):

@@ -431,8 +431,16 @@ __device__ __forceinline__ void deskew_point(const float* p, float tau, const fl
   cross3f(k, p, kxp);
   cross3f(k, kxp, kkp);
   const float omc = 1.0f - cs;
-  cross3f(k, rho, kxr);
-  cross3f(k, kxr, kkr);
+  // k x rho and k x (k x rho) as deskew._kxr_kkr: (k x rho)_x is
+  // fma(-k2, rho1, k1 rho2) where the translation and (k x (k x rho))_y
+  // take it, the first form in (k x (k x rho))_z
+  const float kxr_xa = __fmaf_rn(k[1], rho[2], -(k[2] * rho[1]));
+  kxr[0] = __fmaf_rn(-k[2], rho[1], k[1] * rho[2]);
+  kxr[1] = __fmaf_rn(k[2], rho[0], -(k[0] * rho[2]));
+  kxr[2] = __fmaf_rn(k[0], rho[1], -(k[1] * rho[0]));
+  kkr[0] = __fmaf_rn(k[1], kxr[2], -(k[2] * kxr[1]));
+  kkr[1] = __fmaf_rn(k[2], kxr[0], -(k[0] * kxr[2]));
+  kkr[2] = __fmaf_rn(k[0], kxr[1], -(k[1] * kxr_xa));
   const float sA = s * A, sB = s * B;
   for (int i = 0; i < 3; ++i) {
     const float rp = __fmaf_rn(omc, kkp[i], __fmaf_rn(sn, kxp[i], p[i]));
@@ -453,27 +461,36 @@ __device__ __forceinline__ void cell_normal(const float* seg, float* vec, float*
   const float a01 = __fmaf_rn(-mx, my, seg[7] / c) + 0.0f;
   const float a02 = __fmaf_rn(-mx, mz, seg[8] / c) + 0.0f;
   const float a12 = __fmaf_rn(-my, mz, seg[9] / c) + 0.0f;
-  const float q = ((a00 + a11) + a22) * kThird;
+  // as the plain version: p's fusion and the determinant's contract
+  // sum(a_ij^2) apart, the cosine's argument is one fma, x01's lam_min
+  // adds the trace's third last
+  const float tr = (a00 + a11) + a22;
+  const float q = tr * kThird;
   const float b00 = a00 - q, b11 = a11 - q, b22 = a22 - q;
   const float s1 = __fmaf_rn(b22, b22, __fmaf_rn(b00, b00, b11 * b11));
-  const float s2 = __fmaf_rn(a12, a12, __fmaf_rn(a01, a01, a02 * a02));
-  const float p2 = clamp_min(__fmaf_rn(s2, kThird, s1 * kSixth), 1e-30f);
-  const float p = sqrtf_xla(p2);
+  const float s01 = __fmaf_rn(a01, a01, a02 * a02);
+  const float p = sqrtf_xla(clamp_min(__fmaf_rn(__fmaf_rn(a12, a12, s01), kThird, s1 * kSixth), 1e-30f));
+  const float p2 = clamp_min(__fmaf_rn(s01 + a12 * a12, kThird, s1 * kSixth), 1e-30f);
   const float detB =
       __fmaf_rn(a02, __fmaf_rn(a01, a12, -(b11 * a02)),
                 __fmaf_rn(b00, __fmaf_rn(b11, b22, -(a12 * a12)),
                           -(a01 * __fmaf_rn(a01, b22, -(a12 * a02))))) /
       (p2 * p);
   const float r = clamp2(detB * 0.5f, -1.0f, 1.0f);
-  const float phi = acosf_xla(r) * kThird;
-  const float lam_max = __fmaf_rn(p * 2.0f, cosf_xla(phi), q);
-  const float lam_min = __fmaf_rn(p * 2.0f, cosf_xla(phi + kTwoPiO3), q);
+  const float acr = acosf_xla(r);
+  const float p_2 = p * 2.0f;
+  const float cos_min = cosf_xla(__fmaf_rn(acr, kThird, kTwoPiO3));
+  const float lam_max = __fmaf_rn(p_2, cosf_xla(acr * kThird), q);
+  const float lam_min = __fmaf_rn(p_2, cos_min, q);
   const float lam_mid = (3.0f * q - lam_max) - lam_min;
+  const float lam_01 = __fmaf_rn(tr, kThird, p_2 * cos_min);
+  const float d0[3] = {a00 - lam_01, a01, a02};
+  const float d1[3] = {a01, a11 - lam_01, a12};
   const float c0[3] = {a00 - lam_min, a01, a02};
   const float c1[3] = {a01, a11 - lam_min, a12};
   const float c2[3] = {a02, a12, a22 - lam_min};
   float x01[3], x02[3], x12[3];
-  cross3f(c0, c1, x01);
+  cross3f(d0, d1, x01);
   cross3f(c0, c2, x02);
   cross3f(c1, c2, x12);
   const float n01 = dot3f(x01, x01), n02 = dot3f(x02, x02), n12 = dot3f(x12, x12);

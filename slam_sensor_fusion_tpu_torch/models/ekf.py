@@ -22,7 +22,7 @@ from typing import NamedTuple
 
 import torch
 
-from slam_sensor_fusion_tpu_torch.ops import geometry
+from slam_sensor_fusion_tpu_torch.ops import geometry, lapack_cpu
 from slam_sensor_fusion_tpu_torch.ops import xla_math as xm
 
 GRAVITY = 9.80665
@@ -223,6 +223,12 @@ def _mm(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return xm.mm_lanes(A, B) if A.shape[-1] >= 4 else xm.mm3(A, B)
 
 
+def _inv(S: torch.Tensor) -> torch.Tensor:
+    """`torch.linalg.inv` on the card; on the CPU jaxlib's LAPACK, as the
+    JAX function's jitted `jnp.linalg.inv` (ops/lapack_cpu)."""
+    return lapack_cpu.inv(S) if S.device.type == "cpu" else torch.linalg.inv(S)
+
+
 def _joseph(P: torch.Tensor, K: torch.Tensor, H: torch.Tensor, Rm: torch.Tensor) -> torch.Tensor:
     eye = torch.eye(15, dtype=torch.float32, device=P.device)
     A = eye - _mm(K, H)
@@ -240,7 +246,7 @@ def update_pose_cov(state: EKFState, T_meas: torch.Tensor, Rm: torch.Tensor) -> 
 
     H = _constants(EKFConfig(), state.p.device).H_pose
     S = _mm(_mm(H, state.P), H.T) + Rm
-    K = _mm(_mm(state.P, H.T), torch.linalg.inv(S))
+    K = _mm(_mm(state.P, H.T), _inv(S))
     dx = xm.mv3(K, r)
     new = _inject(state, dx)
     return new._replace(P=_joseph(state.P, K, H, Rm))
@@ -279,7 +285,7 @@ def update_gps(
     r = pos_meas - state.p
     H = c.H_gps
     S = _mm(_mm(H, state.P), H.T) + Rm
-    S_inv = torch.linalg.inv(S)
+    S_inv = _inv(S)
     chi2 = xm.mv3(xm.mv3(S_inv.T, r)[None], r)[0]
     accept = chi2 <= config.gps_chi2_gate
 

@@ -64,7 +64,7 @@ def deskew(
 
     The arithmetic is the JAX function's as XLA compiles it on the CPU
     (ops/xla_math): glibc's sinf / cosf; each cross-product component
-    fma(x, y, -(u v)); R(th) p as fma(1 - cos, k x (k x p), fma(sin, k x p,
+    fma(x, y, -(u v)), k x r0's as `_kxr_kkr`; R(th) p as fma(1 - cos, k x (k x p), fma(sin, k x p,
     p)); t as fma(sB, k x (k x r0), fma(s, r0, sA (k x r0))); divisions by
     constants as products. One launch of csrc/xla_math.cu on the card, a
     thread a point.
@@ -93,8 +93,7 @@ def deskew(
     Rp = [xm.fma32(omc, kkp[i], xm.fma32(sin, kxp[i], pc[i])) for i in range(3)]
 
     rc = [rho0[..., i, None] for i in range(3)]
-    kxr = xm.cross3(kc, rc)  # fixed (..., 1) each
-    kkr = xm.cross3(kc, kxr)
+    kxr, kkr = _kxr_kkr(kc, rc)  # fixed (..., 1) each
     sA, sB = s * A, s * B
     t = [xm.fma32(sB, kkr[i].expand_as(sB),
                   xm.fma32(s, rc[i].expand_as(s), sA * kxr[i])) for i in range(3)]
@@ -103,6 +102,22 @@ def deskew(
 
 #: `th * th / 6.0` as XLA rewrites it: a product with the float32 1/6
 _SIXTH = 1.0 / 6.0
+
+
+def _kxr_kkr(k: list, r: list) -> tuple[tuple, tuple]:
+    """k x r0 and k x (k x r0) as the jitted deskew's fusion computes them
+    before its loop (its object code): each component fma(x, y, -(u v)),
+    but (k x r0)_x as fma(-k2, r1, k1 r2) where the translation takes it,
+    and that form in (k x (k x r0))_y; (k x (k x r0))_z takes the first."""
+    f = xm.fma32
+    k0, k1, k2 = k
+    r0, r1, r2 = r
+    x_a = f(k1, r2, -(k2 * r1))
+    x_b = f(-k2, r1, k1 * r2)
+    y = f(k2, r0, -(k0 * r2))
+    z = f(k0, r1, -(k1 * r0))
+    kkr = (f(k1, z, -(k2 * y)), f(k2, x_b, -(k0 * z)), f(k0, y, -(k1 * x_a)))
+    return (x_b, y, z), kkr
 
 
 def _deskew_card(points: torch.Tensor, tau: torch.Tensor, twist: torch.Tensor) -> torch.Tensor:

@@ -231,7 +231,8 @@ def _kernel_plain(
             C[0:3, 0:3] = eye3
             C[0:3, 3:6] = -_skew(t_meas_reb)
             C[3:6, 3:6] = R_meas.T
-            Rm = xm.mm_lanes(xm.mm_lanes(C, Sg), C.T) + meas
+            # XLA emits these two 6 x 6 products inline (fma chains from k = 0)
+            Rm = xm.mm3(xm.mm3(C, Sg), C.T) + meas
             if params.gn_anchor_cov:
                 Rm = Rm + S_anchor
         else:

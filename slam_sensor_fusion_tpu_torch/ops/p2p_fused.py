@@ -61,6 +61,7 @@ from slam_sensor_fusion_tpu_torch.ops.morton import tile_bboxes
 from slam_sensor_fusion_tpu_torch.ops.nn_gated import pair_tiles
 from slam_sensor_fusion_tpu_torch.ops.nn_pallas import _build_tile_pair_list, make_pages
 from slam_sensor_fusion_tpu_torch.ops.point_to_plane import (
+    _REDUCE_WINDOW,
     PointToPlaneConfig,
     PointToPlaneResult,
     pose_covariance_from_jtj,
@@ -78,9 +79,10 @@ from slam_sensor_fusion_tpu_torch.ops.point_to_plane import (
 #   multiply-add: `a b + c d + e f` is fma(e, f, fma(a, b, c d)) (`_sum3`),
 #   `a b - c d` is fma(a, b, -(c d)), `s - a b` is fma(-a, b, s); the GN
 #   step's translation, whose operands are negated, the fma chain from the
-#   first product (`xla_math.mv3`);
+#   first product (`xla_math.mv3`) in rows 0 and 2, `_sum3` in row 1;
 # - XLA rewrites a division by a constant as a product with its float32
 #   reciprocal, `(a / b) / c` as `a / (b c)` and `sqrt(d) sqrt(d)` as `d`;
+#   a constant divided by a tensor is a true division (`_over`);
 # - the 29 moment sums are XLA's tree reduction (`_tree_sum`).
 # ---------------------------------------------------------------------------
 
@@ -90,6 +92,13 @@ def _fma(a, b, c) -> torch.Tensor:
     ref = next(x for x in (a, b, c) if isinstance(x, torch.Tensor))
     a, b, c = (x if isinstance(x, torch.Tensor) else ref.new_tensor(x) for x in (a, b, c))
     return xm.fma32(a, b, c)
+
+
+def _over(c: float, x: torch.Tensor) -> torch.Tensor:
+    """c / x rounded once, as XLA divides: torch's `c / x` of a Python
+    number multiplies by x's reciprocal, two roundings that part by an ulp
+    (the Huber weights of K4, K6 and K7's plain versions did)."""
+    return torch.full_like(x, c) / x
 
 
 def _sum3(a0, b0, a1, b1, a2, b2) -> torch.Tensor:
@@ -194,7 +203,13 @@ def _se3_exp_taylor(rho: torch.Tensor, phi: torch.Tensor) -> tuple[torch.Tensor,
     eye = torch.eye(3, dtype=torch.float32, device=phi.device)
     R = _fma(B, K2, _fma(A, K, eye))
     V = _fma(C, K2, _fma(B, K, eye))
-    return R, xm.mv3(V, rho)
+    # t = V rho as the interpreted kernels' scalar code contracts it: rows 0
+    # and 2 the fma chain from the first product, row 1 `_sum3` (read off
+    # the kernels' outputs at 256 and 2048 source rows; no input tried
+    # tells row 2's two forms apart)
+    t = xm.mv3(V, rho)
+    t1 = _sum3(V[1, 0], rho[0], V[1, 1], rho[1], V[1, 2], rho[2])
+    return R, torch.stack([t[0], t1, t[2]])
 
 
 def _polar_polish(R: torch.Tensor) -> torch.Tensor:
@@ -202,11 +217,6 @@ def _polar_polish(R: torch.Tensor) -> torch.Tensor:
     nearly-orthogonal matrix to ~machine precision."""
     R_invT, _ = _adjugate_k(R)
     return 0.5 * (R + R_invT)
-
-
-#: XLA's CPU tree reduction: a reduced dimension longer than this is first
-#: summed in strided windows of this many elements
-_REDUCE_WINDOW = 32
 
 
 def _tree_sum(x: torch.Tensor) -> torch.Tensor:
@@ -249,7 +259,7 @@ def _gn_moments_plain(src_pages, R, t, d2, qn, config: PointToPlaneConfig) -> to
         & (_sum3(nx, nx, ny, ny, nz, nz) > 0.5)
     ).float()
     r = _sum3(nx, px - qx, ny, py - qy, nz, pz - qz)
-    w = w_in * torch.clamp(config.huber_delta / torch.clamp(r.abs(), min=1e-12), max=1.0)
+    w = w_in * torch.clamp(_over(config.huber_delta, torch.clamp(r.abs(), min=1e-12)), max=1.0)
     # J = [n, p' x n]
     J = (nx, ny, nz, _fma(py, nz, -(pz * ny)), _fma(pz, nx, -(px * nz)),
          _fma(px, ny, -(py * nx)))

@@ -24,7 +24,7 @@ from typing import NamedTuple
 
 import torch
 
-from slam_sensor_fusion_tpu_torch.ops import geometry
+from slam_sensor_fusion_tpu_torch.ops import geometry, lapack_cpu
 from slam_sensor_fusion_tpu_torch.ops import xla_math as xm
 from slam_sensor_fusion_tpu_torch.ops.cloud import Cloud
 from slam_sensor_fusion_tpu_torch.ops.morton import (
@@ -103,7 +103,7 @@ def pose_covariance_from_jtj(JtJ: torch.Tensor, T: torch.Tensor, reg: float = 1e
     R = T[:3, :3]
     t = T[:3, 3]
     eye3 = torch.eye(3, dtype=torch.float32, device=T.device)
-    inv = torch.linalg.inv(JtJ + reg * torch.eye(6, dtype=torch.float32, device=T.device))
+    inv = _inv(JtJ + reg * torch.eye(6, dtype=torch.float32, device=T.device))
     top = torch.cat([eye3, -geometry.skew(t)], dim=1)
     bot = torch.cat([torch.zeros_like(eye3), R.T], dim=1)
     C = torch.cat([top, bot], dim=0)
@@ -196,11 +196,32 @@ _EIGH_BATCH = 1 << 14
 
 
 def _eigh(cov: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """`torch.linalg.eigh` of (B, 3, 3) symmetric matrices, _EIGH_BATCH at a
-    time: each matrix is solved on its own, so the split moves no bit (on
-    the card one cuSOLVER call a part)."""
-    parts = [torch.linalg.eigh(c) for c in cov.split(_EIGH_BATCH)]
+    """The eigen-solve of (B, 3, 3) symmetric matrices, ascending: on the
+    CPU jaxlib's own `ssyevd` (ops/lapack_cpu, bit-equal to the JAX
+    package's `jnp.linalg.eigh`, eigenvector signs included); on the card
+    `torch.linalg.eigh`, `_EIGH_BATCH` matrices a cuSOLVER call."""
+    if cov.device.type == "cpu":
+        return lapack_cpu.eigh(cov)
+    return _eigh_in_parts(torch.linalg.eigh, cov)
+
+
+def _eigh_in_parts(fn, cov: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """`fn` (an eigen-solve) over `cov`, _EIGH_BATCH matrices at a time:
+    each matrix is solved on its own, so the split moves no bit."""
+    parts = [fn(c) for c in cov.split(_EIGH_BATCH)]
     return torch.cat([w for w, _ in parts]), torch.cat([v for _, v in parts])
+
+
+def _inv(a: torch.Tensor) -> torch.Tensor:
+    """`torch.linalg.inv` on the card; on the CPU jaxlib's LAPACK, as the
+    JAX package's jitted `jnp.linalg.inv` (ops/lapack_cpu)."""
+    return lapack_cpu.inv(a) if a.device.type == "cpu" else torch.linalg.inv(a)
+
+
+def _solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`torch.linalg.solve` on the card; on the CPU jaxlib's LAPACK, as the
+    JAX package's jitted `jnp.linalg.solve` (ops/lapack_cpu)."""
+    return lapack_cpu.solve(a, b) if a.device.type == "cpu" else torch.linalg.solve(a, b)
 
 
 def estimate_normals_tiled(
@@ -222,9 +243,20 @@ def estimate_normals_tiled(
     w = mask[: C * chunk].reshape(C, chunk).float()
     cnt = w.sum(dim=1)
     denom = torch.clamp(cnt, min=1.0)[:, None]
-    mean = (P * w[..., None]).sum(dim=1) / denom
-    X = (P - mean[:, None, :]) * w[..., None]
-    cov = torch.einsum("cki,ckj->cij", X, X) / denom[..., None]
+    if dev.type == "cpu":
+        # the jitted JAX function's order: each chunk's sum XLA's reduction
+        # (`_xla_sum_rows`), its X^T X XLA's elemental dot, an fma chain
+        # along the chunk from 0 (the card keeps one reduction each)
+        mean = _xla_sum_rows(P * w[..., None]) / denom
+        X = (P - mean[:, None, :]) * w[..., None]
+        dot = X[:, 0, :, None] * X[:, 0, None, :] + 0.0
+        for k in range(1, chunk):
+            dot = xm.fma32(X[:, k, :, None], X[:, k, None, :], dot)
+    else:
+        mean = (P * w[..., None]).sum(dim=1) / denom
+        X = (P - mean[:, None, :]) * w[..., None]
+        dot = torch.einsum("cki,ckj->cij", X, X)
+    cov = dot / denom[..., None]
     cov = cov + 1e-9 * torch.eye(3, dtype=torch.float32, device=dev)[None]
     vals, vecs = _eigh(cov)  # ascending
     chunk_normal = vecs[..., 0]  # (C, 3)
@@ -240,6 +272,32 @@ def estimate_normals_tiled(
     return normals, valid & mask
 
 
+#: XLA's CPU reduction: a reduced dimension longer than this is first
+#: summed in windows of this many consecutive elements
+_REDUCE_WINDOW = 32
+
+
+def _xla_sum_rows(x: torch.Tensor) -> torch.Tensor:
+    """x (C, K, D) summed over K as XLA's CPU code sums it: while K exceeds
+    32, a reduce-window of 32 consecutive rows (SAME padding, the padding
+    added as +0.0), each window summed in order from 0; then the rest in
+    order from 0."""
+    W = _REDUCE_WINDOW
+    while x.shape[1] > W:
+        C, K, D = x.shape
+        o = -(-K // W)
+        pad = o * W - K
+        x = torch.nn.functional.pad(x, (0, 0, pad // 2, pad - pad // 2)).reshape(C, o, W, D)
+        acc = torch.zeros((C, o, D), dtype=x.dtype, device=x.device)
+        for k in range(W):
+            acc = acc + x[:, :, k]
+        x = acc
+    acc = torch.zeros_like(x[:, 0])
+    for k in range(x.shape[1]):
+        acc = acc + x[:, k]
+    return acc
+
+
 def _smallest_eigvec3(cov: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Analytic smallest eigenpair of symmetric (..., 3, 3) matrices: the
     trigonometric eigenvalue formula and the largest of the three row cross
@@ -247,10 +305,16 @@ def _smallest_eigvec3(cov: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, to
     lam_mid).
 
     Rounded as XLA compiles the JAX function inside the jitted normals on
-    the CPU (ops/xla_math): divisions by 3 and 6 as products, the sums of
-    squares, determinant and cross products as fused multiply-add chains,
-    p^3 as p2 * sqrt(p2), XLA's arccos and glibc's cosf, correctly rounded
-    square roots."""
+    the CPU (ops/xla_math; the fusions' object code, run on the same
+    inputs): divisions by 3 and 6 as products, the sums of squares,
+    determinant and cross products as fused multiply-add chains, XLA's
+    arccos and glibc's cosf, correctly rounded square roots. XLA splits the
+    solve over fusions that each recompute what they need and contract it
+    their own way: p's fusion fuses the last square of sum(a_ij^2), the
+    determinant's does not (its a12^2 has a second use) and divides by
+    p2 p; the cosine's argument is fma(acos, 1/3, 2 pi / 3); the x01 cross
+    product's fusion takes lam_min as fma(trace, 1/3, 2 p cos), the
+    others as fma(2 p, cos, q)."""
     a00 = cov[..., 0, 0]
     a11 = cov[..., 1, 1]
     a22 = cov[..., 2, 2]
@@ -258,24 +322,27 @@ def _smallest_eigvec3(cov: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, to
     a02 = cov[..., 0, 2]
     a12 = cov[..., 1, 2]
     f = xm.fma32
-    q = (a00 + a11 + a22) * _THIRD
+    third = torch.full_like(a00, _THIRD)
+    tr = (a00 + a11) + a22
+    q = tr * _THIRD
     b00, b11, b22 = a00 - q, a11 - q, a22 - q
     s1 = f(b22, b22, f(b00, b00, b11 * b11))
-    s2 = f(a12, a12, f(a01, a01, a02 * a02))
-    p2 = torch.clamp(f(s2, torch.full_like(s2, _THIRD), s1 * _SIXTH), min=1e-30)
-    p = xm.sqrtf(p2)
+    s01 = f(a01, a01, a02 * a02)
+    p = xm.sqrtf(torch.clamp(f(f(a12, a12, s01), third, s1 * _SIXTH), min=1e-30))
+    p2 = torch.clamp(f(s01 + a12 * a12, third, s1 * _SIXTH), min=1e-30)
     # det(B)/2 with B = (A - qI)/p
     detB = f(a02, f(a01, a12, -(b11 * a02)),
              f(b00, f(b11, b22, -(a12 * a12)), -(a01 * f(a01, b22, -(a12 * a02))))) / (p2 * p)
-    r = torch.clamp(detB * 0.5, -1.0, 1.0)
-    phi = xm.acosf(r) * _THIRD
-    lam_max = f(p * 2.0, xm.cosf(phi), q)
-    lam_min = f(p * 2.0, xm.cosf(phi + 2.0 * math.pi / 3.0), q)
+    acos_r = xm.acosf(torch.clamp(detB * 0.5, -1.0, 1.0))
+    p_2 = p * 2.0
+    cos_min = xm.cosf(f(acos_r, third, torch.full_like(a00, _TWO_PI_3)))
+    lam_max = f(p_2, xm.cosf(acos_r * _THIRD), q)
+    lam_min = f(p_2, cos_min, q)
     lam_mid = 3.0 * q - lam_max - lam_min
-    c0 = (a00 - lam_min, a01, a02)
-    c1 = (a01, a11 - lam_min, a12)
-    c2 = (a02, a12, a22 - lam_min)
-    x01, x02, x12 = xm.cross3(c0, c1), xm.cross3(c0, c2), xm.cross3(c1, c2)
+    lam_01 = f(tr, third, p_2 * cos_min)
+    x01 = xm.cross3((a00 - lam_01, a01, a02), (a01, a11 - lam_01, a12))
+    x02 = xm.cross3((a00 - lam_min, a01, a02), (a02, a12, a22 - lam_min))
+    x12 = xm.cross3((a01, a11 - lam_min, a12), (a02, a12, a22 - lam_min))
     n01, n02, n12 = xm.sumsq3(*x01), xm.sumsq3(*x02), xm.sumsq3(*x12)
     x01, x02, x12 = (torch.stack(x, dim=-1) for x in (x01, x02, x12))
     best = torch.where(
@@ -296,6 +363,7 @@ def _smallest_eigvec3(cov: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, to
 #: reciprocals
 _THIRD = 1.0 / 3.0
 _SIXTH = 1.0 / 6.0
+_TWO_PI_3 = 2.0 * math.pi / 3.0
 
 
 def _cell_eigen(seg: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -409,6 +477,64 @@ def _cell_segments(points: torch.Tensor, mask: torch.Tensor, cell_size: float) -
     return seg_hi - seg_lo
 
 
+def _transform_xla(T: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """(N, 3) points under T as XLA's CPU code computes the JAX
+    `transform_points` (an elemental dot, each coordinate an fma chain from
+    0 along k, then + t)."""
+    R = T[:3, :3]
+    rot = [points[:, 0] * R[i, 0] + 0.0 for i in range(3)]
+    for k in (1, 2):
+        rot = [xm.fma32(points[:, k], R[i, k], rot[i]) for i in range(3)]
+    return torch.stack(rot, dim=-1) + T[:3, 3]
+
+
+#: XLA's CPU library dot (Eigen's contraction) of the GN's (M, 6)^T (M, 6):
+#: the M rows go in blocks of `_DOT_BLOCK` at most, balanced and aligned
+#: to 8 (the last takes the rest); a block longer than `_DOT_HALF` is two
+#: fma chains, its halves (the first the longer); the chains' sums are
+#: added in order. Read off the jitted `jax.lax.dot_general` on an x86-64
+#: host with a 48 KiB L1 data cache (AVX-512), for up to 9 736 rows; past
+#: that XLA shards the rows over its thread pool, an order that depends on
+#: the host's cores, which this does not follow
+_DOT_BLOCK = 608
+_DOT_HALF = 384
+
+
+def _dot_chains(M: int) -> list[tuple[int, int]]:
+    """The [start, end) row ranges of the library dot's fma chains."""
+    nb = -(-M // _DOT_BLOCK)
+    bs = -(-(M // nb) // 8) * 8
+    chains = []
+    for s in range(0, M, bs):
+        e = min(s + bs, M)
+        if e - s <= _DOT_HALF:
+            chains.append((s, e))
+        else:
+            h = s + -(-(e - s) // 2)
+            chains += [(s, h), (h, e)]
+    return chains
+
+
+def _jtj_xla(J: torch.Tensor, Jw: torch.Tensor) -> torch.Tensor:
+    """sum_m J[m, i] Jw[m, j] as the jitted JAX `einsum("mi,mj,m->ij")`
+    sums it on the CPU (`_dot_chains`)."""
+    out = torch.zeros((J.shape[1], Jw.shape[1]), dtype=torch.float32)
+    for s, e in _dot_chains(J.shape[0]):
+        acc = J[s, :, None] * Jw[s, None, :]
+        for m in range(s + 1, e):
+            acc = xm.fma32(J[m, :, None], Jw[m, None, :], acc)
+        out = out + acc
+    return out
+
+
+def _jtr_xla(J: torch.Tensor, rw: torch.Tensor) -> torch.Tensor:
+    """sum_m J[m, i] rw[m] as XLA's emitted gemv: one fma chain along m."""
+    acc = J[0] * rw[0]
+    for m in range(1, J.shape[0]):
+        acc = xm.fma32(J[m], rw[m], acc)
+    return acc
+
+
 def _k2_lists(
     source: torch.Tensor,
     source_mask: torch.Tensor,
@@ -463,39 +589,63 @@ def point_to_plane_align(
         def associate(pts):
             return nearest_neighbor(pts, source_mask, target, target_mask, center)
 
+    # on the CPU the jitted JAX function's order (`_transform_xla`, the
+    # residual and cross product as fma chains, `_jtj_xla`, `_jtr_xla`,
+    # sums in windows of 32); the card keeps one tensor op each
+    xla = source.device.type == "cpu"
+
     def linearize(T):
         """Association and residuals at T: (w_in, r, J (M, 6))."""
-        pts = geometry.transform_points(T, source)
+        pts = _transform_xla(T, source) if xla else geometry.transform_points(T, source)
         d2, idx = associate(pts)
         idx = idx.long()
         q = target[idx]
         n = target_normals[idx]
         nv = target_normals_valid[idx]
         w_in = (source_mask & (d2 < gate) & nv).float()
-        r = (n * (pts - q)).sum(dim=-1)  # signed plane distance
         # J row: d r / d xi with xi = [rho, phi], T <- exp(xi) T
+        if xla:
+            d = pts - q
+            r = xm.fma32(n[:, 2], d[:, 2], xm.fma32(n[:, 1], d[:, 1], n[:, 0] * d[:, 0] + 0.0))
+            pxn = xm.cross3(pts.unbind(-1), n.unbind(-1))
+            return w_in, r, torch.cat([n, torch.stack(pxn, dim=-1)], dim=-1)
+        r = (n * (pts - q)).sum(dim=-1)  # signed plane distance
         J = torch.cat([n, torch.linalg.cross(pts, n)], dim=-1)
         return w_in, r, J
 
+    def moments(J, w, rw=None):
+        """JtJ (and Jtr) of the weighted rows."""
+        if xla:
+            return _jtj_xla(J, J * w[:, None]), None if rw is None else _jtr_xla(J, rw)
+        JtJ = torch.einsum("mi,mj,m->ij", J, J, w)
+        return JtJ, None if rw is None else torch.einsum("mi,m->i", J, rw)
+
     def huber(r):
-        return torch.clamp(config.huber_delta / torch.clamp(r.abs(), min=1e-12), max=1.0)
+        # a true division, as XLA's (torch's `delta / x` multiplies by the
+        # reciprocal); launches as many kernels on the card
+        den = torch.clamp(r.abs(), min=1e-12)
+        return torch.clamp(torch.full_like(den, config.huber_delta) / den, max=1.0)
 
     eye6 = torch.eye(6, dtype=torch.float32, device=source.device)
     T = initial_T
     for _ in range(config.num_iterations):
         w_in, r, J = linearize(T)
         w = w_in * huber(r)
-        JtJ = torch.einsum("mi,mj,m->ij", J, J, w) + config.damping * eye6
-        Jtr = torch.einsum("mi,m->i", J, r * w)
-        dx = -torch.linalg.solve(JtJ, Jtr)
-        T = geometry.se3_exp(dx) @ T
+        JtJ, Jtr = moments(J, w, r * w)
+        dx = -_solve(JtJ + config.damping * eye6, Jtr)
+        step = geometry.se3_exp(dx)
+        T = xm.mm3(step, T) if xla else step @ T
 
     # final stats (+ the GN covariance export: Huber-weighted JtJ at the
     # final transform)
     w, r, J = linearize(T)
-    wr2 = (w * r * r).sum()
-    rmse = torch.sqrt(wr2 / torch.clamp(w.sum(), min=1.0))
-    JtJ = torch.einsum("mi,mj,m->ij", J, J, w * huber(r))
+    if xla:  # XLA's reduction of the M rows (windows of 32)
+        wr2 = _xla_sum_rows((w * r * r)[None, :, None])[0, 0]
+        rmse = xm.sqrtf(wr2 / torch.clamp(_xla_sum_rows(w[None, :, None])[0, 0], min=1.0))
+    else:
+        wr2 = (w * r * r).sum()
+        rmse = torch.sqrt(wr2 / torch.clamp(w.sum(), min=1.0))
+    JtJ, _ = moments(J, w * huber(r))
     return PointToPlaneResult(
         transformation=T,
         rmse=rmse,

@@ -16,12 +16,14 @@ processes of a `torch.distributed` group, each holding its block of the
 shards: `run_distributed` spawns the ranks on this host; under `torchrun`
 the module is its own entry point:
 
-    torchrun --nproc-per-node N -m slam_sensor_fusion_tpu_torch.parallel.dryrun [--shards S]
+    torchrun --nproc-per-node N -m slam_sensor_fusion_tpu_torch.parallel.dryrun \
+        [--shards S] [--device cuda|cpu]
 
-Each rank runs on `cuda:<local rank>` with NCCL where there are cards (on
-the CPU with gloo otherwise), and rank 0 holds the group's results against
-one process holding every shard, bit for bit. Without `torchrun` the
-module runs `dryrun_multichip`.
+Each rank runs on `cuda:<local rank>` with NCCL (`--device cuda`, the
+default; it raises where no card is present) or on the CPU with gloo
+(`--device cpu`), and rank 0 holds the group's results against one process
+holding every shard, bit for bit. Without `torchrun` the module runs
+`dryrun_multichip` on `--device`.
 """
 
 from __future__ import annotations
@@ -457,10 +459,18 @@ def dryrun_multichip(n_devices: int, device: torch.device | str = torch.device("
     return line
 
 
-def _torchrun_main(n_shards: int | None) -> None:
-    """One rank under torchrun: the three combining paths over the group,
-    held by rank 0 against one process holding every shard."""
-    cuda = torch.cuda.is_available()
+def _torchrun_main(n_shards: int | None, device: str = "cuda") -> None:
+    """One rank under torchrun on `device` ("cuda": NCCL, a card a rank;
+    "cpu": gloo): the three combining paths over the group, held by rank 0
+    against one process holding every shard. Asked for the card where
+    there is none, it raises before joining the group."""
+    kind = torch.device(device).type
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(f"dry run: device {device!r}, expected cuda or cpu")
+    cuda = kind == "cuda"
+    if cuda and not torch.cuda.is_available():
+        raise RuntimeError("dry run: --device cuda asked for, and this host has no CUDA device "
+                           "(pass --device cpu to run the ranks on the CPU with gloo)")
     local = int(os.environ.get("LOCAL_RANK", "0"))
     device = torch.device("cuda", local) if cuda else torch.device("cpu")
     if cuda:
@@ -486,10 +496,11 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--shards", type=int, default=None,
                     help="shards of the mesh (default: the world size, or 4 without torchrun)")
-    ap.add_argument("--device", default="cuda", help="the dry run's device without torchrun")
+    ap.add_argument("--device", default="cuda",
+                    help="the dry run's device: cuda (under torchrun a card a rank, NCCL) or cpu")
     args = ap.parse_args()
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
-        _torchrun_main(args.shards)
+        _torchrun_main(args.shards, args.device)
     else:
         dryrun_multichip(args.shards or 4, args.device)
 

@@ -9,9 +9,13 @@ the fused backend, source tiles of 512) on its own fixture (129 frames of
 16 384 points over 140 m, of which the first `--frames` after the seeding
 frame run), through `run_lio_superblocks` with deskew in each package,
 both starting from the port's `init_state` (the JAX side's K7 in Pallas
-interpret mode, the port's K7 its plain version). Prints one JSON line:
-each package's ATE-RMSE against the fixture's poses, the worst pose
-difference between them in the first block, in each block and over the run, and how many
+interpret mode, the port's K7 its plain version). The JAX package runs
+twice: in one call over every frame (its loop over blocks), and a block a
+call, each call continuing from the last one's state (one-block programs,
+which XLA compiles into other fusions than the loop's). Prints one JSON
+line: each package's ATE-RMSE against the fixture's poses, the worst pose
+difference between them in the first block, in each block and over the
+run, the port's against the block-a-call run, and how many
 of the first anchor's valid cell normals differ by more than 1e-3 in
 direction. A minute or more of interpret-mode Pallas: not a tier-1 test.
 """
@@ -62,11 +66,23 @@ def main() -> None:
     _, out_j = jl.run_lio_superblocks(st_j, *[jnp.asarray(a) for a in frames],
                                       jax_lio_config(cfg), scan_tau=jnp.asarray(tau),
                                       interpret=True)
+    # the JAX package a block a call (one-block programs, each continuing
+    # from the last one's state)
+    R, st_b, blocks = cfg.refresh_every, st_j, []
+    for lo in range(0, n, R):
+        st_b, out_b = jl.run_lio_superblocks(
+            st_b, *[jnp.asarray(a[lo:lo + R]) for a in frames], jax_lio_config(cfg),
+            scan_tau=jnp.asarray(tau[lo:lo + R]), interpret=True)
+        blocks.append(np.asarray(out_b.world_T_body))
+    est_b = np.concatenate(blocks)
     _, out_t = tl.run_lio_superblocks(st_t, *[t(a) for a in frames], cfg, scan_tau=t(tau))
     est_j, est_t = np_tree(out_j).world_T_body, out_t.world_T_body.numpy()
     d = np.abs(est_t - est_j).max(axis=(1, 2))
-    # each package's first refresh of the same ring: their cell normals
-    a_j = jl._refresh_anchor(st_j.ring, st_j.ring_mask, st_j.ekf_state.p, jax_lio_config(cfg))
+    d_b = np.abs(est_t - est_b).max(axis=(1, 2))
+    # each package's first refresh of the same ring (the JAX one jitted, as
+    # the LIO runs it): their cell normals
+    a_j = jax.jit(jl._refresh_anchor, static_argnums=3)(
+        st_j.ring, st_j.ring_mask, st_j.ekf_state.p, jax_lio_config(cfg))
     a_t = tl._refresh_anchor(st_t.ring, st_t.ring_mask, st_t.ekf_state.p, cfg)
     valid = np.asarray(a_j[3])
     gap = 1.0 - np.abs((a_t[2].numpy() * np.asarray(a_j[2])).sum(-1))[valid]
@@ -77,6 +93,9 @@ def main() -> None:
         "pose_diff_run": float(d.max()),
         "pose_diff_by_block": [float(d[i:i + cfg.refresh_every].max())
                                for i in range(0, n, cfg.refresh_every)],
+        "ate_rmse_m_jax_block_a_call": cs.ate_rmse(est_b, poses[1:]),
+        "pose_diff_run_vs_jax_block_a_call": float(d_b.max()),
+        "jax_call_vs_jax_block_a_call": float(np.abs(est_j - est_b).max()),
         "valid_normals": int(valid.sum()),
         "valid_masks_equal": bool(np.array_equal(a_t[3].numpy(), valid)),
         "normals_apart_1e-3": int((gap > 1e-3).sum()), "normals_max_gap": float(gap.max()),

@@ -2,9 +2,8 @@
 the same NumPy inputs: so3/se3 exp and log EQUAL bit for bit to the JAX
 functions jitted, as the LIO path runs them (ops/xla_math: glibc's sinf /
 cosf, XLA's arccos, correctly rounded sqrt, XLA's fused multiply-adds;
-se3_exp twist by twist, as the registration calls it), deskew to 1e-6 on
-10 m coordinates (its rotation bit-equal, its translation an ulp off in
-~1% of rows while turning), Morton codes and the device sort (EQUAL integers
+se3_exp twist by twist, as the registration calls it), deskew EQUAL bit
+for bit on 10 m coordinates (turning and not), Morton codes and the device sort (EQUAL integers
 and order), the skewed-scan renderer and the IMU synthesizer (bitwise:
 NumPy both), and the host twins of deskew / se3_log (1e-5 on 10 m
 coordinates, 1e-6)."""
@@ -153,10 +152,9 @@ def test_deskew_matches_jax(xi):
     tau[:10] = 1.0  # angle 0: the series branch
     got = td.deskew(t(pts), t(tau), t(xi)).numpy()
     want = np.asarray(jax.jit(jd.deskew)(jnp.asarray(pts), jnp.asarray(tau), jnp.asarray(xi)))
-    # the rotation part is bit-equal; the translation term differs by an ulp
-    # in a few rows (6 of 777 while turning: a contraction of XLA's
-    # vectorized loop not reproduced, ROADMAP §3)
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    # bit-equal, the translation term too: k x r0 as the jitted fusion's
+    # object code computes it (deskew._kxr_kkr)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
     np.testing.assert_allclose(td.deskew_numpy(pts, tau, xi), jd.deskew_numpy(pts, tau, xi),
                                rtol=0, atol=0)
     np.testing.assert_allclose(td.deskew_numpy(pts, tau, xi), got, rtol=0, atol=1e-5)

@@ -3,27 +3,29 @@ covariance mapping of the PyTorch port (ops/point_to_plane) against the JAX
 package on the same NumPy clouds.
 
 Valid masks are EQUAL (cell counts are sums of 0/1, exact in float32).
-Normals are compared up to sign, the estimators' own freedom (`eigh`, and
-the largest of three row cross products): |n . n'| > 1 - tol.
- * voxel and tiled (per-cell sums + `eigh`): tol 1e-4 on planar cells; the
-   voxel estimator's moments are bit-equal to the JAX package's scatter-add
-   (each cell's rows in row order, ops/voxel_segsum), near the origin and
-   40 m and 140 m off it;
+ * voxel and tiled (per-cell sums + `eigh`): the normals are BIT-EQUAL to
+   the JAX package's jitted functions, eigenvector signs included. On the
+   CPU the port's eigen-solve is jaxlib's own (scipy's `ssyevd`, after
+   jax's symmetrization: ops/lapack_cpu); the voxel estimator's moments are
+   bit-equal to the JAX package's scatter-add (each cell's rows in row
+   order, ops/voxel_segsum), near the origin and 40 m and 140 m off it; the
+   tiled estimator's chunk sums follow XLA's reduction (windows of 32 rows)
+   and its X^T X XLA's elemental dot (an fma chain along the chunk);
  * cells (moments as differences of a float32 cumulative sum over the whole
    cloud at world coordinates): the prefix sums reach ~1e6 while a cell's
    variance is ~1e-2, so the scan's order of addition decides the normals
    of thin cells. The port adds in XLA's order (ops/ordered_scan,
    tests/test_torch_ordered_scan.py) and rounds the covariance and the 3x3
    eigen-solve as XLA compiles them inside the jitted normals, as the LIO
-   path runs them (fma(-E[a], E[b], E[ab]), the solve's fused chains,
-   XLA's arccos, glibc's cosf, correctly rounded sqrt: ops/xla_math), so
-   every valid normal agrees with the jitted JAX function's: gap < 1e-6
-   (found 1.8e-7 within 12 m of the origin and shifted by (40, 30, 0) m,
-   1.2e-7 shifted by (140, -60, 2) m; ~95% of the components bit-equal),
-   with EQUAL valid masks, the planarity gate's too. The JAX function run
-   op by op (eager, no fusion, no contraction) rounds otherwise. Against
-   the same formula in float64, the port is no further than the JAX
-   package is."""
+   path runs them, fusion by fusion (fma(-E[a], E[b], E[ab]), the solve's
+   fused chains, each fusion's own contraction of what it recomputes,
+   XLA's arccos, glibc's cosf, correctly rounded sqrt: ops/xla_math,
+   `_smallest_eigvec3`), so every normal, valid or not, is BIT-EQUAL to the
+   jitted JAX function's within 12 m of the origin and shifted by
+   (40, 30, 0) m and (140, -60, 2) m, with EQUAL valid masks, the planarity
+   gate's too. The JAX function run op by op (eager, no fusion, no
+   contraction) rounds otherwise. Against the same formula in float64, the
+   port is no further than the JAX package is."""
 
 import functools
 
@@ -126,23 +128,27 @@ def test_estimate_normals_voxel_matches_jax(voxel, shift, cloud):
     n_j, v_j = _jax_estimate_normals(jnp.asarray(pts), jnp.asarray(mask), voxel)
     n_t, v_t = tp.estimate_normals(t(pts), t(mask), voxel)
     np.testing.assert_array_equal(v_t.numpy(), np.asarray(v_j))
-    gap = _unsigned_gap(n_t.numpy(), np.asarray(n_j), np.asarray(v_j))
     assert np.asarray(v_j).sum() > 1500
-    # eigh on near-isotropic cells (poles, corners) is free to differ: 99%
-    assert np.mean(gap < 1e-4) > 0.99, np.mean(gap < 1e-4)
+    # every row's normal, signs included (jaxlib's eigh on the same bits)
+    np.testing.assert_array_equal(n_t.numpy().view(np.int32), np.asarray(n_j).view(np.int32))
 
 
-@pytest.mark.parametrize("chunk", [32, 64])
+#: the JAX package's tiled normals jitted as the LIO runs them (`chunk`, a
+#: field of its static config, static)
+_jax_estimate_normals_tiled = jax.jit(jp.estimate_normals_tiled, static_argnums=2)
+
+
+@pytest.mark.parametrize("chunk", [32, 64, 48])
 def test_estimate_normals_tiled_matches_jax(chunk):
+    """Bit-equal to the jitted JAX function, signs included: at 32 rows a
+    chunk's sums are one reduction, at 64 two windows of 32, at 48 two
+    windows with XLA's padding; each X^T X an fma chain along the chunk."""
     pts, mask = _ring(1, radius=12.0, shift=(3.0, -2.0, 0.0), cap=8192 + 16)  # a ragged tail
-    n_j, v_j = jp.estimate_normals_tiled(jnp.asarray(pts), jnp.asarray(mask), chunk)
+    n_j, v_j = _jax_estimate_normals_tiled(jnp.asarray(pts), jnp.asarray(mask), chunk)
     n_t, v_t = tp.estimate_normals_tiled(t(pts), t(mask), chunk)
-    # the planarity gate compares two float32 eigenvalues: a flip is a
-    # whole chunk; none found
     np.testing.assert_array_equal(v_t.numpy(), np.asarray(v_j))
-    gap = _unsigned_gap(n_t.numpy(), np.asarray(n_j), np.asarray(v_j))
     assert np.asarray(v_j).sum() > 1000
-    assert gap.max() < 1e-4, gap.max()
+    np.testing.assert_array_equal(n_t.numpy().view(np.int32), np.asarray(n_j).view(np.int32))
 
 
 @pytest.mark.parametrize("shift", [(0.0, 0.0, 0.0), (40.0, 30.0, 0.0), (140.0, -60.0, 2.0)],
@@ -162,7 +168,7 @@ def test_estimate_normals_cells_matches_jax(shift):
     print(f"cells {shift}: port vs jax max gap {gap.max():.3g}; "
           f"vs float64 within 1e-3: jax {np.mean(gap_j < 1e-3):.3f} / {gap_j.mean():.4f}, "
           f"port {np.mean(gap_t < 1e-3):.3f} / {gap_t.mean():.4f}")
-    assert gap.max() < 1e-6, gap.max()
+    np.testing.assert_array_equal(n_t.numpy().view(np.int32), np.asarray(n_j).view(np.int32))
     assert np.mean(gap_t < 1e-3) > np.mean(gap_j < 1e-3) - 0.05
     assert gap_t.mean() < 2.0 * gap_j.mean() + 0.01
 
@@ -196,33 +202,44 @@ def test_smallest_eigvec3_matches_jax_and_eigh():
 
 def test_pose_covariance_from_jtj_matches_jax():
     """An ill-conditioned JtJ (a corridor: one direction barely observed)
-    with reg = 1e-6: LU implementations may differ by up to 1e-7 x the
-    condition number. Found 6e-7 relative on the diagonal at condition
-    1.3e5; held to 1e-4."""
+    with reg = 1e-6, at three translations: bit-equal to the jitted JAX
+    function. Its inverse is jaxlib's LAPACK on both sides (getrf + trsm,
+    ops/lapack_cpu); torch's CPU inverse had parted by 6e-7 relative on the
+    diagonal at condition 1.3e5."""
     rng = np.random.default_rng(5)
     J = rng.normal(0, 1, (400, 6)).astype(np.float32)
     J[:, 1] *= 3e-3
     JtJ = (J.T @ J).astype(np.float32)
-    T = np.eye(4, dtype=np.float32)
-    T[:3, 3] = [3.0, -2.0, 0.5]
-    got = tp.pose_covariance_from_jtj(t(JtJ), t(T)).numpy()
-    want = np.asarray(jp.pose_covariance_from_jtj(jnp.asarray(JtJ), jnp.asarray(T)))
-    print("cond", np.linalg.cond(JtJ.astype(np.float64)),
-          "rel diag diff", np.abs(np.diag(got) / np.diag(want) - 1).max())
-    np.testing.assert_allclose(np.diag(got), np.diag(want), rtol=1e-4)
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
+    cov_j = jax.jit(jp.pose_covariance_from_jtj)
+    for trans in ([3.0, -2.0, 0.5], [40.0, 30.0, 0.0], [140.0, -60.0, 2.0]):
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = _rotation(0.3)
+        T[:3, 3] = trans
+        got = tp.pose_covariance_from_jtj(t(JtJ), t(T)).numpy()
+        want = np.asarray(cov_j(jnp.asarray(JtJ), jnp.asarray(T)))
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def _rotation(angle: float) -> np.ndarray:
+    c, s = np.cos(angle), np.sin(angle)
+    return np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]], np.float32)
 
 
 def test_eigh_in_parts_equals_one_call():
-    """The estimators' eigen-solve in parts of `_EIGH_BATCH` matrices (the
-    card's batched solver refuses larger batches) gives the bits of one
-    call over the whole batch, in order."""
+    """The card's eigen-solve in parts of `_EIGH_BATCH` matrices (its
+    batched solver refuses larger batches) gives the bits of one call over
+    the whole batch, in order; the CPU's is jaxlib's over the batch."""
     rng = np.random.default_rng(6)
     A = rng.normal(0, 1, (2 * tp._EIGH_BATCH + 3, 3, 3)).astype(np.float32)
     cov = t(A @ A.transpose(0, 2, 1))
-    w, v = tp._eigh(cov)
+    w, v = tp._eigh_in_parts(torch.linalg.eigh, cov)
     w1, v1 = torch.linalg.eigh(cov)
     assert torch.equal(w, w1) and torch.equal(v, v1)
+    # and the CPU's eigen-solve, jaxlib's, on the whole batch
+    w_j, v_j = jax.jit(jnp.linalg.eigh)(cov.numpy())
+    w, v = tp._eigh(cov)
+    np.testing.assert_array_equal(w.numpy().view(np.int32), np.asarray(w_j).view(np.int32))
+    np.testing.assert_array_equal(v.numpy().view(np.int32), np.asarray(v_j).view(np.int32))
 
 
 def _voxel_normals_case():
